@@ -1,0 +1,35 @@
+"""Plain oracles of the W4A8 kernel (port of ``repro/kernels/ref.py``,
+the ``w4a8_mm`` part), exact integer arithmetic on either device."""
+
+from __future__ import annotations
+
+import torch
+
+from .w4a8_mm import exact_int_matmul, unpack_int4
+
+
+def w4a8_matmul_ref(x_int8, w_packed, w_scale, act_scale, act_zp):
+    """Dequantize-then-matmul with exact integer accumulation, in the
+    reference oracle's operation order ``(acc - corr) * act_scale * w_scale``
+    (the kernel's plain version, ``w4a8_matmul_plain``, keeps the kernel's
+    order instead)."""
+    q = unpack_int4(w_packed).to(torch.int32)  # (K, N)
+    acc = exact_int_matmul(x_int8, q).to(torch.float32)
+    corr = (q.sum(dim=0) * act_zp).to(torch.float32)
+    return (acc - corr[None, :]) * act_scale * w_scale.to(torch.float32)[None, :]
+
+
+def w4a8_tile_partials_ref(x_int8, w_packed, tile: int):
+    """Per-K-tile int32 partial sums (M, n_tiles, N): the inner-accumulator
+    watermark of each certified tile."""
+    q = unpack_int4(w_packed)
+    m, k = x_int8.shape
+    n = q.shape[1]
+    nt = k // tile
+    xt = x_int8.reshape(m, nt, tile).transpose(0, 1)  # (nt, M, tile)
+    qt = q.reshape(nt, tile, n)
+    if x_int8.is_cuda:
+        parts = torch.bmm(xt.to(torch.float64), qt.to(torch.float64)).to(torch.int32)
+    else:
+        parts = torch.bmm(xt.to(torch.int32), qt.to(torch.int32))
+    return parts.transpose(0, 1)  # (M, nt, N)
