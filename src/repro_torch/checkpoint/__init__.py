@@ -1,3 +1,3 @@
-from .manager import read_manifest
+from .manager import read_manifest, save_pytree
 
-__all__ = ["read_manifest"]
+__all__ = ["read_manifest", "save_pytree"]

@@ -1,16 +1,53 @@
-"""Read side of the checkpoint format (port of
-``repro/checkpoint/manager.py``): a directory of per-leaf ``.npy`` files
-and a ``manifest.json`` naming each leaf, its file, shape and dtype. The
-JAX package writes it (``save_pytree``); the port reads it unchanged. The
-write side arrives with the training slice of the port.
+"""The checkpoint format (port of ``repro/checkpoint/manager.py``): a
+directory of per-leaf ``.npy`` files and a ``manifest.json`` naming each
+leaf, its file, shape and dtype. :func:`save_pytree` writes a flat dict of
+arrays (an artifact) as the reference's ``save_pytree`` writes one, so
+either package reads it; :func:`read_manifest` reads the reference's files
+unchanged. Training checkpoints (``CheckpointManager``) arrive with the
+training slice of the port.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
+import tempfile
 
 import numpy as np
+import torch
+
+
+def save_pytree(tree: dict, directory: str, extra_meta: dict | None = None) -> None:
+    """Atomic write (temporary directory + rename) of a flat dict of arrays
+    or tensors. Leaves go in the reference's order (sorted keys) under its
+    names (``"['<key>']"``, the ``keystr`` of a flat string key)."""
+    parent = os.path.dirname(os.path.abspath(directory)) or "."
+    os.makedirs(parent, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=parent, prefix=".ckpt_tmp_")
+    try:
+        manifest = {"leaves": [], "meta": extra_meta or {}}
+        for i, key in enumerate(sorted(tree)):
+            leaf = tree[key]
+            if isinstance(leaf, dict):
+                raise TypeError(f"save_pytree writes a flat dict; {key!r} holds a dict")
+            if isinstance(leaf, torch.Tensor):
+                if leaf.dtype == torch.bfloat16:
+                    raise TypeError(f"{key!r}: bfloat16 leaves have no numpy type")
+                leaf = leaf.detach().cpu().numpy()
+            arr = np.asarray(leaf)
+            fname = f"leaf_{i:05d}.npy"
+            np.save(os.path.join(tmp, fname), arr)
+            manifest["leaves"].append({"name": f"[{key!r}]", "file": fname,
+                                       "shape": list(arr.shape), "dtype": str(arr.dtype)})
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f)
+        if os.path.exists(directory):
+            shutil.rmtree(directory)
+        os.replace(tmp, directory)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
 
 
 def _load_leaf(directory: str, entry: dict) -> np.ndarray:

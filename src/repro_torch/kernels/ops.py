@@ -1,5 +1,5 @@
-"""Serving-side wrappers around the kernels (port of
-``repro/kernels/ops.py``, the part the serving path runs)."""
+"""Public wrappers around the kernels (port of ``repro/kernels/ops.py``:
+the serving path's activation quantizer and the GPFQ panel solver)."""
 
 from __future__ import annotations
 
@@ -20,4 +20,17 @@ def quantize_activations(x: torch.Tensor):
     return codes, scale, zp
 
 
-__all__ = ["quantize_activations"]
+def gpfq_quantize_panel(w_int, xg, xh, lam, budget_b, *, w_bits: int = 4, tile: int = 128,
+                        rounding: str = "nearest"):
+    """The reference's panel-solver call: split budgets [-B, B], tile ids in
+    natural order. Returns the (K, C) codes; the CUDA kernel runs for CUDA
+    tensors, its plain version for CPU tensors."""
+    from .gpfq_solve import gpfq_solve
+
+    tile_ids = torch.arange(w_int.shape[0], device=w_int.device) // tile
+    q, _, _, _ = gpfq_solve(w_int, xg, xh, lam, tile_ids, -float(budget_b), float(budget_b),
+                            w_bits=w_bits, mode="split", rounding=rounding)
+    return q
+
+
+__all__ = ["gpfq_quantize_panel", "quantize_activations"]

@@ -1,5 +1,6 @@
-"""Plain oracles of the W4A8 kernel (port of ``repro/kernels/ref.py``,
-the ``w4a8_mm`` part), exact integer arithmetic on either device."""
+"""Plain oracles of the kernels (port of ``repro/kernels/ref.py``): the
+W4A8 GEMM in exact integer arithmetic and the GPFQ loop, on either
+device."""
 
 from __future__ import annotations
 
@@ -33,3 +34,21 @@ def w4a8_tile_partials_ref(x_int8, w_packed, tile: int):
     else:
         parts = torch.bmm(xt.to(torch.int32), qt.to(torch.int32))
     return parts.transpose(0, 1)  # (M, nt, N)
+
+
+def gpfq_solve_ref(w_int, xg, xh, *, w_bits, lam, budget_b, tile, rounding="nearest"):
+    """The GPFQ loop with split budgets [-B, B] and natural tile ids, through
+    the kernel's plain version on any device (the reference's oracle is
+    ``_gpfq_loop``, which the plain version transcribes)."""
+    from .gpfq_solve import gpfq_solve_plain, row_terms
+
+    k, c = w_int.shape
+    n_tiles = (k + tile - 1) // tile
+    lam = torch.broadcast_to(torch.as_tensor(lam, dtype=torch.float32, device=w_int.device),
+                             (n_tiles, c)).contiguous()
+    tid = torch.arange(k, device=w_int.device, dtype=torch.int32) // tile
+    hg, hn = row_terms(xg, xh)
+    q, _, _, _ = gpfq_solve_plain(w_int, xg, xh, hg, hn, lam, tid, -float(budget_b),
+                                  float(budget_b), qmax=float(2 ** (w_bits - 1) - 1),
+                                  mode="split", rounding=rounding)
+    return q

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 from repro_torch.models.config import ModelConfig
 
-from .base import BlockAdapter, SiteSpec
+from .base import BlockAdapter, Pair, SiteSpec, TapContext, TapFn, both
 from .dense import AttentionAdapter, MLPAdapter
 
 _REGISTRY: dict[tuple[str, str], BlockAdapter] = {
@@ -35,4 +35,13 @@ def check_supported(cfg: ModelConfig) -> None:
                 get_adapter(kind, name)
 
 
-__all__ = ["BlockAdapter", "SiteSpec", "check_supported", "get_adapter"]
+__all__ = [
+    "BlockAdapter",
+    "Pair",
+    "SiteSpec",
+    "TapContext",
+    "TapFn",
+    "both",
+    "check_supported",
+    "get_adapter",
+]

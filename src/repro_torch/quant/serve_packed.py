@@ -7,9 +7,14 @@ Two sources of packed sites:
     weights, the shape-compatible fallback when no calibrated artifact is
     supplied (dynamic activation quantization);
   * :func:`load_flat_artifact` + :func:`packed_params_from_artifact` — the
-    v2 artifact the JAX package's ``repro.launch.quantize --out`` writes:
-    AXE codes, scales, corrected biases, per-site DatapathSpecs and static
-    activation quantizers, packed at load.
+    v2 artifact that ``repro_torch.launch.quantize --out`` (or the JAX
+    package's ``repro.launch.quantize --out``) writes: AXE codes, scales,
+    corrected biases, per-site DatapathSpecs and static activation
+    quantizers, packed at load;
+  * :func:`serving_params_from_quantized` — the same, straight from a
+    calibrated :class:`~repro_torch.quant.pipeline.QuantizedModel` in
+    memory. :func:`export_quantized_artifact` flattens one to the v2 disk
+    format.
 
 Both return a new :class:`~repro_torch.models.transformer.Transformer`
 whose quantizable sites are :class:`~repro_torch.models.layers.PackedLinear`
@@ -29,7 +34,7 @@ from repro_torch.core.alphabet import weight_alphabet
 from repro_torch.core.quantizers import quantize_int, weight_scales
 from repro_torch.kernels.w4a8_mm import pack_int4, unpack_int4
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import Linear, Norm, PackedLinear
+from repro_torch.models.layers import MLP, Attention, Linear, Norm, PackedLinear
 
 from .families import SiteSpec, check_supported, get_adapter
 from .spec import (
@@ -44,15 +49,18 @@ from .spec import (
 __all__ = [
     "ensure_col_sums",
     "ensure_datapath_spec",
+    "export_quantized_artifact",
     "load_flat_artifact",
     "pack_decode_params",
     "packable_sites",
     "packed_params_from_artifact",
     "packed_weight_bytes",
+    "serving_params_from_quantized",
     "upgrade_packed_params",
 ]
 
 _SLICE_2TO4 = "2:4 sparse sites arrive with the 2:4 slice of the port"
+_COMPONENTS = {"mixer": Attention, "ffn": MLP}
 
 
 def packable_sites(cfg: ModelConfig):
@@ -156,10 +164,18 @@ def pack_decode_params(model, cfg: ModelConfig | None = None, ptq=None):
 # ---------------------------------------------------------------------------
 # Calibrated artifacts (the v2 disk format)
 # ---------------------------------------------------------------------------
+def _f32(a, device) -> torch.Tensor:
+    """A numpy array or tensor as a float32 tensor on ``device``."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=torch.float32)
+    return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+
 def _site_rec_leaf(rec: dict, site: SiteSpec, name: str, device):
     """One layer's site record -> a serving site.
 
-    ``rec``: {"q": (K, C) int8-valued codes, "scale": (1, C), "spec":
+    ``rec``: {"q": (K, C) int8-valued codes, "scale": (1, C) (numpy arrays
+    or tensors), "spec":
     DatapathSpec with act numerics, "bias": optional (C,)}. Returns a
     PackedLinear, or a float :class:`Linear` (dequantized weight plus the
     corrected bias) when the codes have no int4 container (w_bits > 4 or
@@ -167,11 +183,10 @@ def _site_rec_leaf(rec: dict, site: SiteSpec, name: str, device):
     spec = rec["spec"]
     if spec.sparsity is not None:
         raise NotImplementedError(f"site {name}: {_SLICE_2TO4}")
-    q = torch.as_tensor(np.asarray(rec["q"], np.float32), device=device)
-    scale = torch.as_tensor(np.asarray(rec["scale"], np.float32), device=device)
+    q = _f32(rec["q"], device)
+    scale = _f32(rec["scale"], device)
     bias = rec.get("bias")
-    bias = (torch.as_tensor(np.asarray(bias, np.float32), device=device)
-            if site.use_bias and bias is not None else None)
+    bias = _f32(bias, device) if site.use_bias and bias is not None else None
     if spec.w_bits > 4 or site.k % 2 != 0:
         return Linear(q * scale, bias)
     act_scale = act_zp = None
@@ -188,6 +203,79 @@ def _site_rec_leaf(rec: dict, site: SiteSpec, name: str, device):
         act_zp=act_zp,
         bias=bias,
     )
+
+
+def serving_params_from_quantized(qm):
+    """The packed serving model straight from a calibrated QuantizedModel:
+    AXE codes, per-channel scales, static activation quantizers, corrected
+    biases and per-site specs, with the equalization-folded norms and the
+    float embedding and final norm of the calibrated model."""
+    from repro_torch.models.transformer import Block, Transformer
+
+    cfg = qm.cfg
+    layers = []
+    for b in qm.blocks:
+        def norm_of(d):
+            return None if d is None else Norm(d["w"], d.get("b"))
+
+        block = Block(b.spec, norm1=norm_of(b.norm1), norm2=norm_of(b.norm2))
+        for kind in ("mixer", "ffn"):
+            comp = getattr(b, kind)
+            if comp is None:
+                continue
+            sites = {}
+            for name, site in comp.specs.items():
+                ql = comp.linears[name]
+                rec = {"q": ql.q_int, "scale": ql.scale, "spec": ql.spec, "bias": ql.bias}
+                sites[site.path[-1]] = _site_rec_leaf(rec, site, name, ql.q_int.device)
+            for name, v in comp.params.items():
+                if v is not None:
+                    sites[name] = Linear(v)
+            setattr(block, kind, _COMPONENTS[kind](**sites))
+        layers.append(block)
+    return Transformer(cfg, qm.embedding, layers, qm.final_norm)
+
+
+def _np(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def export_quantized_artifact(qm) -> tuple[dict, dict]:
+    """Flatten a calibrated QuantizedModel into the v2 on-disk artifact:
+    {"layer{i}/{kind}.{site}/{q,scale,bias,spec}"} numpy leaves (codes raw
+    int8, scales and biases float32, the spec's float64 array) plus the
+    equalization-folded norms ``layer{i}/norm{1,2}/{w,b}``, and the meta
+    dict with the schema version — the keys, dtypes and meta of the
+    reference's exporter."""
+    artifact: dict[str, np.ndarray] = {}
+    site_specs = []
+    for name, ql in qm.quantized_linears():
+        artifact[f"{name}/q"] = _np(ql.q_int).astype(np.int8)
+        artifact[f"{name}/scale"] = _np(ql.scale).astype(np.float32)
+        if ql.bias is not None:
+            artifact[f"{name}/bias"] = _np(ql.bias).astype(np.float32)
+        spec = ql.spec if ql.spec is not None else ql.cfg.to_datapath_spec(
+            ql.q_int.shape[-2], ql.act)
+        artifact[f"{name}/spec"] = spec.to_array()
+        site_specs.append(spec)
+    site_keys = {s.key() for s in site_specs}
+    for i, b in enumerate(qm.blocks):
+        for norm_name in ("norm1", "norm2"):
+            nrm = getattr(b, norm_name)
+            if nrm is not None:
+                for k, v in nrm.items():
+                    artifact[f"layer{i}/{norm_name}/{k}"] = _np(v)
+    meta = {
+        "artifact_version": ARTIFACT_VERSION,
+        "arch": qm.cfg.name,
+        "n_layers": qm.cfg.n_layers,
+        "mixed_precision": len(site_keys) > 1,
+        "datapath": (
+            site_specs[0].describe() if len(site_keys) == 1
+            else f"mixed: {len(site_keys)} site datapaths"
+        ) if site_specs else "empty",
+    }
+    return artifact, meta
 
 
 def load_flat_artifact(directory: str) -> tuple[dict, dict]:

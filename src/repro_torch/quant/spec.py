@@ -101,6 +101,10 @@ class DatapathSpec:
         """The form a packed site keeps: calibration numerics dropped."""
         return replace(self, act_scale=None, act_zp=0)
 
+    def with_act(self, scale: float, zero_point: int) -> "DatapathSpec":
+        """This datapath with a calibrated static activation quantizer."""
+        return replace(self, static_act=True, act_scale=float(scale), act_zp=int(zero_point))
+
     def block_k(self, default: int = 128) -> int:
         """The certified K tile; ``tile=None`` (monolithic) keeps the
         default tile, whose partials the full-K bound also covers."""
