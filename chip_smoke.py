@@ -45,7 +45,32 @@ result unless every phase passed):
    exported v2 artifact, written with ``save_pytree`` and loaded back,
    served greedy (batch 4 x prompt 64 + 16 new, B1 with float32 output and
    the calibrated static activation quantizers): exactly 3584 B1 launches
-   and tokens identical to the ``reference`` backend.
+   and tokens identical to the ``reference`` backend;
+6. the paged decode-attention kernels (B2 ``paged_decode_attention`` on
+   float pages, B3 on int8 pages) against their plain versions on the card
+   over the reference sweep's shapes (hd 16, 7 and 11, bs 8/16/128, ragged,
+   exact and +-1 lengths, odd heads, softcap) and smollm-360m's (nh 15,
+   nkv 5, hd 64, bs 64, 4 slots of 1/63/64/65 and 80/2048 tokens), f32 and
+   bf16: B2 within 1e-5 (f32) or one bf16 ulp; B3 within 5e-2 everywhere
+   and within 1e-4 (f32) or one bf16 ulp on rows with no q or probability
+   code within 1e-3 of a rounding boundary, watermarks equal to the plain
+   version's, and the full-magnitude case reaching qk_worst_abs and
+   pv_worst_abs exactly; each timed at smollm-360m decode (4 slots x 80 and
+   x 2048 tokens, bf16) beside its byte bound, its plain version and
+   ``scaled_dot_product_attention`` on K/V gathered beforehand (the
+   yardstick; the port never calls it);
+7. the paged slice: smollm-360m at full width, bf16, RTN-packed, through
+   ``PagedEngine`` (block 64, 64 pages, 4 slots, chunks of 8, attention
+   ``auto``): (a) 4 x prompt 64 + 16 new against ``GenerationEngine``,
+   tokens identical or tie-limited; (b) 12 requests of seeded lengths
+   (prompts 8-300, 4-32 new) admitted mid-flight into 4 slots, float then
+   int8 KV (with the B3 watermark check): B2/B3 launches exactly 32 per
+   decode step, B1 launches 224 per forward, every page back on the free
+   list, equal allocator digests; (c) the prefix cache: six requests over a
+   shared 128-token prefix and one fully cached prompt, warm streams
+   against a cold engine's (identical or tie-limited), the cached admit
+   adding 0 to every kernel counter. It prints decode-step time, tokens/s,
+   admit time, peak memory and a profiler breakdown of one decode chunk.
 
 Before driving a path, every launch counter is set to 0, and the counts are
 read just after it. Phase 3 ends with a ``torch.profiler`` breakdown of one
@@ -71,6 +96,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1.979e15  # dense int8 tensor-core peak, H100 SXM
 
 F32_OPS_PER_S = 67e12  # non-tensor float32 peak, H100 SXM
+BF16_OPS_PER_S = 989e12  # dense bf16 tensor-core peak, H100 SXM
 
 SHAPES_KN = [(960, 960), (960, 320), (960, 2560), (2560, 960)]
 #: the 7 packed sites of one smollm-360m layer, as (K, N): wq, wk, wv, wo, wg, wu, wd
@@ -83,22 +109,46 @@ GPFQ_CASES = [(k, c, "split", "nearest") for k, c in SHAPES_KN] + [
     (960, 320, "plain", "nearest"), (8192, 64, "split", "nearest")]
 GPFQ_SAMPLES = 2048
 CALIB_BATCHES, CALIB_BATCH, CALIB_SEQ, EVAL_BATCHES = 4, 4, 128, 2
+#: phase 6: (B, nkv, g, hd, bs, P, lengths or a sweep mode, softcap)
+PAGED_CASES = (
+    [(4, 2, 2, 16, bs, 2 if bs == 128 else 3, mode, None)
+     for bs in (8, 16, 128) for mode in ("ragged", "exact", "exact+-1")]
+    + [(3, 1, 3, 7, 8, 3, "ragged", None), (2, 3, 1, 16, 8, 2, "ragged", None),
+       (3, 1, 5, 11, 16, 2, "ragged", None), (3, 2, 2, 16, 8, 4, "ragged", 10.0),
+       (4, 5, 3, 64, 64, 33, (1, 63, 64, 65), None),
+       (4, 5, 3, 64, 64, 33, (80, 2048, 80, 2048), None)])
+#: smollm-360m decode attention: 15 query heads over 5 kv heads, hd 64
+SMOLLM_NKV, SMOLLM_G, SMOLLM_HD = 5, 3, 64
+PAGED_TIMED_LENS = (80, 2048)
+#: phase 7: the paged engine's configuration
+PAGED_BLOCK, PAGED_BLOCKS, PAGED_SLOTS, PAGED_CHUNK = 64, 64, 4, 8
+TRACE_REQUESTS, PREFIX_LEN = 12, 128
+#: the largest logit difference between two runs of one model that the
+#: tie-limited comparison accepts as numerical noise (logits here are
+#: about unit variance)
+TIE_BAND_CAP = 2.0
 
 
 def reset_counts():
     """Set every kernel's launch counter to 0."""
     from repro_torch.kernels.gpfq_solve import gpfq_solve
+    from repro_torch.kernels.paged_attention import paged_decode_attention
     from repro_torch.kernels.w4a8_mm import w4a8_matmul
 
     w4a8_matmul.launches = 0
     gpfq_solve.launches = 0
+    paged_decode_attention.launches = 0
+    paged_decode_attention.int8_launches = 0
 
 
 def read_counts() -> dict:
     from repro_torch.kernels.gpfq_solve import gpfq_solve
+    from repro_torch.kernels.paged_attention import paged_decode_attention
     from repro_torch.kernels.w4a8_mm import w4a8_matmul
 
-    return {"w4a8_matmul": w4a8_matmul.launches, "gpfq_solve": gpfq_solve.launches}
+    return {"w4a8_matmul": w4a8_matmul.launches, "gpfq_solve": gpfq_solve.launches,
+            "paged_decode_attention": paged_decode_attention.launches,
+            "paged_decode_attention_int8": paged_decode_attention.int8_launches}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -598,6 +648,512 @@ def phase_calibration(torch):
             "serve_launches": serve_counts["w4a8_matmul"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the paged decode-attention kernels (B2, B3)
+# ---------------------------------------------------------------------------
+def paged_case(torch, rng, B, nkv, g, hd, bs, P, lens, dtype):
+    """One paged-attention call on the card: distinct pages per row, the
+    sentinel nb past each row's pages; ``lens`` a tuple or a sweep mode of
+    the reference's tests (ragged, exact, exact+-1)."""
+    import numpy as np
+
+    full = P * bs
+    if lens == "ragged":
+        lens = rng.integers(1, full + 1, size=B)
+    elif lens == "exact":
+        lens = [((i % P) + 1) * bs for i in range(B)]
+    elif lens == "exact+-1":
+        lens = [max(1, bs - 1), bs + 1, full, max(1, full - 1)][:B]
+    lens = np.asarray(lens, np.int32)
+    nb = B * P + 4
+    tab = np.full((B, P), nb, np.int32)
+    perm, o = rng.permutation(nb), 0
+    for b in range(B):
+        n = -(-int(lens[b]) // bs)
+        tab[b, :n] = perm[o:o + n]
+        o += n
+    dev = torch.device("cuda")
+
+    def normal(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    q = normal(B, nkv * g, hd).to(dtype)
+    kp, vp = normal(nb, bs, nkv, hd), normal(nb, bs, nkv, hd)
+    return q, kp, vp, torch.from_numpy(tab).to(dev), torch.from_numpy(lens).to(dev)
+
+
+def bf16_ulp_ok(torch, a, b) -> bool:
+    """|a - b| within one bf16 ulp of the larger magnitude, or 1e-5 (an
+    output near 0 moves by more than its bf16 ulp when the f32 sums are
+    taken in another order)."""
+    a, b = a.float(), b.float()
+    mag = torch.maximum(a.abs(), b.abs()).clamp(min=2.0**-100)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7).clamp(min=1e-5)
+    return bool(((a - b).abs() <= ulp).all())
+
+
+def paged_bound_ms(torch, q, k_pages, lens, quantized) -> tuple[float, str]:
+    """Least time for one call: q, the K/V pages the lengths need (and
+    their scales), the table entries and lengths read once, the output
+    written once, against 4*nh*len*hd operations at the peak for the
+    pages' type."""
+    B, nh, hd = q.shape
+    _, bs, nkv, _ = k_pages.shape
+    pages = int(sum(-(-int(n) // bs) for n in lens.tolist()))
+    page_bytes = bs * nkv * hd * k_pages.element_size() + (4 * nkv if quantized else 0)
+    nbytes = 2 * q.numel() * q.element_size() + 2 * pages * page_bytes + 4 * (pages + B)
+    ops = 4 * nh * hd * int(lens.sum())
+    peak = INT8_OPS_PER_S if quantized else (BF16_OPS_PER_S if q.dtype == torch.bfloat16
+                                             else F32_OPS_PER_S)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sdpa_yardstick(torch, q, k_pages, v_pages, tab, lens, k_scales=None, v_scales=None):
+    """``scaled_dot_product_attention`` on K/V gathered beforehand into
+    dense (B, nkv, S, hd) form (dequantized for int8 pages), with the
+    length mask and GQA: one library call computing the same function."""
+    import torch.nn.functional as F
+
+    B, nh, hd = q.shape
+    nb, bs, nkv, _ = k_pages.shape
+    idx = tab.clamp(max=nb - 1).long()
+
+    def dense(pages, scales):
+        x = pages[idx]
+        if scales is not None:
+            x = x.float() * scales[idx][:, :, None, :, None]
+        return x.reshape(B, -1, nkv, hd).transpose(1, 2).to(q.dtype).contiguous()
+
+    k, v = dense(k_pages, k_scales), dense(v_pages, v_scales)
+    mask = (torch.arange(k.shape[2], device=q.device)[None, :] < lens[:, None])[:, None, None]
+    q4 = q[:, :, None, :]
+
+    def call():
+        return F.scaled_dot_product_attention(q4, k, v, attn_mask=mask, enable_gqa=True)
+
+    return call, lambda: call()[:, :, 0]
+
+
+def phase_paged_kernels(torch):
+    import numpy as np
+    from repro_torch.kernels import paged_attention as PA
+    from repro_torch.quant.spec import AttnDatapathSpec
+
+    rng = np.random.default_rng(0)
+    err = {"float": 0.0, "int8": 0.0}
+    n_cases = n_ties = 0
+    for B, nkv, g, hd, bs, P, lens, cap in PAGED_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, kp, vp, tab, ln = paged_case(torch, rng, B, nkv, g, hd, bs, P, lens, dtype)
+            kp, vp = kp.to(dtype), vp.to(dtype)
+            out = PA.paged_attention_kernel(q, kp, vp, tab, ln, softcap=cap)
+            ref = PA.paged_attention_plain(q, kp, vp, tab, ln, softcap=cap)
+            torch.cuda.synchronize()
+            e = (out.float() - ref.float()).abs().max().item()
+            err["float"] = max(err["float"], e)
+            ok = (torch.allclose(out, ref, rtol=1e-5, atol=1e-5) if dtype == torch.float32
+                  else bf16_ulp_ok(torch, out, ref))
+            check(ok, f"B2 != plain at {(B, nkv, g, hd, bs, P, lens, cap)} {dtype}: {e}")
+            (kc, ks), (vc, vs) = PA.quantize_kv_pages(kp), PA.quantize_kv_pages(vp)
+            wm = torch.zeros(2, dtype=torch.int32, device="cuda")
+            out = PA.paged_attention_int8_kernel(q, kc, vc, tab, ln, ks, vs, softcap=cap,
+                                                 watermarks=wm)
+            wm_ref = torch.zeros(2, dtype=torch.int32)
+            ref, ties = PA.paged_attention_int8_plain(q, kc, vc, tab, ln, ks, vs, softcap=cap,
+                                                      watermarks=wm_ref, return_ties=True,
+                                                      tie_eps=1e-4)
+            torch.cuda.synchronize()
+            diff = (out.float() - ref.float()).abs()
+            err["int8"] = max(err["int8"], diff.max().item())
+            clean = ~ties
+            n_ties += int(ties.sum())
+            check(diff.max().item() <= 5e-2 and bool(clean.any()),
+                  f"B3 != plain at {(B, nkv, g, hd, bs, P, lens)} {dtype}: {diff.max().item()}")
+            ok = (diff[clean].max().item() <= 1e-4 if dtype == torch.float32
+                  else bf16_ulp_ok(torch, out[clean], ref[clean]))
+            check(ok, f"B3 != plain off the ties at {(B, nkv, g, hd, bs, P, lens)} {dtype}")
+            check(wm.cpu().tolist() == wm_ref.tolist(), f"B3 watermarks {wm.tolist()} != "
+                                                        f"plain {wm_ref.tolist()}")
+            PA.check_bounds(wm, AttnDatapathSpec.for_cache(hd, bs))
+            n_cases += 1
+    print(f"[paged] B2 and B3 against their plain versions: {n_cases} cases x (f32, bf16) "
+          f"agree (B2 max |err| {err['float']:.3g}; B3 max |err| {err['int8']:.3g}, "
+          f"{n_ties} near-tie rows within 5e-2, the others within 1e-4 / one bf16 ulp; "
+          f"watermarks equal)")
+
+    # the full-magnitude case: every q and k code 127, v codes 127, full pages
+    spec = AttnDatapathSpec.for_cache(SMOLLM_HD, PAGED_BLOCK)
+    codes = torch.full((8, PAGED_BLOCK, SMOLLM_NKV, SMOLLM_HD), 127, dtype=torch.int8,
+                       device="cuda")
+    scales = torch.full((8, SMOLLM_NKV), 0.01, device="cuda")
+    q = torch.full((2, SMOLLM_NKV * SMOLLM_G, SMOLLM_HD), 0.75, device="cuda",
+                   dtype=torch.bfloat16)
+    tab = torch.arange(8, dtype=torch.int32, device="cuda").reshape(2, 4)
+    lens = torch.tensor([4 * PAGED_BLOCK, 2 * PAGED_BLOCK], dtype=torch.int32, device="cuda")
+    wm = torch.zeros(2, dtype=torch.int32, device="cuda")
+    PA.paged_decode_attention(q, codes, codes, tab, lens, k_scales=scales, v_scales=scales,
+                              attn_spec=spec, assert_bounds=True, watermarks=wm)
+    reached = PA.check_bounds(wm, spec)
+    check(reached == (spec.qk_worst_abs(), spec.pv_worst_abs()),
+          f"full-magnitude watermarks {reached}")
+    print(f"[paged] full magnitude: watermarks {reached} = (qk_worst_abs, pv_worst_abs) within "
+          f"P_qk={spec.p_qk}, P_pv={spec.p_pv} ({spec.describe()})")
+
+    # times at smollm-360m decode, bf16 q (and bf16 pages for B2)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    rows = {"float": [], "int8": []}
+    for n in PAGED_TIMED_LENS:
+        P = -(-n // PAGED_BLOCK)
+        q, kp, vp, tab, ln = paged_case(torch, rng, PAGED_SLOTS, SMOLLM_NKV, SMOLLM_G,
+                                        SMOLLM_HD, PAGED_BLOCK, P, (n,) * PAGED_SLOTS,
+                                        torch.bfloat16)
+        kp, vp = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+        (kc, ks), (vc, vs) = PA.quantize_kv_pages(kp), PA.quantize_kv_pages(vp)
+        for kind, pages, scale_args in (("float", (kp, vp), ()), ("int8", (kc, vc), (ks, vs))):
+            if kind == "float":
+                def kern():
+                    return PA.paged_attention_kernel(q, *pages, tab, ln)
+
+                def plain():
+                    return PA.paged_attention_plain(q, *pages, tab, ln)
+            else:
+                def kern():
+                    return PA.paged_attention_int8_kernel(q, *pages, tab, ln, *scale_args)
+
+                def plain():
+                    return PA.paged_attention_int8_plain(q, *pages, tab, ln, *scale_args)
+            lib_call, lib_out = sdpa_yardstick(torch, q, *pages, tab, ln, *scale_args)
+            scale_kw = dict(zip(("k_scales", "v_scales"), scale_args))
+            oracle = PA.paged_attention_reference(q, *pages, tab, ln, **scale_kw)
+            lib_err = (lib_out().float() - oracle.float()).abs().max().item()
+            check(lib_err < 5e-2, f"the SDPA yardstick disagrees ({kind}, {n}): {lib_err}")
+            bms, by = paged_bound_ms(torch, q, pages[0], ln, kind == "int8")
+            row = {"slots": PAGED_SLOTS, "tokens": n, "nh": SMOLLM_NKV * SMOLLM_G,
+                   "nkv": SMOLLM_NKV, "hd": SMOLLM_HD, "bs": PAGED_BLOCK, "dtype": "bfloat16",
+                   "ms": time_ms(torch, kern, flush=flush),
+                   "plain_ms": time_ms(torch, plain, reps=10, flush=flush),
+                   "library_ms": time_ms(torch, lib_call, flush=flush),
+                   "bound_ms": bms, "bound_by": by}
+            rows[kind].append(row)
+            print(f"[paged] {'B2' if kind == 'float' else 'B3'} {PAGED_SLOTS} slots x {n} "
+                  f"tokens: kernel {row['ms']:.5f} ms  plain {row['plain_ms']:.5f} ms  "
+                  f"sdpa {row['library_ms']:.5f} ms  bound {bms:.5f} ms ({by})")
+    return rows, err
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the paged slice on smollm-360m
+# ---------------------------------------------------------------------------
+class LogitRecorder:
+    """Records every row the paged engine samples, keyed (uid, step)."""
+
+    def __init__(self):
+        self.rows = {}
+
+    def __enter__(self):
+        from repro_torch.serving import paged_engine as PE
+
+        self._orig = PE.sample_rows
+
+        def spy(logits, temperature, seed, uids, steps):
+            host = logits.float().cpu()
+            for i, key in enumerate(zip(uids.tolist(), steps.tolist())):
+                self.rows.setdefault(key, host[i])
+            return self._orig(logits, temperature, seed, uids, steps)
+
+        PE.sample_rows = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.serving import paged_engine as PE
+
+        PE.sample_rows = self._orig
+
+
+def tie_limited(streams, vocab: int) -> dict:
+    """Compare pairs of greedy streams that should be equal: ``streams`` is
+    a list of (new tokens a, new tokens b, logits of a by step, logits of b
+    by step). The tie band is twice the largest logit difference between
+    the two runs over every step where their streams still agree (the same
+    prefix); a pair may part only at a step whose top-1/top-2 gap in run b
+    lies within the band, and the band must stay within TIE_BAND_CAP."""
+    import torch
+
+    deltas, partings, agree, total = [], [], 0, 0
+    for a, b, la, lb in streams:
+        n = len(b)
+        first = next((t for t in range(n) if a[t] != b[t]), None)
+        upto = n if first is None else first
+        agree += upto
+        total += n
+        for t in range(upto):
+            deltas.append((la[t][:vocab] - lb[t][:vocab]).abs().max().item())
+        if first is not None:
+            top2 = torch.topk(lb[first][:vocab], 2).values
+            partings.append((first, (top2[0] - top2[1]).item()))
+    check(bool(deltas), "no agreeing step to measure the tie band on")
+    band = 2 * max(deltas)
+    check(band <= TIE_BAND_CAP, f"tie band {band:.4f} above {TIE_BAND_CAP}: the runs differ "
+                                f"by more than numerical noise")
+    for t, gap in partings:
+        check(gap <= band, f"streams part at step {t} where the top-2 gap {gap:.4f} exceeds "
+                           f"the tie band {band:.4f}")
+    return {"agree": agree, "total": total, "band": band, "partings": partings}
+
+
+def fixed_slot_run(torch, model, prompts, max_new):
+    """Greedy fixed-slot generation as ``GenerationEngine.generate`` runs
+    it (prefill, then decode steps), with every step's logits."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import use_packed_backend
+
+    with torch.inference_mode(), use_packed_backend("kernel"):
+        p = torch.as_tensor(prompts, device="cuda")
+        B, s0 = p.shape
+        logits, caches = T.prefill(model, {"tokens": p}, s0 + max_new)
+        steps = [logits[:, -1].float().cpu()]
+        nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        toks = [nxt]
+        for t in range(1, max_new):
+            logits, caches = T.decode_step(model, nxt[:, None], caches, s0 + t - 1)
+            steps.append(logits[:, -1].float().cpu())
+            nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+            toks.append(nxt)
+    return torch.stack(toks, dim=1).cpu().numpy(), steps
+
+
+def serve_timed(torch, engine, reqs):
+    """``engine.serve`` with the host clock read after every program (each
+    ends in a host read: the device is done): admit and decode-chunk times."""
+    spent = {"admit": 0.0, "chunk": 0.0}
+    last = {"t": None, "admits": 0, "chunks": 0}
+
+    def programs(e):
+        return e.admits + e.suffix_admits + e.cached_admits, e.chunks
+
+    def probe(e, sched):
+        now = time.perf_counter()
+        admits, chunks = programs(e)
+        if admits != last["admits"]:
+            spent["admit"] += now - last["t"]
+        elif chunks != last["chunks"]:
+            spent["chunk"] += now - last["t"]
+        last.update(t=now, admits=admits, chunks=chunks)
+
+    torch.cuda.synchronize()
+    last["admits"], last["chunks"] = programs(engine)
+    t0 = last["t"] = time.perf_counter()
+    out = engine.serve(reqs, _probe=probe)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, spent
+
+
+def phase_paged_slice(torch):
+    import numpy as np
+    import torch.profiler
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenBatcher
+    from repro_torch.models import transformer as T
+    from repro_torch.quant.serve_packed import pack_decode_params
+    from repro_torch.serving import (
+        GenerationEngine,
+        PagedConfig,
+        PagedEngine,
+        Request,
+        SamplerConfig,
+    )
+    from repro_torch.serving.scheduler import kv_pool_bytes
+
+    cfg = get_config("smollm-360m")
+    model = pack_decode_params(T.init_model(cfg, 0, device="cuda"))
+    greedy = SamplerConfig(temperature=0.0)
+    sites = 7 * cfg.n_layers
+
+    def engine(kv_dtype="act", **kw):
+        return PagedEngine(model, cfg, PagedConfig(
+            block_size=PAGED_BLOCK, num_blocks=PAGED_BLOCKS, max_concurrency=PAGED_SLOTS,
+            chunk_max=PAGED_CHUNK, attn_impl="auto", kv_dtype=kv_dtype, **kw), greedy,
+            device="cuda", **({"assert_bounds": True} if kv_dtype == "int8" else {}))
+
+    # (a) equal-length batch against the fixed-slot engine
+    prompts = TokenBatcher(DataConfig(vocab=cfg.vocab, seq_len=PROMPT, global_batch=BATCH,
+                                      seed=0)).batch(0)["tokens"]
+    engine().generate(prompts, MAX_NEW)  # warm-up (allocator, cuBLAS handles)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    eng_a = engine()
+    out = eng_a.generate(prompts, MAX_NEW)
+    wall_a = time.perf_counter() - t0
+    counts = read_counts()
+    check(counts["paged_decode_attention"] == cfg.n_layers * eng_a.decode_steps,
+          f"B2 launches {counts} for {eng_a.decode_steps} decode steps")
+    check(counts["w4a8_matmul"] == sites * (eng_a.decode_steps + eng_a.admits),
+          f"B1 launches {counts}")
+    fixed = GenerationEngine(model, cfg, greedy, device="cuda").generate(prompts, MAX_NEW)
+    fixed_toks, fixed_logits = fixed_slot_run(torch, model, prompts, MAX_NEW)
+    check((fixed_toks == fixed[:, PROMPT:]).all(), "the recorded fixed-slot run differs "
+                                                   "from GenerationEngine.generate")
+    with LogitRecorder() as rec:
+        again = engine().generate(prompts, MAX_NEW)
+    check((again == out).all(), "two paged runs differ")
+    cmp_a = tie_limited([(out[b, PROMPT:], fixed_toks[b],
+                          [rec.rows[(b, t)] for t in range(MAX_NEW)],
+                          [fixed_logits[t][b] for t in range(MAX_NEW)])
+                         for b in range(BATCH)], cfg.vocab)
+    print(f"[paged-slice] (a) {BATCH} x prompt {PROMPT} + {MAX_NEW} new: {cmp_a['agree']} of "
+          f"{cmp_a['total']} tokens agree with GenerationEngine (partings {cmp_a['partings']}, "
+          f"tie band {cmp_a['band']:.4f}); B2 launches {counts['paged_decode_attention']} = "
+          f"{cfg.n_layers} x {eng_a.decode_steps} steps; {BATCH * MAX_NEW / wall_a:.1f} tok/s")
+
+    # (b) mid-flight admission, float then int8 KV
+    rng = np.random.default_rng(0)
+    specs = [(uid, rng.integers(0, cfg.vocab, size=int(rng.integers(8, 301))),
+              int(rng.integers(4, 33))) for uid in range(TRACE_REQUESTS)]
+
+    def trace():
+        return [Request(uid=u, prompt=p, max_new=n) for u, p, n in specs]
+
+    runs = {}
+    for kv in ("act", "int8"):
+        eng = engine(kv)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        res, wall, spent = serve_timed(torch, eng, trace())
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        key = "paged_decode_attention" if kv == "act" else "paged_decode_attention_int8"
+        other = "paged_decode_attention_int8" if kv == "act" else "paged_decode_attention"
+        check(counts[key] == cfg.n_layers * eng.decode_steps and counts[other] == 0,
+              f"{kv}: attention launches {counts} for {eng.decode_steps} decode steps")
+        forwards = eng.decode_steps + eng.admits + eng.suffix_admits
+        check(counts["w4a8_matmul"] == sites * forwards, f"{kv}: B1 launches {counts} for "
+                                                         f"{forwards} forwards")
+        for u, p, n in specs:
+            check(res[u].size == p.size + n, f"{kv}: request {u} incomplete")
+        pool = eng.pool_state
+        check(pool.free_top == 0 and not pool.page_rc.any()
+              and int(eng.cache["free_top"]) == 0 and not eng.cache["page_refcounts"].any(),
+              f"{kv}: pages not all back on the free list")
+        n_new = sum(n for _, _, n in specs)
+        runs[kv] = {"res": res, "digest": pool.digest(), "counts": counts, "wall": wall,
+                    "steps": eng.decode_steps, "admits": eng.admits, "spent": spent,
+                    "peak": peak, "tok_s": n_new / wall,
+                    "step_ms": 1e3 * spent["chunk"] / eng.decode_steps,
+                    "admit_ms": 1e3 * spent["admit"] / eng.admits,
+                    "pool_mib": kv_pool_bytes(cfg, PAGED_BLOCKS, PAGED_BLOCK, kv) / 2**20,
+                    "watermarks": getattr(eng, "watermark_values", None)}
+        print(f"[paged-slice] (b) {kv} KV: {TRACE_REQUESTS} requests, {eng.decode_steps} decode "
+              f"steps in {eng.chunks} chunks, {eng.admits} admits; launches {counts}; "
+              f"decode step {runs[kv]['step_ms']:.3f} ms, admit {runs[kv]['admit_ms']:.3f} ms "
+              f"(host clock), {runs[kv]['tok_s']:.1f} tok/s, wall {wall:.3f} s; pool "
+              f"{runs[kv]['pool_mib']:.2f} MiB; peak memory {peak / 2**20:.1f} MiB")
+    check(runs["act"]["digest"] == runs["int8"]["digest"], "float and int8 allocator digests differ")
+    spec = engine("int8").attn_spec
+    qk, pv = runs["int8"]["watermarks"]
+    check(qk <= 2 ** (spec.p_qk - 1) - 1 and pv <= 2 ** (spec.p_pv - 1) - 1 and spec.p_qk == 21
+          and spec.p_pv == 22, f"B3 watermarks {qk}, {pv} against {spec.describe()}")
+    same = sum(int((runs["act"]["res"][u][p.size:] == runs["int8"]["res"][u][p.size:]).sum())
+               for u, p, _ in specs)
+    total = sum(n for _, _, n in specs)
+    print(f"[paged-slice] (b) equal digests {runs['act']['digest']}; B3 watermarks |QK^T| {qk} "
+          f"<= {2 ** (spec.p_qk - 1) - 1}, |PV| {pv} <= {2 ** (spec.p_pv - 1) - 1} "
+          f"({spec.describe()}); int8 agrees with float on {same} of {total} tokens "
+          f"({same / total:.4f})")
+
+    # (c) the prefix cache: warm streams against a cold engine's
+    prefix = rng.integers(0, cfg.vocab, size=PREFIX_LEN)
+    pspecs = [(100 + i, np.concatenate([prefix, rng.integers(0, cfg.vocab,
+                                                              size=int(rng.integers(1, 41)))]),
+               8) for i in range(6)] + [(106, prefix.copy(), 8)]
+    preqs = [Request(uid=u, prompt=p, max_new=n) for u, p, n in pspecs]
+    warm_eng = engine(prefix_cache=True)
+    cached_counts = []
+    orig = warm_eng._admit_cached
+
+    def admit_cached(adm):
+        before = read_counts()
+        orig(adm)
+        torch.cuda.synchronize()
+        cached_counts.append({k: v - before[k] for k, v in read_counts().items()})
+
+    warm_eng._admit_cached = admit_cached
+    with LogitRecorder() as warm_rec:
+        warm = warm_eng.serve(preqs)
+    with LogitRecorder() as cold_rec:
+        cold = engine().serve(preqs)
+    check(len(cached_counts) == 1 and not any(cached_counts[0].values()),
+          f"cached admit launches {cached_counts}")
+    check(warm_eng.suffix_admits == 5 and warm_eng.cached_admits == 1,
+          f"admits {warm_eng.admits}/{warm_eng.suffix_admits}/{warm_eng.cached_admits}")
+    cmp_c = tie_limited([(warm[u][p.size:], cold[u][p.size:],
+                          [warm_rec.rows[(u, t)] for t in range(n)],
+                          [cold_rec.rows[(u, t)] for t in range(n)]) for u, p, n in pspecs],
+                        cfg.vocab)
+    print(f"[paged-slice] (c) prefix cache: 1 cold, {warm_eng.suffix_admits} suffix and "
+          f"{warm_eng.cached_admits} cached admits (the cached one launched nothing: "
+          f"{cached_counts[0]}); hit rate {warm_eng.prefix_cache.stats()['hit_rate']:.3f}; "
+          f"{cmp_c['agree']} of {cmp_c['total']} tokens agree with a cold engine (partings "
+          f"{cmp_c['partings']}, tie band {cmp_c['band']:.4f})")
+
+    # one decode chunk under the profiler
+    prof_eng = engine()
+    orig_chunk = prof_eng._chunk
+    chunk = {}
+
+    def profiled(k):
+        if chunk:
+            return orig_chunk(k)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t = time.perf_counter()
+            buf = orig_chunk(k)
+            chunk["wall_ms"] = 1e3 * (time.perf_counter() - t)
+        chunk["k"], chunk["prof"] = k, prof
+        return buf
+
+    prof_eng._chunk = profiled
+    prof_eng.generate(prompts, PAGED_CHUNK + 1)
+    events = chunk["prof"].key_averages()
+    print(events.table(sort_by="self_cuda_time_total", row_limit=12))
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    b2 = sum(e.self_device_time_total for e in kernels if "paged_attn_float" in e.key) / 1e3
+    b1 = sum(e.self_device_time_total for e in kernels if "w4a8_kernel" in e.key) / 1e3
+    check(b2 > 0 and b1 > 0, "the profiler saw no B2 or B1 kernel in a decode chunk")
+    print(f"[profile] one decode chunk of {chunk['k']} steps, {PAGED_SLOTS} slots: "
+          f"{chunk['wall_ms']:.3f} ms on the host clock, device busy {busy:.3f} ms "
+          f"({100 * busy / chunk['wall_ms']:.1f}%), B2 {b2:.3f} ms, B1 {b1:.3f} ms")
+    return {"a": cmp_a, "runs": runs, "c": cmp_c,
+            "profile": {"chunk_wall_ms": chunk["wall_ms"], "busy_ms": busy, "b2_ms": b2,
+                        "b1_ms": b1, "steps": chunk["k"]}}
+
+
+def paged_record(name, rows, err, launches, source_line) -> dict:
+    """One record for a paged-attention kernel: times at smollm-360m decode,
+    4 slots x 80 tokens (the slice's lengths); the 2048-token rows beside."""
+    main = rows[0]
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "replaces": f"src/repro/kernels/paged_attention.py:{source_line}",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "timed_as": f"one call at smollm-360m decode: {main['slots']} slots x {main['tokens']} "
+                    f"tokens, nh 15 / nkv 5, hd 64, bs 64, bf16 q, cold L2; the library call is "
+                    f"scaled_dot_product_attention on K/V gathered beforehand",
+        "shapes": rows,
+    }
+
+
 def gpfq_record(rows, max_err, launches):
     """One record for gpfq_solve: times summed over the 7 site shapes of one
     smollm-360m layer (split budgets, round-to-nearest); per-case rows beside."""
@@ -667,8 +1223,15 @@ def main() -> int:
     launches = phase_slice(torch)
     gpfq_rows, gpfq_err = phase_gpfq(torch)
     calib = phase_calibration(torch)
-    print(json.dumps({"kernels": [kernel_record(rows, max_err, launches),
-                                  gpfq_record(gpfq_rows, gpfq_err, calib["launches"])]}))
+    paged_rows, paged_err = phase_paged_kernels(torch)
+    paged = phase_paged_slice(torch)
+    print(json.dumps({"kernels": [
+        kernel_record(rows, max_err, launches),
+        gpfq_record(gpfq_rows, gpfq_err, calib["launches"]),
+        paged_record("paged_decode_attention", paged_rows["float"], paged_err["float"],
+                     paged["runs"]["act"]["counts"]["paged_decode_attention"], 189),
+        paged_record("paged_decode_attention_int8", paged_rows["int8"], paged_err["int8"],
+                     paged["runs"]["int8"]["counts"]["paged_decode_attention_int8"], 226)]}))
     # one card: every phase runs on cuda:0
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

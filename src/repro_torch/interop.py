@@ -10,6 +10,10 @@ takes slice ``r`` of slot ``s``. Packed leaves become
 :class:`~repro_torch.models.layers.PackedLinear` modules whose
 :class:`~repro_torch.quant.spec.DatapathSpec` is rebuilt from ``spec_arr``
 (the reference's static ``spec`` node is not an array and is ignored).
+
+:func:`paged_cache_from_numpy` carries the reference's paged cache
+(``repro.models.transformer.init_paged_cache``, arrays as numpy) into the
+port's layout: one pool per layer, plus the write-sink page.
 """
 
 from __future__ import annotations
@@ -85,3 +89,22 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, *, device="cuda") -> Transfo
             block.ffn = MLP(**{n: _site(v, r, dev) for n, v in slot["ffn"].items()})
         layers.append(block)
     return Transformer(cfg, embedding, layers, _norm(tree["final_norm"], None, dev))
+
+
+def paged_cache_from_numpy(cache: dict, cfg: ModelConfig, *, device="cuda") -> dict:
+    """The port's paged cache for a reference paged cache of numpy arrays:
+    layer ``r * period + s`` takes slice ``r`` of slot ``s``'s stacked pools
+    (R, num_blocks, ...), and each pool gains the zero sink page at index
+    num_blocks; the allocator and per-slot leaves carry over as they are."""
+    dev = resolve_device(device)
+    pools = []
+    for i in range(cfg.n_layers):
+        r, s = divmod(i, cfg.period)
+        pool = {}
+        for name, a in cache["pools"][s].items():
+            t = to_tensor(np.asarray(a)[r], dev)
+            pool[name] = torch.cat([t, torch.zeros_like(t[:1])])
+        pools.append(pool)
+    out = {k: to_tensor(v, dev) for k, v in cache.items() if k != "pools"}
+    out["pools"] = pools
+    return out

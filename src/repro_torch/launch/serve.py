@@ -9,8 +9,18 @@ activation quantization); ``--artifact DIR`` instead loads a calibrated AXE
 artifact written by the JAX package's ``repro.launch.quantize --out``.
 ``--packed-backend`` picks the packed-matmul backend: ``kernel`` (the W4A8
 CUDA kernel on the card), ``reference`` (its exact-integer plain version)
-or ``dequant``. ``--device`` defaults to ``cuda``. The paged engine's flags
-are accepted and refused until the paged slice of the port lands.
+or ``dequant``. ``--device`` defaults to ``cuda``.
+
+``--paged`` serves through the paged continuous-batching engine
+(``--block-size``, ``--max-concurrency``, ``--num-blocks`` or
+``--kv-hbm-mb``, ``--kv-dtype act|int8``, ``--prefix-cache``), whose decode
+attention runs the paged attention kernels (B2 float pages, B3 int8)::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
+        --smoke --packed --paged --block-size 8 --kv-dtype int8 --device cpu
+
+The throughput-scheduler flags, ``--plan``, ``--mesh``, ``--observe`` and
+``--ckpt-dir`` are accepted and refused, each naming the slice that brings it.
 """
 
 from __future__ import annotations
@@ -30,16 +40,16 @@ from repro_torch.quant.serve_packed import (
     packed_params_from_artifact,
 )
 from repro_torch.quant.spec import tree_datapath_fingerprint
-from repro_torch.serving import GenerationEngine, SamplerConfig
+from repro_torch.serving import GenerationEngine, PagedConfig, PagedEngine, SamplerConfig
+from repro_torch.serving.scheduler import blocks_for_budget, kv_pool_bytes
 
 #: flags of the reference launcher that belong to slices not ported yet
 _UNPORTED = {
-    "--paged": "the paged engine", "--block-size": "the paged engine",
-    "--max-concurrency": "the paged engine", "--num-blocks": "the paged engine",
-    "--kv-dtype": "int8 KV pages", "--kv-hbm-mb": "the paged engine",
-    "--prefix-cache": "the paged engine", "--admit-window": "the paged engine",
-    "--admit-batch": "the paged engine", "--prefill-chunk": "the paged engine",
-    "--watermark": "the paged engine", "--plan": "mixed-precision plans",
+    "--admit-window": "the throughput scheduler loop",
+    "--admit-batch": "the throughput scheduler loop",
+    "--prefill-chunk": "the throughput scheduler loop",
+    "--watermark": "the throughput scheduler loop",
+    "--plan": "mixed-precision plans (static KV scales, observers and search)",
     "--mesh": "multi-device serving", "--observe": "serving observers",
     "--ckpt-dir": "checkpoint restore of trained params",
 }
@@ -63,6 +73,23 @@ def main(argv=None):
     ap.add_argument("--host-loop", action="store_true",
                     help="per-token host loop instead of the device loop")
     ap.add_argument("--device", type=str, default="cuda")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged-KV continuous-batching engine")
+    ap.add_argument("--block-size", type=int, default=64,
+                    help="KV page size in tokens (--paged)")
+    ap.add_argument("--max-concurrency", type=int, default=8,
+                    help="engine slots for continuous batching (--paged)")
+    ap.add_argument("--num-blocks", type=int, default=None,
+                    help="KV page-pool size (--paged); default fits "
+                         "--max-concurrency full-length sequences")
+    ap.add_argument("--kv-dtype", type=str, default="act", choices=("act", "int8"),
+                    help="KV page element type (--paged): act keeps the model's "
+                         "act_dtype; int8 stores quantized pages + per-page scales")
+    ap.add_argument("--kv-hbm-mb", type=float, default=None,
+                    help="size the page pool to a memory budget (MB) instead of "
+                         "--num-blocks")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="share full prompt blocks across requests (--paged)")
     for flag, what in _UNPORTED.items():
         ap.add_argument(flag, nargs="*", default=None,
                         help=f"not yet ported ({what})")
@@ -88,20 +115,64 @@ def main(argv=None):
     data = TokenBatcher(DataConfig(vocab=cfg.vocab, seq_len=args.prompt_len,
                                    global_batch=args.batch, seed=args.seed))
     prompts = np.asarray(data.batch(0)["tokens"])
-    engine = GenerationEngine(
-        model, cfg, SamplerConfig(temperature=args.temperature, seed=args.seed),
-        device=device, backend=args.packed_backend)
-    gen = engine.generate_host_loop if args.host_loop else engine.generate
+    sampler = SamplerConfig(temperature=args.temperature, seed=args.seed)
+    if not args.paged and (args.kv_dtype != "act" or args.kv_hbm_mb is not None
+                           or args.prefix_cache):
+        raise SystemExit("--kv-dtype/--kv-hbm-mb/--prefix-cache apply to the "
+                         "paged engine only (add --paged)")
+    if args.paged:
+        if args.host_loop:
+            raise SystemExit("--host-loop applies to the fixed-slot engine only")
+        engine = _paged_engine(args, model, cfg, sampler, device)
+        gen = engine.generate
+    else:
+        engine = GenerationEngine(model, cfg, sampler, device=device,
+                                  backend=args.packed_backend)
+        gen = engine.generate_host_loop if args.host_loop else engine.generate
     gen(prompts, args.max_new)  # warm-up outside the timed region (kernel build)
     t0 = time.perf_counter()
     out = gen(prompts, args.max_new)  # returns host numpy: the device is done
     dt = time.perf_counter() - t0
     n_new = out.shape[1] - prompts.shape[1]
-    loop = "host-loop" if args.host_loop else "device-loop"
+    loop = "paged" if args.paged else ("host-loop" if args.host_loop else "device-loop")
     print(f"[serve] device={device} batch={args.batch} new_tokens={n_new} {loop} "
           f"{dt:.4f}s  {args.batch * n_new / dt:.1f} tok/s")
     print("[serve] sample:", out[0, -min(16, out.shape[1]):].tolist())
     return out
+
+
+def _paged_engine(args, model, cfg, sampler, device) -> PagedEngine:
+    """The paged engine the flags describe; prints the reference's
+    ``[serve] paged engine: ...`` line (pool MB, attention datapath)."""
+    pages_per_seq = -(-(args.prompt_len + args.max_new - 1) // args.block_size)
+    if args.kv_hbm_mb is not None and args.num_blocks is not None:
+        raise SystemExit("--num-blocks and --kv-hbm-mb both size the page pool — "
+                         "pass one, not both")
+    if args.kv_hbm_mb is not None:
+        num_blocks = blocks_for_budget(int(args.kv_hbm_mb * 2**20), cfg, args.block_size,
+                                       args.kv_dtype)
+        if num_blocks < pages_per_seq:
+            raise SystemExit(f"--kv-hbm-mb {args.kv_hbm_mb} affords {num_blocks} pages "
+                             f"< the {pages_per_seq} one request needs")
+    else:
+        num_blocks = args.num_blocks or args.max_concurrency * pages_per_seq
+    try:
+        engine = PagedEngine(
+            model, cfg,
+            PagedConfig(block_size=args.block_size, num_blocks=num_blocks,
+                        max_concurrency=args.max_concurrency, kv_dtype=args.kv_dtype,
+                        prefix_cache=args.prefix_cache),
+            sampler, device=device, backend=args.packed_backend)
+    except ValueError as e:
+        raise SystemExit(f"paged engine: {e}") from None
+    pool_mb = kv_pool_bytes(cfg, num_blocks, args.block_size, args.kv_dtype) / 2**20
+    attn_dp = (f" attn_datapath=[{engine.attn_spec.describe()}]"
+               if engine.attn_spec else "")
+    pc = " prefix_cache=on" if args.prefix_cache else ""
+    print(f"[serve] paged engine: block_size={args.block_size} num_blocks={num_blocks} "
+          f"slots={args.max_concurrency} kv_dtype={args.kv_dtype} "
+          f"pool={pool_mb:.2f}MB{pc}{attn_dp}")
+    return engine
 
 
 if __name__ == "__main__":

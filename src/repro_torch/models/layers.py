@@ -1,7 +1,7 @@
 """Core layers (port of ``repro/models/layers.py``, dense serving path):
-norms, RoPE, GQA attention (full, online-softmax chunked, decode), the
-SwiGLU/GELU MLP, embedding and LM head, and the packed-weight matmul
-dispatch that routes every quantized site onto the W4A8 datapath.
+norms, RoPE, GQA attention (full, online-softmax chunked, decode, paged
+decode), the SwiGLU/GELU MLP, embedding and LM head, and the packed-weight
+matmul dispatch that routes every quantized site onto the W4A8 datapath.
 
 Parameters are ``nn.Module``s: :class:`Linear` (a float (K, N) weight),
 :class:`PackedLinear` (a packed-int4 serving site) and the component
@@ -23,12 +23,21 @@ from torch import nn
 
 from repro_torch.core.alphabet import act_alphabet
 from repro_torch.kernels.ops import quantize_activations
+from repro_torch.kernels.paged_attention import (
+    paged_attention_reference,
+    paged_decode_attention,
+)
 from repro_torch.kernels.w4a8_mm import (
     datapath_kernel_args,
     unpack_int4,
     w4a8_decode_matmul,
 )
-from repro_torch.quant.spec import DatapathMismatchError, DatapathSpec
+from repro_torch.quant.spec import (
+    AttnDatapathSpec,
+    DatapathMismatchError,
+    DatapathSpec,
+    validate_attn_datapath,
+)
 
 from .config import ModelConfig
 
@@ -321,16 +330,128 @@ def _chunked_causal_attention(q, k, v, cfg: ModelConfig):
     return out[:, :S0].to(q.dtype)
 
 
-def attention(p: Attention, x, cfg: ModelConfig, positions):
-    """Prefill attention. Returns (y, (k, v)), k/v for the cache."""
+def attention(p: Attention, x, cfg: ModelConfig, positions, prefix_kv=None):
+    """Prefill attention. Returns (y, (k, v)), k/v for the cache.
+
+    ``prefix_kv``: optional ``(prefix_k, prefix_v)`` of shape (B, L, nkv,
+    hd), the RoPE'd KV of a cached prompt prefix (the prefix cache's suffix
+    prefill). Queries then attend over ``concat(prefix, suffix)`` with the
+    rectangular causal mask, and ``positions`` carry the absolute offsets
+    ``L + i``; the returned (k, v) stay suffix-only."""
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions)
-    if S > cfg.attn_chunk_threshold:
+    if prefix_kv is not None:
+        pk, pv = prefix_kv
+        k_all = torch.cat([pk.to(k.dtype), k], dim=1)
+        v_all = torch.cat([pv.to(v.dtype), v], dim=1)
+        out = _full_causal_attention(q, k_all, v_all, cfg)
+    elif S > cfg.attn_chunk_threshold:
         out = _chunked_causal_attention(q, k, v, cfg)
     else:
         out = _full_causal_attention(q, k, v, cfg)
     y = pmm(p, "wo", out.reshape(B, S, cfg.n_heads * cfg.head_dim))
     return y, (k, v)
+
+
+# ---------------------------------------------------------------------------
+# Paged decode attention
+# ---------------------------------------------------------------------------
+#   auto      — paged_decode_attention: kernels B2/B3 on CUDA tensors, their
+#               plain versions on CPU tensors (the default);
+#   reference — the gather reference on any device (the card's comparisons);
+#   kernel    — the kernels, and CPU tensors raise.
+_PAGED_ATTN_IMPLS = ("auto", "reference", "kernel")
+
+
+def resolve_paged_attn_impl(impl: str = "auto", device=None) -> str:
+    """Check a paged decode-attention implementation name; ``kernel`` on a
+    device other than CUDA raises (the kernels have no CPU mode)."""
+    if impl not in _PAGED_ATTN_IMPLS:
+        raise ValueError(f"paged attn impl {impl!r} not in {_PAGED_ATTN_IMPLS}")
+    if impl == "kernel" and device is not None and torch.device(device).type != "cuda":
+        raise ValueError("paged attn impl 'kernel' needs CUDA tensors; use 'auto' "
+                         "(the plain version on the CPU) or 'reference'")
+    return impl
+
+
+def _append_kv_page_quant(pages, scales, page, off, x, kv_bits: int = 8):
+    """Quantize-on-append into an int8 page pool with per-(page, kv-head)
+    scales, in place. ``x`` (B, nkv, hd) is the new token's K or V, landing
+    at ``(page[b], off[b])``. The page scale grows monotonically: when the
+    token's magnitude exceeds it, the page's codes rescale (one extra
+    rounding of at most half a step); a write at ``off == 0`` is a page's
+    first token, so a stale scale resets. Idle rows carry the sentinel page
+    ``nb``, the pool's write sink."""
+    qmax = 2 ** (kv_bits - 1) - 1
+    bs = pages.shape[1]
+    old = torch.where((off == 0)[:, None], torch.zeros_like(scales[page]), scales[page])
+    tok = torch.amax(torch.abs(x.to(torch.float32)), dim=-1) / torch.tensor(
+        float(qmax), device=x.device)  # (B, nkv); a true division on CUDA too
+    new = torch.clamp(torch.maximum(old, tok), min=1e-8)
+    codes = torch.round(pages[page].to(torch.float32) * (old / new)[:, None, :, None])
+    tok_codes = torch.round(x.to(torch.float32) / new[..., None])  # (B, nkv, hd)
+    sel = (torch.arange(bs, device=pages.device)[None, :] == off[:, None])[..., None, None]
+    codes = torch.clamp(torch.where(sel, tok_codes[:, None], codes), -qmax, qmax)
+    pages[page] = codes.to(pages.dtype)
+    scales[page] = new
+
+
+def paged_attention_decode(p: Attention, x, cfg: ModelConfig, pool: dict, block_table,
+                           seq_lens, active, *, impl: str = "auto", attn_spec=None,
+                           assert_bounds: bool = False, watermarks=None):
+    """Single-token decode against one layer's paged KV pool.
+
+    x: (B, 1, d), B the engine's slot count. ``pool`` holds ``k_pages`` /
+    ``v_pages`` of (nb + 1, bs, nkv, hd) in the act dtype, or int8 codes
+    with ``k_scales``/``v_scales`` (nb + 1, nkv) f32; page ``nb`` is a write
+    sink for idle slots (the reference drops their scatter; attention never
+    reads the sink). ``block_table`` (B, P) int32 maps logical pages to pool
+    pages (entries ``>= nb`` are sentinels); ``seq_lens`` (B,) int32 is each
+    slot's length: the new token's KV lands at position ``seq_lens[b]`` and
+    attention covers positions ``<= seq_lens[b]``. ``active`` (B,) bool
+    routes idle slots' writes to the sink, so they never corrupt a live
+    page; their outputs are garbage the engine discards. ``attn_spec`` is a
+    request checked against the pool's record on every impl.
+    ``assert_bounds``/``watermarks`` go to the int8 kernel (B3).
+
+    The pool is updated in place (the reference returns a new one).
+    Returns (y, pool)."""
+    B = x.shape[0]
+    q, k, v = _qkv(p, x, cfg, seq_lens[:, None])  # per-slot RoPE positions
+    k_pages, v_pages = pool["k_pages"], pool["v_pages"]
+    quantized = "k_scales" in pool
+    nb, bs = k_pages.shape[0] - 1, k_pages.shape[1]
+    if attn_spec is not None:
+        derived = (AttnDatapathSpec.for_cache(cfg.head_dim, bs,
+                                              kv_bits=8 * k_pages.element_size())
+                   if quantized else None)
+        validate_attn_datapath(derived, attn_spec)
+    lens = seq_lens.long()
+    col = torch.clamp(lens // bs, max=block_table.shape[1] - 1)
+    page = torch.where(active, block_table[torch.arange(B, device=x.device), col].long(),
+                       torch.full_like(lens, nb))
+    off = lens % bs
+    if quantized:
+        _append_kv_page_quant(k_pages, pool["k_scales"], page, off, k[:, 0])
+        _append_kv_page_quant(v_pages, pool["v_scales"], page, off, v[:, 0])
+        scale_kw = {"k_scales": pool["k_scales"][:nb], "v_scales": pool["v_scales"][:nb]}
+    else:
+        k_pages[page, off] = k[:, 0].to(k_pages.dtype)
+        v_pages[page, off] = v[:, 0].to(v_pages.dtype)
+        scale_kw = {}
+    lens_now = seq_lens + 1  # attend over positions < lens_now (self included)
+    q0, softcap = q[:, 0].contiguous(), cfg.attn_logit_softcap
+    if impl == "reference":
+        out = paged_attention_reference(q0, k_pages[:nb], v_pages[:nb], block_table, lens_now,
+                                        softcap=softcap, **scale_kw)
+    else:
+        resolve_paged_attn_impl(impl, q0.device)
+        out = paged_decode_attention(q0, k_pages[:nb], v_pages[:nb], block_table, lens_now,
+                                     softcap=softcap, attn_spec=attn_spec,
+                                     assert_bounds=assert_bounds, watermarks=watermarks,
+                                     **scale_kw)
+    y = pmm(p, "wo", out.reshape(B, 1, cfg.n_heads * cfg.head_dim))
+    return y, pool
 
 
 def attention_decode(p: Attention, x, cfg: ModelConfig, cache_k, cache_v, index: int):

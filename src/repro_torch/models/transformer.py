@@ -30,6 +30,7 @@ from .layers import (
     lm_logits,
     mlp,
     norm,
+    paged_attention_decode,
     torch_dtype,
 )
 
@@ -132,10 +133,11 @@ def init_model(cfg: ModelConfig, seed: int = 0, *, device="cuda",
 # ---------------------------------------------------------------------------
 # Forward / loss
 # ---------------------------------------------------------------------------
-def _embed_inputs(model: Transformer, tokens):
+def _embed_inputs(model: Transformer, tokens, pos_offset: int = 0):
     x = embed(model.embedding, tokens.long(), model.cfg)
     B, S, _ = x.shape
-    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    positions = torch.arange(pos_offset, pos_offset + S, dtype=torch.int32,
+                             device=x.device)[None].expand(B, S)
     return x, positions
 
 
@@ -196,15 +198,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda"):
     ]
 
 
-def prefill(model: Transformer, batch: dict, max_len: int):
-    """Run the prompt; returns (logits, caches ready for decode at index S)."""
+def prefill(model: Transformer, batch: dict, max_len: int, prefix_kv=None,
+            pos_offset: int = 0):
+    """Run the prompt; returns (logits, caches ready for decode at index S).
+
+    ``prefix_kv`` enables suffix prefill against a cached prompt prefix:
+    a per-layer list whose attention entries are ``{"k", "v"}`` of (B, L,
+    nkv, hd), the RoPE'd KV of the first L prompt tokens, and whose other
+    entries are ``{}``. ``batch["tokens"]`` then holds only the uncached
+    suffix, ``pos_offset`` must equal L, and the returned caches hold the
+    suffix's KV only."""
     cfg = model.cfg
-    x, positions = _embed_inputs(model, batch["tokens"])
+    x, positions = _embed_inputs(model, batch["tokens"], pos_offset)
     B, S, _ = x.shape
     caches = init_cache(cfg, B, max_len, device=x.device)
-    for block, cache in zip(model.layers, caches):
+    for i, (block, cache) in enumerate(zip(model.layers, caches)):
         if block.mixer is not None:
-            y, (k, v) = attention(block.mixer, norm(block.norm1, x, cfg.norm), cfg, positions)
+            pkv = None if prefix_kv is None else (prefix_kv[i]["k"], prefix_kv[i]["v"])
+            y, (k, v) = attention(block.mixer, norm(block.norm1, x, cfg.norm), cfg, positions,
+                                  prefix_kv=pkv)
             cache["k"][:, :S] = k
             cache["v"][:, :S] = v
             x = x + y
@@ -228,3 +240,84 @@ def decode_step(model: Transformer, tokens, caches, index: int):
             x = x + mlp(block.ffn, norm(block.norm2, x, cfg.norm), cfg)
     x = norm(model.final_norm, x, cfg.norm)
     return lm_logits(model.embedding, x, cfg), caches
+
+
+# ---------------------------------------------------------------------------
+# Paged KV cache and decode
+# ---------------------------------------------------------------------------
+def init_paged_cache(cfg: ModelConfig, num_slots: int, num_blocks: int, block_size: int,
+                     max_pages: int, *, kv_dtype: str | None = None, device="cuda"):
+    """Paged decode cache: one KV page pool per attention layer plus the
+    continuous-batching state.
+
+    Pools are ``k_pages``/``v_pages`` of (num_blocks + 1, block_size, nkv,
+    hd) per layer (the reference stacks them, (R, num_blocks, ...)); the
+    extra last page is a write sink for idle slots, whose block-table rows
+    hold the sentinel ``num_blocks`` (the reference drops those writes).
+    ``kv_dtype="int8"`` stores quantized pages: int8 codes plus
+    per-(page, kv-head) ``k_scales``/``v_scales`` (num_blocks + 1, nkv) f32,
+    zero until admission or the first append stamps them. ``free_list``,
+    ``free_top`` and ``page_refcounts`` mirror the host allocator
+    (:class:`~repro_torch.serving.scheduler.PoolState`): ``page_refcounts``
+    counts the block-table rows holding a page plus one while the prefix
+    cache holds it."""
+    _check_dense(cfg)
+    dev = resolve_device(device)
+    dt = torch.int8 if kv_dtype == "int8" else torch_dtype(kv_dtype or cfg.act_dtype)
+    pools = []
+    for i in range(cfg.n_layers):
+        if cfg.layer_spec(i).mixer != "attn":
+            pools.append({})
+            continue
+        kv = (num_blocks + 1, block_size, cfg.n_kv_heads, cfg.head_dim)
+        pool = {"k_pages": torch.zeros(kv, dtype=dt, device=dev),
+                "v_pages": torch.zeros(kv, dtype=dt, device=dev)}
+        if dt == torch.int8:
+            sc = (num_blocks + 1, cfg.n_kv_heads)
+            pool["k_scales"] = torch.zeros(sc, dtype=torch.float32, device=dev)
+            pool["v_scales"] = torch.zeros(sc, dtype=torch.float32, device=dev)
+        pools.append(pool)
+
+    def zeros(shape, dtype=torch.int32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    return {
+        "pools": pools,
+        "block_table": torch.full((num_slots, max_pages), num_blocks, dtype=torch.int32,
+                                  device=dev),
+        "seq_lens": zeros((num_slots,)),
+        "active": zeros((num_slots,), torch.bool),
+        "uids": zeros((num_slots,)),
+        "steps": zeros((num_slots,)),
+        "last_tok": zeros((num_slots,)),
+        "free_list": torch.arange(num_blocks, dtype=torch.int32, device=dev),
+        "free_top": zeros(()),
+        "page_refcounts": zeros((num_blocks,)),
+    }
+
+
+def decode_step_paged(model: Transformer, tokens, cache: dict, *, attn_impl: str = "auto",
+                      attn_spec=None, assert_bounds: bool = False, watermarks=None):
+    """One decode step over the paged cache. tokens: (num_slots, 1) int.
+
+    Every slot advances at its own ``cache["seq_lens"]`` position; idle
+    slots (``active`` False) compute but write only to the sink page and do
+    not advance. ``attn_spec`` is an optional
+    :class:`~repro_torch.quant.spec.AttnDatapathSpec` request.
+    ``assert_bounds``/``watermarks`` reach the int8 attention kernel (B3).
+    Updates the cache in place; returns (logits (num_slots, 1, V), cache)."""
+    cfg = model.cfg
+    x = embed(model.embedding, tokens.long(), cfg)
+    table, lens, active = cache["block_table"], cache["seq_lens"], cache["active"]
+    for block, pool in zip(model.layers, cache["pools"]):
+        if block.mixer is not None:
+            h = norm(block.norm1, x, cfg.norm)
+            y, _ = paged_attention_decode(block.mixer, h, cfg, pool, table, lens, active,
+                                          impl=attn_impl, attn_spec=attn_spec,
+                                          assert_bounds=assert_bounds, watermarks=watermarks)
+            x = x + y
+        if block.ffn is not None:
+            x = x + mlp(block.ffn, norm(block.norm2, x, cfg.norm), cfg)
+    x = norm(model.final_norm, x, cfg.norm)
+    lens.add_(active.to(lens.dtype))
+    return lm_logits(model.embedding, x, cfg), cache

@@ -6,8 +6,8 @@ accumulator: K tiles of size T feed P_I-bit inner registers that drain into
 a P_O-bit outer register (Eq. 22), against a specific activation quantizer.
 The spec travels with every packed site (``PackedLinear.spec`` plus the
 persistable ``spec_arr`` twin) and is the single source of the kernel's
-accumulator knobs. The attention record (``AttnDatapathSpec``) arrives with
-the int8-KV slice of the port.
+accumulator knobs. :class:`AttnDatapathSpec` is the attention record: the
+two integer reductions of paged decode attention over int8 KV pages.
 """
 
 from __future__ import annotations
@@ -244,13 +244,149 @@ def validate_datapath(model, expected) -> int:
     return checked
 
 
+# ---------------------------------------------------------------------------
+# Attention accumulator record (quantized KV paging)
+# ---------------------------------------------------------------------------
+def _signed_acc_limit(p_bits: int) -> int:
+    """Symmetric representation limit of a signed P-bit accumulator."""
+    return 2 ** (p_bits - 1) - 1
+
+
+def attn_accumulator_bits(depth: int, hi_a: int, hi_b: int) -> int:
+    """Minimum signed accumulator width for a ``depth``-deep dot product
+    whose factors are bounded by ``|a| <= hi_a`` and ``|b| <= hi_b`` (the
+    Eq. 3 data-type bound: every product at ``hi_a * hi_b``, one sign)."""
+    if depth < 1:
+        raise ValueError("dot-product depth must be >= 1")
+    worst = depth * hi_a * hi_b
+    p = 2
+    while _signed_acc_limit(p) < worst:
+        p += 1
+    return p
+
+
+@dataclass(frozen=True)
+class AttnDatapathSpec:
+    """The serving datapath of quantized paged attention, as a record.
+
+    It certifies the two reductions attention performs over an int8 KV page
+    pool (``repro_torch.kernels.paged_attention``):
+
+    * **QK^T**: a ``head_dim``-deep integer dot of per-head-quantized
+      signed ``q_bits`` query codes with signed ``kv_bits`` key codes, held
+      in a ``p_qk``-bit register;
+    * **PV**: a per-page ``block_size``-deep integer dot of unsigned
+      ``prob_bits`` probability codes with signed ``kv_bits`` value codes,
+      held in a ``p_pv``-bit register; pages drain into the float
+      online-softmax state (the inner/outer split of Eq. 22, with the page
+      as the tile).
+
+    Codes are hard-clipped to their alphabets, so both bounds are pure
+    data-type bounds that hold for any input and any page scales.
+    ``scale_bound`` is calibration numerics and not part of the identity.
+    """
+
+    kv_bits: int = 8
+    q_bits: int = 8
+    prob_bits: int = 8
+    head_dim: int = 128  # QK^T reduction depth
+    block_size: int = 128  # PV reduction depth (the page = the tile)
+    p_qk: int = 22  # = attn_accumulator_bits(128, 127, 127)
+    p_pv: int = 23  # = attn_accumulator_bits(128, 255, 127)
+    scale_bound: float | None = None
+
+    @property
+    def kv_qmax(self) -> int:
+        return 2 ** (self.kv_bits - 1) - 1
+
+    @property
+    def q_qmax(self) -> int:
+        return 2 ** (self.q_bits - 1) - 1
+
+    @property
+    def prob_qmax(self) -> int:
+        return 2**self.prob_bits - 1
+
+    @classmethod
+    def for_cache(cls, head_dim: int, block_size: int, *, kv_bits: int = 8,
+                  q_bits: int = 8, prob_bits: int = 8) -> "AttnDatapathSpec":
+        """The tight accumulator record for a pool layout (P grows with the
+        reduction depth)."""
+        kv_hi = 2 ** (kv_bits - 1) - 1
+        return cls(
+            kv_bits=kv_bits, q_bits=q_bits, prob_bits=prob_bits,
+            head_dim=head_dim, block_size=block_size,
+            p_qk=attn_accumulator_bits(head_dim, 2 ** (q_bits - 1) - 1, kv_hi),
+            p_pv=attn_accumulator_bits(block_size, 2**prob_bits - 1, kv_hi),
+        )
+
+    # -- identity -----------------------------------------------------------
+    def key(self) -> tuple:
+        """Everything the quantized attention kernel depends on
+        (``scale_bound`` excluded, as in :meth:`DatapathSpec.key`)."""
+        return (self.kv_bits, self.q_bits, self.prob_bits, self.head_dim,
+                self.block_size, self.p_qk, self.p_pv)
+
+    def spec_hash(self) -> str:
+        return hashlib.sha1(repr(self.key()).encode()).hexdigest()[:12]
+
+    def matches(self, other: "AttnDatapathSpec") -> bool:
+        return self.key() == other.key()
+
+    def require_matches(self, other: "AttnDatapathSpec", context: str = "") -> None:
+        if not self.matches(other):
+            where = f" ({context})" if context else ""
+            raise DatapathMismatchError(
+                f"attention datapath mismatch{where}: cache built for "
+                f"{self.describe()} but {other.describe()} was requested. "
+                f"Rebuild the paged cache for the requested datapath — "
+                f"serving the accumulator bound of one layout on another "
+                f"voids the overflow guarantee."
+            )
+
+    def describe(self) -> str:
+        return (f"KV{self.kv_bits} Q{self.q_bits} prob{self.prob_bits} "
+                f"hd={self.head_dim} bs={self.block_size} "
+                f"P_qk={self.p_qk} P_pv={self.p_pv}")
+
+    # -- the certificate ----------------------------------------------------
+    def qk_worst_abs(self) -> int:
+        """Worst-case |QK^T| partial in integer units."""
+        return self.head_dim * self.q_qmax * self.kv_qmax
+
+    def pv_worst_abs(self) -> int:
+        """Worst-case |PV| per-page partial in integer units."""
+        return self.block_size * self.prob_qmax * self.kv_qmax
+
+    def certify(self) -> bool:
+        """True iff both registers hold their worst case."""
+        return (self.qk_worst_abs() <= _signed_acc_limit(self.p_qk)
+                and self.pv_worst_abs() <= _signed_acc_limit(self.p_pv))
+
+
+def validate_attn_datapath(spec: AttnDatapathSpec | None,
+                           expected: AttnDatapathSpec) -> None:
+    """Certify a paged cache's attention datapath against a request: a
+    float-KV cache (no record) is a mismatch, and any disagreement raises."""
+    if spec is None:
+        raise DatapathMismatchError(
+            f"cache carries no attention datapath (float KV pages) but "
+            f"{expected.describe()} was requested; rebuild with "
+            f"kv_dtype='int8'"
+        )
+    spec.require_matches(expected, context="paged cache")
+
+
 __all__ = [
     "ARTIFACT_VERSION",
+    "AttnDatapathSpec",
     "DatapathMismatchError",
     "DatapathSpec",
+    "attn_accumulator_bits",
     "is_packed_leaf",
     "leaf_datapath",
     "site_key_for_path",
     "tree_datapath_fingerprint",
+    "validate_attn_datapath",
     "validate_datapath",
 ]

@@ -1,0 +1,484 @@
+"""Continuous-batching generation engine over a paged KV cache (port of
+``repro/serving/paged_engine.py``).
+
+Where :class:`~repro_torch.serving.engine.GenerationEngine` is fixed-slot,
+this engine runs an open system: requests queue in a host-side
+:class:`~repro_torch.serving.scheduler.Scheduler`, are admitted into
+whichever engine slot is free, decode together whatever their phase, and
+free their KV pages the moment they finish. The cache
+(:func:`~repro_torch.models.transformer.init_paged_cache`) holds one page
+pool per layer.
+
+Programs, each a method that updates the cache tensors in place (where the
+reference's jitted programs take the cache donated and return a new one):
+
+* **admit**: install the slot's block-table row, prefill the prompt (B=1),
+  scatter its KV into the fresh pages (quantize-on-scatter for int8 pools)
+  and sample the first token (one host read per admission);
+* **suffix admit** (prefix cache): the row starts with cached prefix pages;
+  only the uncached suffix prefills, attending over the prefix KV gathered
+  (and dequantized) from the shared pages;
+* **cached admit** (prefix cache, fully cached prompt): no prefill and no
+  model at all; the last cached page is copied into a private page
+  (copy-on-write, codes and scales) and the first token is deferred to the
+  next decode chunk, which samples it with the same stream;
+* **decode chunk**: a Python loop of ``k`` decode steps, every live slot at
+  its own length, sampling on the device into a (slots, chunk_max) token
+  buffer that the host reads once per chunk;
+* **release**: clear the slot's active bit.
+
+The page allocator lives on the host (:class:`PoolState`, in lockstep with
+the scheduler and the prefix cache, which hand physical pages around); the
+programs take their pages from it and copy its free stack, top and
+refcounts into the cache's ``free_list``/``free_top``/``page_refcounts``
+leaves, so the device mirrors the host as in the reference.
+
+Sampling is per-request deterministic: a row's step-t draw is a Gumbel-max
+over a counter hash of (seed, uid, t), so co-batching cannot change a
+sampled stream. Greedy decode takes the argmax, as the fixed-slot engine.
+
+Left for later slices, raising ``NotImplementedError``: any non-default
+:class:`SchedulerPolicy` (the throughput loop: windowed and batched
+admission, chunked prefill, watermark preemption), static KV page scales
+from a mixed-precision plan (``kv_scales``), ``mesh`` and ``observe``.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import deque
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.kernels.paged_attention import check_bounds, quantize_kv_pages
+from repro_torch.models.layers import (
+    _PACKED_BACKENDS,
+    resolve_paged_attn_impl,
+    use_packed_backend,
+)
+from repro_torch.models.transformer import decode_step_paged, init_paged_cache, prefill
+from repro_torch.quant.serve_packed import upgrade_packed_params
+from repro_torch.quant.spec import (
+    AttnDatapathSpec,
+    tree_datapath_fingerprint,
+    validate_attn_datapath,
+    validate_datapath,
+)
+from repro_torch.serving.engine import SamplerConfig
+from repro_torch.serving.prefix_cache import PrefixCache
+from repro_torch.serving.scheduler import PoolState, Request, Scheduler, SchedulerPolicy
+
+_MASK32 = 0xFFFFFFFF
+
+
+@dataclass(frozen=True)
+class PagedConfig:
+    """Paged-cache and continuous-batching knobs, as in the reference.
+
+    ``num_blocks`` sizes the KV pool, ``block_size`` is the page size,
+    ``max_pages_per_seq`` caps a block-table row (default
+    ``ceil(max_seq_len / block_size)``), ``chunk_max`` bounds the decode
+    steps per host read. ``kv_dtype="int8"`` stores quantized pages
+    (attention runs kernel B3); ``"act"`` keeps ``cfg.act_dtype`` pages
+    (kernel B2). ``attn_impl`` is ``auto``, ``reference`` or ``kernel``
+    (:func:`~repro_torch.models.layers.resolve_paged_attn_impl`).
+    ``prefix_cache`` shares full prompt blocks across requests.
+    ``sched`` must be the default FIFO policy in this port so far."""
+
+    block_size: int = 64
+    num_blocks: int = 256
+    max_concurrency: int = 8
+    max_pages_per_seq: int | None = None
+    chunk_max: int = 32
+    attn_impl: str = "auto"
+    kv_dtype: str = "act"
+    prefix_cache: bool = False
+    sched: SchedulerPolicy = SchedulerPolicy()
+
+
+def _fmix32(h: torch.Tensor) -> torch.Tensor:
+    """A 32-bit avalanche mix on int64 tensors holding uint32 values; the
+    multipliers stay below 2^31, so no product leaves int64."""
+    h = h ^ (h >> 16)
+    h = (h * 0x7FEB352D) & _MASK32
+    h = h ^ (h >> 15)
+    h = (h * 0x6C8E9CF5) & _MASK32
+    return h ^ (h >> 16)
+
+
+def _uniforms(seed: int, uids: torch.Tensor, steps: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, n) float32 uniforms in (0, 1), a function of (seed, uid, step,
+    column) alone: a request's draws do not depend on its batch."""
+    h = _fmix32(torch.full_like(uids, seed & _MASK32, dtype=torch.int64) ^ 0x3C6EF372)
+    h = _fmix32(h ^ (uids.to(torch.int64) & _MASK32))
+    h = _fmix32(h ^ (steps.to(torch.int64) & _MASK32))
+    cols = torch.arange(n, dtype=torch.int64, device=uids.device)
+    bits = _fmix32(h[:, None] ^ ((cols * 0x2545F491) & _MASK32)[None, :]) >> 8
+    return ((bits.to(torch.float64) + 0.5) / 2.0**24).to(torch.float32)
+
+
+def sample_rows(logits, temperature: float, seed: int, uids, steps) -> torch.Tensor:
+    """Per-row sampling, request-deterministic: greedy argmax, or a
+    Gumbel-max draw from softmax(logits / T) with the noise of
+    :func:`_uniforms`. Returns (B,) int32 on the logits' device."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    gumbel = -torch.log(-torch.log(_uniforms(seed, uids, steps, logits.shape[-1])))
+    return torch.argmax(logits.to(torch.float32) / temperature + gumbel, dim=-1).to(torch.int32)
+
+
+class PagedEngine:
+    """Serves a :class:`~repro_torch.models.transformer.Transformer` (float
+    or packed) through the paged cache on ``device`` (default ``"cuda"``).
+    ``datapath``/``attn_datapath`` are requests validated against the packed
+    sites and against the pool's :class:`AttnDatapathSpec` (a float-KV pool
+    has none, so any attention request raises). ``backend`` is the packed
+    matmul backend. ``assert_bounds`` (int8 pools) accumulates the B3
+    register watermarks on the device and checks them against P_qk and
+    P_pv after every :meth:`serve` (one host read)."""
+
+    def __init__(self, model, cfg=None, paged: PagedConfig = PagedConfig(),
+                 sampler: SamplerConfig = SamplerConfig(), datapath=None,
+                 attn_datapath=None, *, device="cuda", backend: str = "kernel",
+                 assert_bounds: bool = False, observe: bool = False, kv_scales=None,
+                 mesh=None):
+        if observe:
+            raise NotImplementedError("serving observers arrive with the observers "
+                                      "slice of the port (ROADMAP Queue A)")
+        if kv_scales is not None:
+            raise NotImplementedError("static KV page scales from a mixed-precision plan "
+                                      "arrive with the static-KV slice of the port")
+        if mesh is not None:
+            raise NotImplementedError("mesh-native serving arrives with the multi-device "
+                                      "slice of the port")
+        if not paged.sched.is_legacy:
+            raise NotImplementedError(
+                "non-default SchedulerPolicy (windowed/batched admission, chunked "
+                "prefill, watermark preemption) runs the throughput loop, which "
+                "arrives with the throughput-scheduler slice of the port")
+        if backend not in _PACKED_BACKENDS:
+            raise ValueError(f"packed backend {backend!r} not in {_PACKED_BACKENDS}")
+        if paged.kv_dtype not in ("act", "int8"):
+            raise ValueError(f"kv_dtype {paged.kv_dtype!r} not in ('act', 'int8')")
+        if cfg is not None and cfg != model.cfg:
+            raise ValueError(f"config {cfg.name} does not describe the model ({model.cfg.name})")
+        self.device = resolve_device(device)
+        resolve_paged_attn_impl(paged.attn_impl, self.device)
+        self.model = upgrade_packed_params(model.to(self.device))
+        self.cfg = cfg = self.model.cfg
+        if datapath is not None:
+            validate_datapath(self.model, datapath)
+        self.datapath_fingerprint = tree_datapath_fingerprint(self.model)
+        self.sampler = sampler
+        self.backend = backend
+        max_pages = paged.max_pages_per_seq or -(-cfg.max_seq_len // paged.block_size)
+        self.paged = paged = PagedConfig(
+            block_size=paged.block_size, num_blocks=paged.num_blocks,
+            max_concurrency=paged.max_concurrency, max_pages_per_seq=max_pages,
+            chunk_max=paged.chunk_max, attn_impl=paged.attn_impl,
+            kv_dtype=paged.kv_dtype, prefix_cache=paged.prefix_cache, sched=paged.sched)
+        self.prefix_cache = (PrefixCache(paged.num_blocks, paged.block_size)
+                             if paged.prefix_cache else None)
+        #: the host page allocator; persists across serve() calls (cached
+        #: pages stay out of the free stack)
+        self.pool_state = PoolState.fresh(paged.num_blocks)
+        #: the attention accumulator record the int8 kernel serves (None
+        #: for float KV)
+        self.attn_spec = (AttnDatapathSpec.for_cache(cfg.head_dim, paged.block_size)
+                          if paged.kv_dtype == "int8" else None)
+        if attn_datapath is not None:
+            validate_attn_datapath(self.attn_spec, attn_datapath)
+        self.assert_bounds = assert_bounds and self.attn_spec is not None
+        #: B3's (|QK^T|, |PV|) watermarks since construction
+        self.watermarks = (torch.zeros(2, dtype=torch.int32, device=self.device)
+                           if self.assert_bounds else None)
+        self.cache = init_paged_cache(
+            cfg, paged.max_concurrency, paged.num_blocks, paged.block_size, max_pages,
+            kv_dtype="int8" if paged.kv_dtype == "int8" else None, device=self.device)
+        #: program runs since construction
+        self.admits = self.suffix_admits = self.cached_admits = 0
+        self.chunks = self.releases = self.decode_steps = 0
+        self._uid_gen = 0
+
+    # ------------------------------------------------------------------
+    # Programs
+    # ------------------------------------------------------------------
+    def _dev(self, a, dtype=torch.int32) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
+
+    def _sync_allocator(self) -> None:
+        """Copy the host allocator into the cache's mirror leaves."""
+        pool, cache = self.pool_state, self.cache
+        cache["free_list"].copy_(self._dev(pool.free_list))
+        cache["free_top"].fill_(pool.free_top)
+        cache["page_refcounts"].copy_(self._dev(pool.page_rc))
+
+    def _install(self, slot: int, row, *, s0: int, uid: int, steps: int, last_tok) -> None:
+        """Install a slot's block-table row and its per-slot leaves."""
+        cache = self.cache
+        table = np.full(self.paged.max_pages_per_seq, self.paged.num_blocks, np.int32)
+        table[:len(row)] = row
+        cache["block_table"][slot] = self._dev(table)
+        cache["seq_lens"][slot] = s0
+        cache["active"][slot] = True
+        cache["uids"][slot] = uid
+        cache["steps"][slot] = steps
+        cache["last_tok"][slot] = last_tok
+        self._sync_allocator()
+
+    def _gather_prefix_kv(self, pages) -> list:
+        """The KV held in ``pages``, dequantized for int8 pools (codes times
+        the page's scale), as per-layer (1, L, nkv, hd) prefix tensors."""
+        idx = self._dev(pages, torch.long)
+        out = []
+        for pool in self.cache["pools"]:
+            if not pool:
+                out.append({})
+                continue
+            kv = {}
+            for name in ("k", "v"):
+                g = pool[f"{name}_pages"][idx]  # (n, bs, nkv, hd)
+                if "k_scales" in pool:
+                    g = g.to(torch.float32) * pool[f"{name}_scales"][idx][:, None, :, None]
+                kv[name] = g.reshape(1, -1, *g.shape[2:])
+            out.append(kv)
+        return out
+
+    def _scatter_dense_pages(self, dense, pages) -> None:
+        """Scatter a B=1 prefill's dense KV into ``pages`` (quantize-on-
+        scatter for int8 pools: codes and per-(page, head) scales together;
+        padded tail positions are zeros and cannot raise a page's max)."""
+        idx = self._dev(pages, torch.long)
+        bs = self.paged.block_size
+        for pool, d in zip(self.cache["pools"], dense):
+            if not pool:
+                continue
+            for name in ("k", "v"):
+                x = d[name].reshape(len(pages), bs, *d[name].shape[2:])
+                if "k_scales" in pool:
+                    codes, scales = quantize_kv_pages(x)
+                    pool[f"{name}_pages"][idx] = codes
+                    pool[f"{name}_scales"][idx] = scales
+                else:
+                    pool[f"{name}_pages"][idx] = x.to(pool[f"{name}_pages"].dtype)
+
+    def _first_token(self, logits, uid: int) -> torch.Tensor:
+        return sample_rows(logits[:, -1], self.sampler.temperature, self.sampler.seed,
+                           self._dev([uid]), self._dev([0]))[0]
+
+    def _admit(self, adm) -> int:
+        """Cold admit: prefill the whole prompt into fresh pages."""
+        self.admits += 1
+        req, bs = adm.req, self.paged.block_size
+        n_prompt_pages = -(-req.prompt.size // bs)
+        logits, dense = prefill(self.model, {"tokens": self._dev(req.prompt[None])},
+                                n_prompt_pages * bs)
+        self._scatter_dense_pages(dense, adm.row[:n_prompt_pages])
+        tok0 = self._first_token(logits, req.uid)
+        self._install(adm.slot, adm.row, s0=req.prompt.size, uid=req.uid, steps=1,
+                      last_tok=tok0)
+        return int(tok0)
+
+    def _admit_suffix(self, adm) -> int:
+        """Shared-prefix admit: the row's first ``n_shared`` pages are cached
+        prefix blocks; only the suffix prefills, against their KV."""
+        self.suffix_admits += 1
+        req, bs = adm.req, self.paged.block_size
+        prefix_len = adm.n_shared * bs
+        suffix = req.prompt[prefix_len:]
+        n_suffix_pages = -(-suffix.size // bs)
+        logits, dense = prefill(self.model, {"tokens": self._dev(suffix[None])},
+                                n_suffix_pages * bs,
+                                prefix_kv=self._gather_prefix_kv(adm.shared_pages),
+                                pos_offset=prefix_len)
+        self._scatter_dense_pages(dense, adm.row[adm.n_shared:adm.n_shared + n_suffix_pages])
+        tok0 = self._first_token(logits, req.uid)
+        self._install(adm.slot, adm.row, s0=req.prompt.size, uid=req.uid, steps=1,
+                      last_tok=tok0)
+        return int(tok0)
+
+    def _admit_cached(self, adm) -> None:
+        """Fully cached admit: no prefill and no model. The last cached page
+        (``cow_src``) is copied, codes and scales, into the first fresh page
+        (decode appends rewrite position s0 - 1 and may grow the page scale,
+        which must never touch a shared page). The first token is deferred:
+        ``seq_lens = s0 - 1``, ``steps = 0`` and ``last_tok = prompt[-1]``
+        hand the last prompt token to the next decode chunk."""
+        self.cached_admits += 1
+        dest = int(adm.row[adm.n_shared])
+        for pool in self.cache["pools"]:
+            for leaf in pool.values():
+                leaf[dest] = leaf[adm.cow_src]
+        req = adm.req
+        self._install(adm.slot, adm.row, s0=req.prompt.size - 1, uid=req.uid, steps=0,
+                      last_tok=int(req.prompt[-1]))
+
+    def _chunk(self, k: int) -> np.ndarray:
+        """``k`` decode steps; returns the (slots, chunk_max) token buffer,
+        read to the host once."""
+        self.chunks += 1
+        cache, samp = self.cache, self.sampler
+        buf = torch.zeros((self.paged.max_concurrency, self.paged.chunk_max),
+                          dtype=torch.int32, device=self.device)
+        for t in range(k):
+            logits, _ = decode_step_paged(
+                self.model, cache["last_tok"][:, None], cache, attn_impl=self.paged.attn_impl,
+                attn_spec=self.attn_spec, watermarks=self.watermarks)
+            nxt = sample_rows(logits[:, -1], samp.temperature, samp.seed, cache["uids"],
+                              cache["steps"])
+            active = cache["active"]
+            cache["last_tok"].copy_(torch.where(active, nxt, cache["last_tok"]))
+            cache["steps"].add_(active.to(torch.int32))
+            buf[:, t] = nxt
+        self.decode_steps += k
+        return buf.cpu().numpy()
+
+    def _release(self, slot: int) -> None:
+        self.releases += 1
+        self.cache["active"][slot] = False
+        self._sync_allocator()
+
+    # ------------------------------------------------------------------
+    # Host loop
+    # ------------------------------------------------------------------
+    def _make_scheduler(self) -> Scheduler:
+        paged = self.paged
+        return Scheduler(paged.max_concurrency, paged.num_blocks, paged.block_size,
+                         paged.max_pages_per_seq, prefix_cache=self.prefix_cache,
+                         pool_state=self.pool_state, policy=paged.sched)
+
+    def _do_admit(self, adm) -> int | None:
+        """Run one admission's program. Returns the request's first sampled
+        token, or None for a fully cached prompt (deferred to the chunk)."""
+        if adm.cow_src is not None:
+            self._admit_cached(adm)
+            return None
+        if adm.n_shared:
+            return self._admit_suffix(adm)
+        return self._admit(adm)
+
+    @staticmethod
+    def _arrival_feed(requests, arrivals):
+        """Sort an arrival-time trace into a (time, request) deque, or None
+        when everything is submitted up front."""
+        if arrivals is None:
+            return None
+        if len(arrivals) != len(requests):
+            raise ValueError(f"arrivals has {len(arrivals)} entries for {len(requests)} "
+                             f"requests")
+        order = sorted(range(len(requests)), key=lambda i: (float(arrivals[i]), i))
+        return deque((float(arrivals[i]), requests[i]) for i in order)
+
+    @torch.inference_mode()
+    def serve(self, requests, *, arrivals=None, metrics=None, _probe=None,
+              _late=None) -> dict[int, np.ndarray]:
+        """Run a request list to completion under continuous batching (the
+        reference's FIFO loop). Returns {uid: (S0 + n_generated,) int32},
+        trimmed at the first EOS when the sampler sets one.
+
+        ``arrivals`` (seconds, aligned with ``requests``) paces submission
+        on the wall clock; ``metrics`` (a
+        :class:`~repro_torch.serving.metrics.ServeMetrics`) collects TTFT
+        and inter-token times. ``_probe(engine, sched)`` runs after every
+        admit, chunk and release; ``_late(sched, pass_idx)`` once per
+        scheduler pass, and may submit mid-flight arrivals."""
+        with use_packed_backend(self.backend):
+            results = self._serve_legacy(requests, arrivals, metrics, _probe, _late)
+        if self.assert_bounds:
+            self.watermark_values = check_bounds(self.watermarks, self.attn_spec)
+        return results
+
+    def _serve_legacy(self, requests, arrivals, metrics, _probe, _late):
+        sched = self._make_scheduler()
+        pending = self._arrival_feed(requests, arrivals)
+        if pending is None:
+            for r in requests:
+                sched.submit(r)
+                if metrics is not None:
+                    metrics.submitted(r.uid, r.priority, 0.0)
+        eos = self.sampler.eos_id
+        results: dict[int, np.ndarray] = {}
+        chunk_idx = 0
+        t0 = time.perf_counter()
+
+        def now():
+            return time.perf_counter() - t0
+
+        def submit_due():
+            while pending and pending[0][0] <= now():
+                t, r = pending.popleft()
+                sched.submit(r)
+                if metrics is not None:
+                    metrics.submitted(r.uid, r.priority, t)
+
+        def note(slot, toks):
+            sched.record(slot, toks)
+            if metrics is not None and toks:
+                metrics.tokens(sched.active[slot].req.uid, len(toks), now())
+
+        def finish(slot):
+            st = sched.finish(slot)
+            self._release(slot)
+            results[st.req.uid] = np.concatenate(
+                [st.req.prompt, np.asarray(st.tokens, np.int32)])
+            if _probe is not None:
+                _probe(self, sched)
+
+        while sched.has_work or pending:
+            if pending:
+                submit_due()
+                if not sched.has_work:
+                    time.sleep(max(0.0, pending[0][0] - now()))
+                    continue
+            adm = sched.try_admit()
+            while adm is not None:
+                tok0 = self._do_admit(adm)
+                if tok0 is not None:
+                    note(adm.slot, [tok0])
+                if _probe is not None:
+                    _probe(self, sched)
+                if tok0 is not None and (sched.remaining(adm.slot) == 0 or tok0 == eos):
+                    finish(adm.slot)
+                adm = sched.try_admit()
+            if sched.active:
+                k = min(self.paged.chunk_max, sched.min_remaining())
+                buf = self._chunk(k)  # the chunk's one host read
+                if _probe is not None:
+                    _probe(self, sched)
+                for slot in list(sched.active):
+                    toks = buf[slot, :k].tolist()[: sched.remaining(slot)]
+                    if eos is not None and eos in toks:
+                        toks = toks[: toks.index(eos) + 1]
+                    note(slot, toks)
+                    if sched.remaining(slot) == 0 or (
+                            eos is not None and toks and toks[-1] == eos):
+                        finish(slot)
+            elif sched.queue:  # cannot happen: submit() validates fit
+                raise RuntimeError("queued requests can never be admitted")
+            if _late is not None:
+                _late(sched, chunk_idx)
+            chunk_idx += 1
+        return results
+
+    def generate(self, prompts: np.ndarray, max_new_tokens: int) -> np.ndarray:
+        """Fixed-slot-compatible entry: prompts (B, S0) -> (B, S0 + max_new),
+        post-EOS positions EOS-padded as :meth:`GenerationEngine.generate`."""
+        prompts = np.asarray(prompts, np.int32)
+        reqs = []
+        for row in prompts:
+            reqs.append(Request(uid=self._uid_gen, prompt=row, max_new=max_new_tokens))
+            self._uid_gen += 1
+        results = self.serve(reqs)
+        eos = self.sampler.eos_id
+        out = np.full((len(reqs), prompts.shape[1] + max_new_tokens),
+                      0 if eos is None else eos, np.int32)
+        for i, r in enumerate(reqs):
+            seq = results[r.uid]
+            out[i, :seq.size] = seq
+        return out
+
+
+__all__ = ["PagedConfig", "PagedEngine", "sample_rows"]
