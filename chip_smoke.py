@@ -72,6 +72,29 @@ result unless every phase passed):
    adding 0 to every kernel counter. It prints decode-step time, tokens/s,
    admit time, peak memory and a profiler breakdown of one decode chunk.
 
+8. the 2:4 kernels: B4 (``w4a8_sparse_matmul``) at phase 2's shapes,
+   uint8 and int8 codes, bit-equal to its plain version and to B1 on the
+   expanded codes, the P_I check on an l1-budgeted 2:4 weight, and per
+   shape its time beside B1's, the plain version's, ``torch._int_mm`` on
+   the expanded int8 codes and ``torch.sparse.to_sparse_semi_structured``
+   int8 x int8 (or the library's refusal); B5 with a 2:4 mask at one
+   layer's shapes (tie-limited agreement, exact pos/neg, zeros where the
+   mask is 0, the sparse certificate) timed masked and unmasked; B6
+   (``quant_rmsnorm``) driven once through ``ops.norm_and_quantize`` at
+   (256, 960), (512, 1024) and (1024, 4096), then held to its plain version
+   in f32 and bf16 (exact, or one code on under 1% of elements) and timed
+   beside ``F.rms_norm``;
+9. the 2:4 slice: the float32 smollm-360m calibrated with
+   ``PTQConfig(sparsity="2:4")`` (exactly 224 masked B5 launches, 224 sites
+   certified at sparsity 2:4, each site's register floor beside phase 5's
+   dense one), its artifact saved, loaded and served greedy (batch 4 x
+   prompt 64 + 16 new): exactly 3584 B4 launches and 0 B1, tokens identical
+   to the ``reference`` backend; then the bf16 model RTN-packed with
+   ``DatapathSpec(sparsity="2:4")`` through ``PagedEngine`` over phase 7's
+   12-request trace: B4 launches 224 per forward, 0 B1, every page back on
+   the free list. It prints decode-step time, tokens/s, peak memory and
+   ``packed_weight_bytes`` dense vs 2:4.
+
 Before driving a path, every launch counter is set to 0, and the counts are
 read just after it. Phase 3 ends with a ``torch.profiler`` breakdown of one
 decode step (the device's busy share and the kernel's part of it). The line
@@ -81,6 +104,7 @@ the device JSON ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -133,22 +157,31 @@ def reset_counts():
     """Set every kernel's launch counter to 0."""
     from repro_torch.kernels.gpfq_solve import gpfq_solve
     from repro_torch.kernels.paged_attention import paged_decode_attention
-    from repro_torch.kernels.w4a8_mm import w4a8_matmul
+    from repro_torch.kernels.quant_rmsnorm import quant_rmsnorm
+    from repro_torch.kernels.w4a8_mm import w4a8_matmul, w4a8_sparse_matmul
 
     w4a8_matmul.launches = 0
+    w4a8_sparse_matmul.launches = 0
     gpfq_solve.launches = 0
+    gpfq_solve.masked_launches = 0
     paged_decode_attention.launches = 0
     paged_decode_attention.int8_launches = 0
+    quant_rmsnorm.launches = 0
 
 
 def read_counts() -> dict:
     from repro_torch.kernels.gpfq_solve import gpfq_solve
     from repro_torch.kernels.paged_attention import paged_decode_attention
-    from repro_torch.kernels.w4a8_mm import w4a8_matmul
+    from repro_torch.kernels.quant_rmsnorm import quant_rmsnorm
+    from repro_torch.kernels.w4a8_mm import w4a8_matmul, w4a8_sparse_matmul
 
-    return {"w4a8_matmul": w4a8_matmul.launches, "gpfq_solve": gpfq_solve.launches,
+    return {"w4a8_matmul": w4a8_matmul.launches,
+            "w4a8_sparse_matmul": w4a8_sparse_matmul.launches,
+            "gpfq_solve": gpfq_solve.launches,
+            "gpfq_solve_masked": gpfq_solve.masked_launches,
             "paged_decode_attention": paged_decode_attention.launches,
-            "paged_decode_attention_int8": paged_decode_attention.int8_launches}
+            "paged_decode_attention_int8": paged_decode_attention.int8_launches,
+            "quant_rmsnorm": quant_rmsnorm.launches}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -189,6 +222,15 @@ def time_ms(torch, fn, reps: int = 30, flush=None) -> float:
     return statistics.median(times)
 
 
+def reset_peak(torch) -> None:
+    """Start a peak-memory window: collect the garbage of earlier phases
+    first (engines and closures form reference cycles that only the cyclic
+    collector frees), so the peak counts what the measured run holds."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+
 def wall_ms(torch, fn, reps: int) -> float:
     """Median host-clock time of ``fn`` ending in a synchronize: the time a
     caller waits, host overhead included (eager PyTorch enqueues each op
@@ -202,6 +244,19 @@ def wall_ms(torch, fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
     return statistics.median(times)
+
+
+def decode_step_ms(torch, model, prompts, out) -> float:
+    """Host-clock time of one fixed-slot decode step (ending in a
+    synchronize) after a prefill of ``prompts``, through the kernels."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import use_packed_backend
+
+    tokens = torch.as_tensor(prompts, device="cuda")
+    with torch.inference_mode(), use_packed_backend("kernel"):
+        _, caches = T.prefill(model, {"tokens": tokens}, PROMPT + MAX_NEW)
+        step_tok = torch.as_tensor(out[:, PROMPT:PROMPT + 1], device="cuda")
+        return wall_ms(torch, lambda: T.decode_step(model, step_tok, caches, PROMPT), reps=10)
 
 
 def phase_card(torch):
@@ -338,8 +393,7 @@ def phase_slice(torch):
                                       global_batch=BATCH, seed=0)).batch(0)["tokens"]
     engine = GenerationEngine(model, cfg, SamplerConfig(temperature=0.0), device="cuda")
     engine.generate(prompts, MAX_NEW)  # warm-up (allocator, cuBLAS handles)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak(torch)
 
     reset_counts()
     t0 = time.perf_counter()
@@ -522,6 +576,7 @@ def phase_calibration(torch):
     from repro_torch.core import gpfq as G
     from repro_torch.core.axe import PTQConfig
     from repro_torch.core.calibration import ActObserver, LayerStats
+    from repro_torch.core.overflow import min_feasible_p_bits
     from repro_torch.data import DataConfig, TokenBatcher
     from repro_torch.kernels import gpfq_solve as B5
     from repro_torch.models import transformer as T
@@ -621,8 +676,7 @@ def phase_calibration(torch):
                                       global_batch=BATCH, seed=0)).batch(0)["tokens"]
     engine = GenerationEngine(served, cfg, SamplerConfig(temperature=0.0), device="cuda")
     engine.generate(prompts, MAX_NEW)  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak(torch)
     reset_counts()
     t0 = time.perf_counter()
     out = engine.generate(prompts, MAX_NEW)
@@ -638,14 +692,18 @@ def phase_calibration(torch):
                                backend="reference").generate(prompts, MAX_NEW)
     check((out == ref_out).all(), "kernel and reference backends disagree on the artifact")
     check(bool(((out >= 0) & (out < cfg.vocab)).all()), "token out of the vocabulary")
+    step_ms = decode_step_ms(torch, served, prompts, out)
     print(f"[calib] artifact: {len(artifact)} leaves, {meta['datapath']}; served greedy batch "
           f"{BATCH} x prompt {PROMPT} + {MAX_NEW} new (float32, static activation "
           f"quantizers): {serve_counts['w4a8_matmul']} w4a8 launches, tokens identical to the "
-          f"reference backend, {BATCH * MAX_NEW / gen_s:.1f} tok/s, peak memory "
-          f"{peak / 2**20:.1f} MiB")
+          f"reference backend, {BATCH * MAX_NEW / gen_s:.1f} tok/s (wall {gen_s:.4f} s), "
+          f"decode step {step_ms:.3f} ms (host clock), peak memory {peak / 2**20:.1f} MiB")
+    floors = {name: min_feasible_p_bits(ql.cert) for name, ql in qm.quantized_linears()}
     return {"launches": counts["gpfq_solve"], "wall_s": wall, "instrumented_wall_s": wall_i,
             "b5_s": b5_s, **spent,
-            "serve_launches": serve_counts["w4a8_matmul"]}
+            "serve_launches": serve_counts["w4a8_matmul"], "floors": floors,
+            "serve": {"gen_s": gen_s, "tok_s": BATCH * MAX_NEW / gen_s, "step_ms": step_ms,
+                      "peak_mib": peak / 2**20}}
 
 
 # ---------------------------------------------------------------------------
@@ -949,6 +1007,17 @@ def serve_timed(torch, engine, reqs):
     return out, time.perf_counter() - t0, spent
 
 
+def trace_specs(cfg):
+    """Phase 7's trace: TRACE_REQUESTS (uid, prompt, max_new) of seeded
+    lengths (prompts 8-300, 4-32 new), and the generator it leaves."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    specs = [(uid, rng.integers(0, cfg.vocab, size=int(rng.integers(8, 301))),
+              int(rng.integers(4, 33))) for uid in range(TRACE_REQUESTS)]
+    return specs, rng
+
+
 def phase_paged_slice(torch):
     import numpy as np
     import torch.profiler
@@ -1008,9 +1077,7 @@ def phase_paged_slice(torch):
           f"{cfg.n_layers} x {eng_a.decode_steps} steps; {BATCH * MAX_NEW / wall_a:.1f} tok/s")
 
     # (b) mid-flight admission, float then int8 KV
-    rng = np.random.default_rng(0)
-    specs = [(uid, rng.integers(0, cfg.vocab, size=int(rng.integers(8, 301))),
-              int(rng.integers(4, 33))) for uid in range(TRACE_REQUESTS)]
+    specs, rng = trace_specs(cfg)
 
     def trace():
         return [Request(uid=u, prompt=p, max_new=n) for u, p, n in specs]
@@ -1018,7 +1085,7 @@ def phase_paged_slice(torch):
     runs = {}
     for kv in ("act", "int8"):
         eng = engine(kv)
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak(torch)
         reset_counts()
         res, wall, spent = serve_timed(torch, eng, trace())
         counts = read_counts()
@@ -1131,6 +1198,425 @@ def phase_paged_slice(torch):
                         "b1_ms": b1, "steps": chunk["k"]}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the 2:4 kernels (B4, masked B5) and the fused RMSNorm quantizer (B6)
+# ---------------------------------------------------------------------------
+def sparse_bound_ms(m: int, k: int, n: int) -> tuple[float, str]:
+    """Least time for one B4 call: codes, packed kept codes and meta (K/4
+    bytes each per column) and the two f32 epilogue vectors read once, the
+    bf16 output written once, against the products the kept codes need
+    (half of K) at the int8 tensor-core peak."""
+    nbytes = m * k + 2 * (k // 4) * n + 2 * 4 * n + 2 * m * n
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * m * n * (k // 2) / INT8_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def rmsnorm_bound_ms(m: int, d: int, in_bytes: int) -> tuple[float, str]:
+    """Least time for one B6 call: x and gamma read once, the uint8 codes
+    written once, against about 8 float32 operations an element."""
+    nbytes = m * d * in_bytes + 4 * d + 8 + m * d
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 8 * m * d / F32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def semi_structured_yardstick(torch, w8, xs, exact):
+    """``torch.sparse.to_sparse_semi_structured`` int8 x int8 on the expanded
+    codes (2:4 along K, so the transposed (N, K) weight is compressed), the
+    activations as a column-major operand: ``torch.mm``, else the int32
+    output of ``torch._cslt_sparse_mm`` on the same compressed weight.
+    Returns (call, its name) for the first whose product passes the
+    caller's ``exact`` check, else (None, why not)."""
+    why = []
+    try:
+        from torch.sparse import to_sparse_semi_structured
+
+        ws = to_sparse_semi_structured(w8.t().contiguous())
+    except Exception as e:  # the library's refusal is the record, not a failure
+        return None, (str(e).strip().splitlines() or [type(e).__name__])[0][:160]
+    xb = xs.t()
+    calls = [("mm", lambda: torch.mm(ws, xb))]
+    if hasattr(torch, "_cslt_sparse_mm") and getattr(ws, "packed", None) is not None:
+        calls.append(("_cslt_sparse_mm int32", lambda: torch._cslt_sparse_mm(
+            ws.packed, xb, out_dtype=torch.int32)))
+    for name, call in calls:
+        try:
+            out = call()
+            prod = out.t() if out.shape[0] == w8.shape[1] else out
+            if exact(prod):
+                return call, name
+            why.append(f"{name}: {out.dtype} output disagrees with the exact product")
+        except Exception as e:
+            why.append(f"{name}: " + (str(e).strip().splitlines() or [type(e).__name__])[0])
+    return None, "; ".join(why)[:240]
+
+
+def phase_sparse_kernels(torch, gpfq_rows):
+    from repro_torch.core.alphabet import act_alphabet
+    from repro_torch.core.overflow import certify
+    from repro_torch.core.sparsity import is_2to4, mask_2to4
+    from repro_torch.kernels import quant_rmsnorm as B6
+    from repro_torch.kernels.gpfq_solve import (
+        gpfq_solve_kernel,
+        gpfq_solve_plain,
+        tie_limited_agreement,
+    )
+    from repro_torch.kernels.ops import norm_and_quantize
+    from repro_torch.kernels.w4a8_mm import (
+        check_inner,
+        compress_2to4,
+        pack_int4,
+        unpack_sparse24,
+        w4a8_matmul,
+        w4a8_matmul_kernel,
+        w4a8_sparse_matmul,
+        w4a8_sparse_matmul_kernel,
+        w4a8_sparse_matmul_plain,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+
+    # B4 at phase 2's shapes: bit-equal to its plain version and to B1 on
+    # the expanded codes
+    b4_rows, b4_err = [], 0.0
+    cases = [(m, k, n) for m in (4, 256) for k, n in SHAPES_KN] + [(3, 960, 100)]
+    for m, k, n in cases:
+        q = torch.randint(-8, 8, (k, n), generator=gen, device=dev)
+        q = q * mask_2to4(q.float()).to(q.dtype)
+        packed, meta = compress_2to4(q)
+        check(torch.equal(unpack_sparse24(packed, meta), q.to(torch.int8)),
+              f"2:4 compression does not round-trip at K={k} N={n}")
+        dense = pack_int4(q)
+        col_sums = q.sum(0).to(torch.int32)
+        scale = torch.rand(n, generator=gen, device=dev) * 0.05 + 1e-3
+        act_scale = torch.tensor(0.0213, device=dev)
+        row = {"M": m, "K": k, "N": n}
+        for act in ("uint8", "int8"):
+            lo, hi = (0, 256) if act == "uint8" else (-128, 128)
+            x = torch.randint(lo, hi, (m, k), generator=gen, device=dev).to(getattr(torch, act))
+            zp = torch.tensor(131.0 if act == "uint8" else 0.0, device=dev)
+            kw = dict(col_sums=col_sums, out_dtype=torch.bfloat16)
+            y = w4a8_sparse_matmul(x, packed, meta, scale, act_scale, zp, **kw)
+            r = w4a8_sparse_matmul(x, packed, meta, scale, act_scale, zp, reference=True, **kw)
+            b1 = w4a8_matmul(x, dense, scale, act_scale, zp, **kw)
+            torch.cuda.synchronize()
+            b4_err = max(b4_err, (y.float() - r.float()).abs().max().item())
+            check(torch.equal(y, r), f"B4 != plain at M={m} K={k} N={n} {act}")
+            check(torch.equal(y, b1), f"B4 != B1 on the expanded codes at M={m} K={k} N={n} "
+                                      f"{act}")
+            if act == "uint8":
+                sw = scale * act_scale
+                corr = col_sums.to(torch.float32) * zp
+                row["ms"] = time_ms(torch, lambda: w4a8_sparse_matmul_kernel(
+                    x, packed, meta, sw, corr, torch.bfloat16), flush=flush)
+                row["b1_ms"] = time_ms(torch, lambda: w4a8_matmul_kernel(
+                    x, dense, sw, corr, torch.bfloat16), flush=flush)
+                row["plain_ms"] = time_ms(torch, lambda: w4a8_sparse_matmul_plain(
+                    x, packed, meta, sw, corr, torch.bfloat16), flush=flush)
+                row["library_ms"] = row["semi_structured_ms"] = None
+                if k % 8 == 0 and n % 8 == 0:
+                    mp = max(m, 32)  # _int_mm needs M > 16
+                    xs = torch.zeros((mp, k), dtype=torch.int8, device=dev)
+                    xs[:m] = (x.to(torch.int16) - 128).to(torch.int8)
+                    w8 = q.to(torch.int8).contiguous()
+                    exact = x.to(torch.float64) @ q.to(torch.float64)
+                    acc = torch._int_mm(xs, w8)[:m] + 128 * col_sums
+                    check(torch.equal(acc.to(torch.float64), exact),
+                          "the _int_mm yardstick disagrees with the exact product")
+                    row["library_ms"] = time_ms(torch, lambda: torch._int_mm(xs, w8),
+                                                flush=flush)
+                    call, why = semi_structured_yardstick(
+                        torch, w8, xs, lambda p: torch.equal(
+                            (p[:m].to(torch.int64) + 128 * col_sums).to(torch.float64), exact))
+                    row["semi_structured_ms"] = (f"n/a: {why}" if call is None
+                                                 else time_ms(torch, call, flush=flush))
+                    row["semi_structured_call"] = why
+        row["bound_ms"], row["bound_by"] = sparse_bound_ms(m, k, n)
+        b4_rows.append(row)
+        lib = "n/a" if row["library_ms"] is None else f"{row['library_ms']:.5f}"
+        ss = row["semi_structured_ms"]
+        ss = ss if ss is None or isinstance(ss, str) else (
+            f"{ss:.5f} ms ({row['semi_structured_call']})")
+        print(f"[b4] M={m:4d} K={k:5d} N={n:5d} bit-equal to plain and B1 (u8,s8) "
+              f"kernel {row['ms']:.5f} ms  B1 {row['b1_ms']:.5f} ms  plain "
+              f"{row['plain_ms']:.5f} ms  _int_mm {lib} ms  semi-structured {ss}  bound "
+              f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
+
+    # the P_I check over the certified tiles of the expanded codes, on an
+    # l1-budgeted 2:4 weight
+    k, n = 960, 960
+    q = torch.randint(-7, 8, (k, n), generator=gen, device=dev)
+    q = q * mask_2to4(q.float()).to(q.dtype)
+    tiles = q.reshape(k // 64, 64, n)
+    q = (tiles * (torch.cumsum(tiles.abs(), dim=1) <= 128)).reshape(k, n)
+    check(is_2to4(q), "the budgeted weight lost its 2:4 pattern")
+    packed, meta = compress_2to4(q)
+    x = torch.randint(0, 256, (256, k), generator=gen, device=dev).to(torch.uint8)
+    y = w4a8_sparse_matmul(x, packed, meta, torch.ones(n, device=dev), 0.01, 131.0,
+                           col_sums=q.sum(0).to(torch.int32), block_k=128, p_inner=16,
+                           assert_inner=True, out_dtype=torch.bfloat16)
+    watermark = check_inner(x, packed, 128, 16, meta=meta)
+    check(bool(torch.isfinite(y.float()).all()), "non-finite B4 output")
+    full = torch.full((k, n), -8, device=dev)
+    fp, fm = compress_2to4(full * mask_2to4(full.float()).to(full.dtype))
+    raised = False
+    try:
+        check_inner(x, fp, 128, 15, meta=fm)
+    except OverflowError:
+        raised = True
+    check(raised, "an unbudgeted 2:4 weight passed the P_I=15 check")
+    print(f"[b4] assert_inner: an l1-budgeted 2:4 weight passes P_I=16 (watermark {watermark} "
+          f"<= {2 ** 15 - 1}); an unbudgeted one raises at P_I=15")
+
+    # B5 with a mask at one layer's shapes, split mode
+    by_shape = {(r["K"], r["C"]): r for r in gpfq_rows
+                if (r["mode"], r["rounding"]) == ("split", "nearest")}
+    b5_rows, b5_err = [], 0.0
+    for k, c in SHAPES_KN:
+        args, act, order, axe = gpfq_case_inputs(torch, k, c, "split", "nearest", gen)
+        inv = torch.argsort(order)
+        mask = mask_2to4(args[0][inv])[order].to(torch.uint8).contiguous()
+        kw = dict(qmax=7.0, mode="split", rounding="nearest")
+        q, u, pos, neg = gpfq_solve_kernel(*args, **kw, mask=mask)
+        pq, _, _, _, v = gpfq_solve_plain(*args, **kw, mask=mask, return_v=True)
+        torch.cuda.synchronize()
+        ok, share, cut = tie_limited_agreement(pq, q, v, "nearest", 1e-3)
+        check(ok, f"masked gpfq_solve K={k} C={c}: codes differ before the first tie "
+                  f"(share equal {share:.5f})")
+        b5_err = max(b5_err, (q - pq).abs().max().item())
+        check(not q[mask == 0].any(), f"masked gpfq_solve K={k} C={c}: a pruned code is "
+                                      f"nonzero")
+        tid, n_tiles = args[6], args[5].shape[0]
+        sums_p = torch.zeros((n_tiles, c), device=dev).index_add_(0, tid.long(), q.clamp(min=0))
+        sums_n = torch.zeros((n_tiles, c), device=dev).index_add_(0, tid.long(), q.clamp(max=0))
+        check(torch.equal(sums_p, pos) and torch.equal(sums_n, neg),
+              f"masked gpfq_solve K={k} C={c}: pos/neg are not the tile sums of its codes")
+        rep = certify(q[inv], act, 16, 128, sparsity="2:4")
+        check(bool(rep), f"masked gpfq_solve K={k} C={c}: sparse certificate fails: {rep}")
+        ms = time_ms(torch, lambda: gpfq_solve_kernel(*args, **kw, mask=mask), reps=5,
+                     flush=flush)
+        dense_ms = time_ms(torch, lambda: gpfq_solve_kernel(*args, **kw), reps=5, flush=flush)
+        plain_ms = wall_ms(torch, lambda: gpfq_solve_plain(*args, **kw, mask=mask), reps=2)
+        bms, by = gpfq_bound_ms(k, k, c)
+        bms += 1e3 * k * c / HBM_BYTES_PER_S  # the mask's bytes (never the binding term)
+        b5_rows.append({"K": k, "C": c, "share_equal": share, "channels_cut_by_tie": cut,
+                        "headroom_bits": rep.headroom_bits, "ms": ms, "unmasked_ms": dense_ms,
+                        "phase4_ms": by_shape[(k, c)]["ms"], "plain_ms": plain_ms,
+                        "bound_ms": bms, "bound_by": by, "library_ms": None})
+        print(f"[b5-mask] K={k:5d} C={c:5d} split nearest: tie-limited agreement ok, "
+              f"{share:.5f} of codes equal ({cut} channels cut by a tie), zeros where the mask "
+              f"is 0, pos/neg exact, sparse certificate headroom {rep.headroom_bits:.4f} bits; "
+              f"masked {ms:.4f} ms  unmasked {dense_ms:.4f} ms (phase 4 "
+              f"{by_shape[(k, c)]['ms']:.4f} ms)  plain {plain_ms:.1f} ms  bound {bms:.4f} ms "
+              f"({by})")
+
+    # B6 through ops.norm_and_quantize, its entry point: the counts of one
+    # driven run, then the kernel against its plain version
+    shapes = [(256, 960), (512, 1024), (1024, 4096)]
+    inputs = {}
+    for m, d in shapes:
+        x = torch.randn((m, d), generator=gen, device=dev) * 2
+        g = torch.randn((d,), generator=gen, device=dev) * 0.1 + 1.0
+        inputs[(m, d)] = (x, g)
+    torch.cuda.synchronize()
+    reset_counts()
+    for x, g in inputs.values():
+        norm_and_quantize(x, g, 0.02, 128, block_m=256)
+    torch.cuda.synchronize()
+    b6_launches = read_counts()["quant_rmsnorm"]
+    check(b6_launches == len(shapes), f"{b6_launches} quant_rmsnorm launches through "
+                                      f"norm_and_quantize, expected {len(shapes)}")
+    b6_rows, b6_err = [], 0
+    for (m, d), (x, g) in inputs.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            xd = x.to(dtype).contiguous()
+            qp = B6.quantizer_pair(0.02, 128, dev)
+            kw = dict(eps=1e-6, qmax=255.0)
+            y = B6.quant_rmsnorm_kernel(xd, g, qp, **kw)
+            r = B6.quant_rmsnorm_plain(xd, g, qp, **kw)
+            torch.cuda.synchronize()
+            diff = (y.to(torch.int32) - r.to(torch.int32)).abs()
+            off = float((diff > 0).float().mean())
+            b6_err = max(b6_err, int(diff.max()))
+            check(int(diff.max()) <= 1 and off < 0.01,
+                  f"B6 != plain at ({m}, {d}) {dtype}: max {int(diff.max())} code(s), "
+                  f"{off:.4f} of elements off")
+            bms, by = rmsnorm_bound_ms(m, d, xd.element_size())
+            row = {"M": m, "D": d, "dtype": str(dtype).split(".")[-1], "codes_off": off,
+                   "ms": time_ms(torch, lambda: B6.quant_rmsnorm_kernel(xd, g, qp, **kw),
+                                 flush=flush),
+                   "plain_ms": time_ms(torch, lambda: B6.quant_rmsnorm_plain(xd, g, qp, **kw),
+                                       flush=flush),
+                   "rms_norm_ms": time_ms(torch, lambda: torch.nn.functional.rms_norm(
+                       xd, (d,), g.to(dtype), 1e-6), flush=flush),
+                   "library_ms": None, "bound_ms": bms, "bound_by": by}
+            b6_rows.append(row)
+            print(f"[b6] ({m}, {d}) {row['dtype']}: within one code of plain on {off:.5f} of "
+                  f"elements; kernel {row['ms']:.5f} ms  plain {row['plain_ms']:.5f} ms  "
+                  f"F.rms_norm alone {row['rms_norm_ms']:.5f} ms  bound {bms:.5f} ms ({by})")
+    return {"b4": (b4_rows, b4_err), "b5": (b5_rows, b5_err),
+            "b6": (b6_rows, b6_err, b6_launches)}
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the 2:4 slice on smollm-360m
+# ---------------------------------------------------------------------------
+def phase_sparse_slice(torch, dense_calib, paged):
+    import tempfile
+    from dataclasses import replace
+
+    from repro_torch.checkpoint import save_pytree
+    from repro_torch.configs import get_config
+    from repro_torch.core.axe import PTQConfig
+    from repro_torch.core.overflow import min_feasible_p_bits
+    from repro_torch.core.sparsity import is_2to4
+    from repro_torch.data import DataConfig, TokenBatcher
+    from repro_torch.models import transformer as T
+    from repro_torch.quant.pipeline import calibrate_and_quantize
+    from repro_torch.quant.serve_packed import (
+        export_quantized_artifact,
+        load_flat_artifact,
+        pack_decode_params,
+        packed_params_from_artifact,
+        packed_weight_bytes,
+    )
+    from repro_torch.quant.spec import DatapathSpec
+    from repro_torch.serving import (
+        GenerationEngine,
+        PagedConfig,
+        PagedEngine,
+        Request,
+        SamplerConfig,
+    )
+
+    greedy = SamplerConfig(temperature=0.0)
+    # (a) 2:4 calibration of the float32 copy, phase 5's batches
+    cfg = replace(get_config("smollm-360m"), param_dtype="float32", act_dtype="float32")
+    sites = 7 * cfg.n_layers
+    model = T.init_model(cfg, 0, device="cuda")
+    data = TokenBatcher(DataConfig(vocab=cfg.vocab, seq_len=CALIB_SEQ,
+                                   global_batch=CALIB_BATCH, seed=0))
+    calib = [data.batch(10_000 + i) for i in range(CALIB_BATCHES)]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    qm = calibrate_and_quantize(model, cfg, calib, PTQConfig(sparsity="2:4"), device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    calib_counts = read_counts()
+    check(calib_counts["gpfq_solve"] == sites and calib_counts["gpfq_solve_masked"] == sites,
+          f"2:4 calibration launches {calib_counts}, expected {sites} masked gpfq_solve")
+    check(calib_counts["w4a8_matmul"] == 0 and calib_counts["w4a8_sparse_matmul"] == 0,
+          f"calibration launched a GEMM kernel: {calib_counts}")
+    summary = qm.cert_summary()
+    check(summary["ok"] and summary["n_certified"] == sites, f"certificates: {summary}")
+    floors, fell = {}, 0
+    for name, ql in qm.quantized_linears():
+        check(ql.cert.sparsity == "2:4" and is_2to4(ql.q_int), f"{name} is not certified 2:4")
+        floors[name] = min_feasible_p_bits(ql.cert)
+        fell += floors[name] < dense_calib["floors"][name]
+    print(f"[sparse-calib] smollm-360m full width in float32, GPFQ W4A8 P_I=16 T=128 "
+          f"sparsity=2:4, {CALIB_BATCHES} x {CALIB_BATCH} x {CALIB_SEQ} tokens: "
+          f"{calib_counts['gpfq_solve_masked']} masked gpfq_solve launches (= 7 x {cfg.n_layers}); "
+          f"certified {summary['n_certified']} sites at sparsity=2:4, min headroom "
+          f"{summary['min_headroom_bits']:.4f} bits at {summary['min_headroom_site']}; wall "
+          f"{wall:.3f} s (dense, phase 5: {dense_calib['wall_s']:.3f} s)")
+    print("[sparse-calib] min_feasible_p_bits per site, 2:4 / dense: " + ", ".join(
+        f"{n.replace('layer', 'L')} {floors[n]}/{dense_calib['floors'][n]}" for n in floors))
+    print(f"[sparse-calib] the register floor fell at {fell} of {sites} sites")
+
+    # (b) the exported 2:4 artifact, saved, loaded and served through B4
+    artifact, meta = export_quantized_artifact(qm)
+    with tempfile.TemporaryDirectory() as tmp:
+        save_pytree(artifact, os.path.join(tmp, "quantized"), meta)
+        flat, meta2 = load_flat_artifact(os.path.join(tmp, "quantized"))
+    served = packed_params_from_artifact(flat, model, cfg, meta=meta2)
+    prompts = TokenBatcher(DataConfig(vocab=cfg.vocab, seq_len=PROMPT,
+                                      global_batch=BATCH, seed=0)).batch(0)["tokens"]
+    engine = GenerationEngine(served, cfg, greedy, device="cuda")
+    engine.generate(prompts, MAX_NEW)  # warm-up
+    reset_peak(torch)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, MAX_NEW)
+    gen_s = time.perf_counter() - t0
+    serve_counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    expected = sites * MAX_NEW
+    check(serve_counts["w4a8_sparse_matmul"] == expected and serve_counts["w4a8_matmul"] == 0,
+          f"serving the 2:4 artifact: launches {serve_counts}, expected {expected} B4 and 0 B1")
+    ref_out = GenerationEngine(served, cfg, greedy, device="cuda",
+                               backend="reference").generate(prompts, MAX_NEW)
+    check((out == ref_out).all(), "kernel and reference backends disagree on the 2:4 artifact")
+    check(bool(((out >= 0) & (out < cfg.vocab)).all()), "token out of the vocabulary")
+    step_ms = decode_step_ms(torch, served, prompts, out)
+    fixed = {"gen_s": gen_s, "tok_s": BATCH * MAX_NEW / gen_s, "step_ms": step_ms,
+             "peak_mib": peak / 2**20}
+    print(f"[sparse-serve] artifact: {len(artifact)} leaves, {meta['datapath']}; served greedy "
+          f"batch {BATCH} x prompt {PROMPT} + {MAX_NEW} new (float32, static activation "
+          f"quantizers): {serve_counts['w4a8_sparse_matmul']} B4 launches (= 7 x "
+          f"{cfg.n_layers} x {MAX_NEW}), {serve_counts['w4a8_matmul']} B1; tokens identical to "
+          f"the reference backend; {fixed['tok_s']:.1f} tok/s (wall {gen_s:.4f} s), decode "
+          f"step {step_ms:.3f} ms (host clock), peak memory {fixed['peak_mib']:.1f} MiB; "
+          f"dense artifact (phase 5): {dense_calib['serve']['tok_s']:.1f} tok/s, decode step "
+          f"{dense_calib['serve']['step_ms']:.3f} ms, peak {dense_calib['serve']['peak_mib']:.1f}"
+          f" MiB")
+    del model, served, engine, qm
+    torch.cuda.empty_cache()
+
+    # (c) RTN 2:4 packing of the bf16 model, served through the paged
+    # engine over phase 7's trace
+    cfg = get_config("smollm-360m")
+    model = pack_decode_params(T.init_model(cfg, 0, device="cuda"), cfg,
+                               DatapathSpec(sparsity="2:4"))
+    eng = PagedEngine(model, cfg, PagedConfig(
+        block_size=PAGED_BLOCK, num_blocks=PAGED_BLOCKS, max_concurrency=PAGED_SLOTS,
+        chunk_max=PAGED_CHUNK, attn_impl="auto"), greedy, device="cuda")
+    specs, _ = trace_specs(cfg)
+    reset_peak(torch)
+    reset_counts()
+    res, wall_t, spent = serve_timed(torch, eng, [Request(uid=u, prompt=p, max_new=n)
+                                                  for u, p, n in specs])
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    forwards = eng.decode_steps + eng.admits + eng.suffix_admits
+    check(counts["w4a8_sparse_matmul"] == sites * forwards and counts["w4a8_matmul"] == 0,
+          f"paged 2:4 trace: launches {counts} for {forwards} forwards")
+    check(counts["paged_decode_attention"] == cfg.n_layers * eng.decode_steps,
+          f"paged 2:4 trace: B2 launches {counts} for {eng.decode_steps} decode steps")
+    for u, p, n in specs:
+        check(res[u].size == p.size + n, f"2:4 trace: request {u} incomplete")
+    pool = eng.pool_state
+    check(pool.free_top == 0 and not pool.page_rc.any()
+          and int(eng.cache["free_top"]) == 0 and not eng.cache["page_refcounts"].any(),
+          "2:4 trace: pages not all back on the free list")
+    n_new = sum(n for _, _, n in specs)
+    dense_run = paged["runs"]["act"]
+    trace = {"decode_steps": eng.decode_steps, "forwards": forwards,
+             "launches": counts["w4a8_sparse_matmul"], "wall_s": wall_t,
+             "tok_s": n_new / wall_t, "step_ms": 1e3 * spent["chunk"] / eng.decode_steps,
+             "admit_ms": 1e3 * spent["admit"] / eng.admits, "peak_mib": peak / 2**20}
+    print(f"[sparse-paged] RTN 2:4 bf16 through PagedEngine, {TRACE_REQUESTS} requests: "
+          f"{counts['w4a8_sparse_matmul']} B4 launches = {sites} x {forwards} forwards, "
+          f"{counts['w4a8_matmul']} B1; every page back on the free list; decode step "
+          f"{trace['step_ms']:.3f} ms, admit {trace['admit_ms']:.3f} ms (host clock), "
+          f"{trace['tok_s']:.1f} tok/s, wall {wall_t:.3f} s, peak memory "
+          f"{trace['peak_mib']:.1f} MiB; dense (phase 7, float KV): decode step "
+          f"{dense_run['step_ms']:.3f} ms, {dense_run['tok_s']:.1f} tok/s, peak "
+          f"{dense_run['peak'] / 2**20:.1f} MiB")
+    nbytes = {s: packed_weight_bytes(cfg, sparsity=s) for s in (None, "2:4")}
+    print(f"[sparse-paged] packed_weight_bytes dense vs 2:4: codes "
+          f"{nbytes[None]['packed_code_bytes']} vs {nbytes['2:4']['packed_code_bytes']} + meta "
+          f"{nbytes['2:4']['meta_bytes']}; total {nbytes[None]['packed_bytes']} vs "
+          f"{nbytes['2:4']['packed_bytes']} bytes")
+    return {"calib_launches": calib_counts["gpfq_solve_masked"], "calib_wall_s": wall,
+            "floors_fell": fell, "fixed": fixed, "serve_launches":
+            serve_counts["w4a8_sparse_matmul"], "trace": trace, "bytes": nbytes}
+
+
 def paged_record(name, rows, err, launches, source_line) -> dict:
     """One record for a paged-attention kernel: times at smollm-360m decode,
     4 slots x 80 tokens (the slice's lengths); the 2048-token rows beside."""
@@ -1154,12 +1640,15 @@ def paged_record(name, rows, err, launches, source_line) -> dict:
     }
 
 
-def gpfq_record(rows, max_err, launches):
+def gpfq_record(rows, max_err, launches, masked_rows, masked_err, masked_launches):
     """One record for gpfq_solve: times summed over the 7 site shapes of one
-    smollm-360m layer (split budgets, round-to-nearest); per-case rows beside."""
+    smollm-360m layer (split budgets, round-to-nearest); per-case rows beside;
+    the masked solve of the 2:4 slice (phases 8, 9) as its own sub-record."""
     by_shape = {(r["K"], r["C"]): r for r in rows
                 if (r["mode"], r["rounding"]) == ("split", "nearest")}
     layer = [by_shape[kn] for kn in LAYER_SITES]
+    masked_by = {(r["K"], r["C"]): r for r in masked_rows}
+    masked = [masked_by[kn] for kn in LAYER_SITES]
     return {
         "name": "gpfq_solve",
         "route": "cuda",
@@ -1175,6 +1664,73 @@ def gpfq_record(rows, max_err, launches):
         "library_ms": None,
         "timed_as": "sum over the 7 sites of one smollm-360m layer, K x C as calibration "
                     "solves them; no single PyTorch call computes this solve",
+        "shapes": rows,
+        "masked": {
+            "launches": masked_launches,
+            "max_abs_err": masked_err,
+            "ms": sum(r["ms"] for r in masked),
+            "unmasked_ms": sum(r["unmasked_ms"] for r in masked),
+            "plain_ms": sum(r["plain_ms"] for r in masked),
+            "bound_ms": sum(r["bound_ms"] for r in masked),
+            "bound_by": "operations" if all(r["bound_by"] == "operations" for r in masked)
+            else "bytes",
+            "library_ms": None,
+            "timed_as": "the 2:4 solve with its (K, C) uint8 mask, summed over one layer's "
+                        "7 sites; unmasked_ms times the same inputs without the mask",
+            "shapes": masked_rows,
+        },
+    }
+
+
+def sparse_kernel_record(rows, max_err, launches):
+    """One record for w4a8_sparse_matmul (B4): times summed over the 7 site
+    shapes of one layer at decode (M = 4), B1's times on the expanded codes
+    beside; per-shape rows beside."""
+    by_shape = {(r["K"], r["N"]): r for r in rows if r["M"] == BATCH}
+    layer = [by_shape[kn] for kn in LAYER_SITES]
+    return {
+        "name": "w4a8_sparse_matmul",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/w4a8_mm.cu",
+        "replaces": "src/repro/kernels/w4a8_mm.py:311",
+        "pallas_call": "src/repro/kernels/w4a8_mm.py:410",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": sum(r["ms"] for r in layer),
+        "plain_ms": sum(r["plain_ms"] for r in layer),
+        "bound_ms": sum(r["bound_ms"] for r in layer),
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in layer) else "operations",
+        "library_ms": sum(r["library_ms"] for r in layer),
+        "b1_ms": sum(r["b1_ms"] for r in layer),
+        "timed_as": "sum over the 7 packed 2:4 sites of one layer at decode, M=4, cold L2; "
+                    "the library call is torch._int_mm on the expanded int8 codes; b1_ms is "
+                    "the dense kernel on the same codes",
+        "shapes": rows,
+    }
+
+
+def rmsnorm_record(rows, max_err, launches):
+    """One record for quant_rmsnorm (B6): the (256, 960) float32 call (one
+    smollm-360m prefill of 4 x 64 tokens); every shape and type beside."""
+    main = rows[0]
+    return {
+        "name": "quant_rmsnorm",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/quant_rmsnorm.cu",
+        "replaces": "src/repro/kernels/quant_rmsnorm.py:22",
+        "pallas_call": "src/repro/kernels/quant_rmsnorm.py:51",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": None,
+        "rms_norm_ms": main["rms_norm_ms"],
+        "timed_as": f"one call at ({main['M']}, {main['D']}) {main['dtype']}, cold L2, through "
+                    f"ops.norm_and_quantize's kernel; no single PyTorch call computes it "
+                    f"(rms_norm_ms: F.rms_norm alone, for scale); launches: one run of "
+                    f"norm_and_quantize at the 3 shapes, the only entry point that reaches it",
         "shapes": rows,
     }
 
@@ -1225,13 +1781,18 @@ def main() -> int:
     calib = phase_calibration(torch)
     paged_rows, paged_err = phase_paged_kernels(torch)
     paged = phase_paged_slice(torch)
+    sparse_k = phase_sparse_kernels(torch, gpfq_rows)
+    sparse = phase_sparse_slice(torch, calib, paged)
     print(json.dumps({"kernels": [
         kernel_record(rows, max_err, launches),
-        gpfq_record(gpfq_rows, gpfq_err, calib["launches"]),
         paged_record("paged_decode_attention", paged_rows["float"], paged_err["float"],
                      paged["runs"]["act"]["counts"]["paged_decode_attention"], 189),
         paged_record("paged_decode_attention_int8", paged_rows["int8"], paged_err["int8"],
-                     paged["runs"]["int8"]["counts"]["paged_decode_attention_int8"], 226)]}))
+                     paged["runs"]["int8"]["counts"]["paged_decode_attention_int8"], 226),
+        sparse_kernel_record(*sparse_k["b4"], sparse["serve_launches"]),
+        gpfq_record(gpfq_rows, gpfq_err, calib["launches"], *sparse_k["b5"],
+                    sparse["calib_launches"]),
+        rmsnorm_record(*sparse_k["b6"])]}))
     # one card: every phase runs on cuda:0
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

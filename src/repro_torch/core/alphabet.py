@@ -15,8 +15,9 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
-#: the 2:4 sparse paths arrive with a later slice of the port
-SLICE_2TO4 = "2:4 sparsity arrives with the 2:4 slice of the port"
+#: the semi-structured sparsity patterns the datapath certifies
+SPARSITY_2_4 = "2:4"
+SPARSITY_PATTERNS = (SPARSITY_2_4,)
 
 
 @dataclass(frozen=True)
@@ -77,16 +78,19 @@ def accumulator_range(p_bits: int) -> tuple[int, int]:
 
 
 def effective_depth(k: int, sparsity: str | None) -> int:
-    """Nonzero addends in a ``k``-deep reduction: ``k`` for dense codes.
-    The 2:4 pattern raises until its slice of the port."""
+    """Nonzero addends in a ``k``-deep reduction: ``k`` for dense codes;
+    2:4 keeps at most 2 of every 4 along K, so at most ``ceil(k/2)``."""
     if sparsity is None:
         return k
-    raise NotImplementedError(f"sparsity={sparsity!r}: {SLICE_2TO4}")
+    if sparsity == SPARSITY_2_4:
+        return max((k + 1) // 2, 1)
+    raise ValueError(f"unknown sparsity pattern {sparsity!r}")
 
 
 def min_accumulator_bits(k: int, n_bits: int, m_bits: int, signed_input: bool,
                          sparsity: str | None = None) -> int:
-    """P* = ceil(log2(2^(log2(K) + N + M - 1 - 1_signed) + 1) + 1)   (Eq. 3)."""
+    """P* = ceil(log2(2^(log2(K) + N + M - 1 - 1_signed) + 1) + 1)   (Eq. 3),
+    with K the effective depth under ``sparsity`` (2:4 tightens P* a bit)."""
     if k < 1:
         raise ValueError("dot-product depth must be >= 1")
     k = effective_depth(k, sparsity)
@@ -122,7 +126,8 @@ def strict_budgets(p_bits: int, act: Alphabet, rounding_slack: float) -> Budgets
 
 def outer_accumulator_bits(p_inner: int, k: int, tile: int,
                            sparsity: str | None = None) -> int:
-    """P_O = ceil(P_I + log2(K) - log2(T))   (Eq. 22)."""
+    """P_O = ceil(P_I + log2(K) - log2(T))   (Eq. 22), on effective depths:
+    2:4 halves K and T alike, so P_O - P_I does not move."""
     k = effective_depth(k, sparsity)
     tile = effective_depth(tile, sparsity)
     if k < tile:

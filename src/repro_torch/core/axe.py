@@ -30,7 +30,7 @@ from .alphabet import (
 from .calibration import LayerStats
 from .ep_init import ep_init, tiled, untiled
 from .equalization import bias_correction
-from .gpfq import AxeConfig, GreedyResult, gpfq_memory_efficient, validate_sparsity
+from .gpfq import AxeConfig, GreedyResult, gpfq_memory_efficient
 from .optq import optq
 from .overflow import CertReport, StackedCertReport, certify
 from .quantizers import (
@@ -41,6 +41,7 @@ from .quantizers import (
     to_int_domain,
     weight_scales,
 )
+from .sparsity import mask_2to4, validate_sparsity
 
 GPFQ = "gpfq"
 OPTQ = "optq"
@@ -160,17 +161,20 @@ def _make_solver(stats: LayerStats, cfg: PTQConfig, k: int):
         def solve(w):
             return gpfq_memory_efficient(w, h_half, g, cfg.w_alphabet, cfg.act_alphabet,
                                          axe=cfg.axe, rounding=cfg.rounding,
-                                         act_order=cfg.act_order)
+                                         act_order=cfg.act_order, sparsity=cfg.sparsity)
     elif cfg.algorithm == OPTQ:
         hess = stats.optq_hessian(cfg.damp_frac)
 
         def solve(w):
             return optq(w, hess, cfg.w_alphabet, cfg.act_alphabet, axe=cfg.axe,
-                        rounding=cfg.rounding, act_order=cfg.act_order)
+                        rounding=cfg.rounding, act_order=cfg.act_order,
+                        sparsity=cfg.sparsity)
     elif cfg.algorithm == RTN:
 
         def solve(w):
             q_int, scale = quantize_weights_rtn(w, cfg.w_alphabet, cfg.rounding)
+            if cfg.sparsity is not None:  # mask, then round: no error feedback
+                q_int = q_int * mask_2to4(q_int)
             return GreedyResult(q_int=q_int, scale=scale, w_alphabet=cfg.w_alphabet)
     elif cfg.algorithm == EPINIT:
         axe = cfg.axe or AxeConfig(p_bits=cfg.p_bits, tile=cfg.tile)
@@ -180,6 +184,8 @@ def _make_solver(stats: LayerStats, cfg: PTQConfig, k: int):
         def solve(w):
             scale = weight_scales(w, cfg.w_alphabet)
             w_int = to_int_domain(w, scale)
+            if cfg.sparsity is not None:  # l1 projection and RTZ keep zeros at zero
+                w_int = w_int * mask_2to4(w_int)
             # each tile row onto the l1 ball of the strict radius; RTZ keeps
             # it valid after rounding (A2Q+ / §2.3)
             q_ct = ep_init(tiled(w_int.T, t), budgets.B, cfg.w_alphabet)

@@ -24,7 +24,7 @@ import torch
 
 from repro_torch.kernels.gpfq_solve import gpfq_solve
 
-from .alphabet import SLICE_2TO4, Alphabet, Budgets, l1_budget_zero_centered, strict_budgets
+from .alphabet import Alphabet, Budgets, l1_budget_zero_centered, strict_budgets
 from .ep_init import l1_projection_threshold, soft_threshold, tiled
 from .quantizers import (
     ROUND_NEAREST,
@@ -33,12 +33,7 @@ from .quantizers import (
     to_int_domain,
     weight_scales,
 )
-
-
-def validate_sparsity(sparsity: str | None) -> None:
-    """Dense only in this slice: a sparsity pattern raises."""
-    if sparsity is not None:
-        raise NotImplementedError(f"sparsity={sparsity!r}: {SLICE_2TO4}")
+from .sparsity import mask_2to4, validate_sparsity
 
 
 @dataclass(frozen=True)
@@ -132,10 +127,12 @@ def constrain_row(v, t: int, lam, A, B, pos, neg, *, strict: bool, mode: str,
     return q, pos, neg
 
 
-def _gpfq_loop(w_int, xg, xh, state, *, w_bits: int, w_signed: bool, rounding: str):
+def _gpfq_loop(w_int, xg, xh, state, *, w_bits: int, w_signed: bool, rounding: str,
+               mask=None):
     """The greedy loop on rows already in solve order (``state`` as from
-    :func:`make_axe_state`, tile ids permuted alike, or None): kernel B5.
-    Returns (Q, U, pos, neg)."""
+    :func:`make_axe_state`, tile ids permuted alike, or None; ``mask`` the
+    (K, C) 2:4 support permuted alike, or None): kernel B5. Returns (Q, U,
+    pos, neg)."""
     if not w_signed:
         raise ValueError("GPFQ codes use the signed symmetric weight alphabet")
     C = w_int.shape[1]
@@ -143,10 +140,10 @@ def _gpfq_loop(w_int, xg, xh, state, *, w_bits: int, w_signed: bool, rounding: s
         lam = torch.zeros((1, C), dtype=torch.float32, device=w_int.device)
         tile_ids = torch.zeros((w_int.shape[0],), dtype=torch.int32, device=w_int.device)
         return gpfq_solve(w_int, xg, xh, lam, tile_ids, 0.0, 0.0, w_bits=w_bits, mode="plain",
-                          rounding=rounding)
+                          rounding=rounding, mask=mask)
     mode = state["mode"] if state["strict"] else "soft"
     return gpfq_solve(w_int, xg, xh, state["lam"], state["tile_ids"], state["A"], state["B"],
-                      w_bits=w_bits, mode=mode, rounding=rounding)
+                      w_bits=w_bits, mode=mode, rounding=rounding, mask=mask)
 
 
 def _prepare(w, w_alphabet):
@@ -166,13 +163,17 @@ def _run(w, xg, xh, w_alphabet: Alphabet, act_alphabet: Alphabet | None,
     w_int, scale = _prepare(w, w_alphabet)
     K = w.shape[0]
     state = make_axe_state(w_int, axe, act_alphabet, rounding, K)
+    # the 2:4 mask ranks the integer-domain target in the original K order,
+    # so the pattern survives the act_order permutation of the solve
+    mask = mask_2to4(w_int) if sparsity is not None else None
     order = act_order_permutation(xh) if act_order else torch.arange(K, device=w.device)
     inv_order = torch.argsort(order)
     if state is not None:
         state = dict(state, tile_ids=state["tile_ids"][order])
     q_perm, U, pos, neg = _gpfq_loop(w_int[order], xg[order], xh[order], state,
                                      w_bits=w_alphabet.bits, w_signed=w_alphabet.signed,
-                                     rounding=rounding)
+                                     rounding=rounding,
+                                     mask=None if mask is None else mask[order])
     aux = {"residual_norm": torch.linalg.norm(U), "pos": pos, "neg": neg}
     return GreedyResult(q_int=q_perm[inv_order], scale=scale, w_alphabet=w_alphabet,
                         act_alphabet=act_alphabet, axe=axe, aux=aux)

@@ -13,13 +13,13 @@ from __future__ import annotations
 import torch
 
 from .alphabet import Alphabet
+from .sparsity import mask_2to4, validate_sparsity
 from .gpfq import (
     AxeConfig,
     GreedyResult,
     constrain_row,
     constrained_value,
     make_axe_state,
-    validate_sparsity,
 )
 from .quantizers import ROUND_NEAREST, quantize_int, to_int_domain, weight_scales
 
@@ -38,10 +38,13 @@ def inverse_cholesky(h: torch.Tensor) -> torch.Tensor:
     return torch.linalg.cholesky(h_inv).T
 
 
-def _optq_loop(w_int, hinv_u, state, *, w_bits: int, rounding: str, return_v: bool = False):
+def _optq_loop(w_int, hinv_u, state, *, w_bits: int, rounding: str, return_v: bool = False,
+               mask=None):
     """OPTQ's row loop on rows in solve order. Returns (Q, pos, neg), plus
     the pre-rounding values V (K, C) when ``return_v``. ``w_int`` is updated
-    in place (the caller passes a permuted copy)."""
+    in place (the caller passes a permuted copy). ``mask`` (K, C) {0, 1}, in
+    solve order, makes row i target ``w_i * m_i``; the error keeps the
+    unmasked ``w_i``, so the pruned weight flows into later rows."""
     K, C = w_int.shape
     alphabet = Alphabet(bits=w_bits, signed=True, symmetric=True)
     f32 = dict(dtype=w_int.dtype, device=w_int.device)
@@ -55,12 +58,13 @@ def _optq_loop(w_int, hinv_u, state, *, w_bits: int, rounding: str, return_v: bo
     col = torch.arange(K, device=w_int.device)
     for i in range(K):
         w_i = w_int[i].clone()
+        target = w_i if mask is None else w_i * mask[i]
         if state is None:
-            q = quantize_int(w_i, alphabet, rounding)
+            q = quantize_int(target, alphabet, rounding)
             if return_v:
-                V[i] = w_i
+                V[i] = target
         else:
-            args = (w_i, tids[i], state["lam"], state["A"], state["B"])
+            args = (target, tids[i], state["lam"], state["A"], state["B"])
             mode = dict(strict=state["strict"], mode=state["mode"])
             if return_v:  # the value constrain_row rounds, before it commits
                 V[i] = constrained_value(*args, pos, neg, **mode)
@@ -74,34 +78,39 @@ def _optq_loop(w_int, hinv_u, state, *, w_bits: int, rounding: str, return_v: bo
     return (Q, pos, neg, V) if return_v else (Q, pos, neg)
 
 
-def optq_setup(w, hessian, w_alphabet, act_alphabet, axe, rounding, act_order):
+def optq_setup(w, hessian, w_alphabet, act_alphabet, axe, rounding, act_order,
+               sparsity: str | None = None):
     """(w_int permuted, scale, state with permuted tile ids, inverse-Cholesky
-    factor of the permuted H, inv_order): everything the loop needs."""
+    factor of the permuted H, inv_order, permuted 2:4 mask or None):
+    everything the loop needs. The mask ranks the unpermuted ``w_int``."""
     K = w.shape[0]
     scale = weight_scales(w, w_alphabet)
     w_int = to_int_domain(w, scale)
     state = make_axe_state(w_int, axe, act_alphabet, rounding, K)
+    mask = mask_2to4(w_int) if sparsity is not None else None
     order = (torch.argsort(-torch.diag(hessian), stable=True) if act_order
              else torch.arange(K, device=w.device))
     if state is not None:
         state = dict(state, tile_ids=state["tile_ids"][order])
     hinv_u = inverse_cholesky(hessian[order][:, order])
-    return w_int[order].clone(), scale, state, hinv_u, torch.argsort(order)
+    return (w_int[order].clone(), scale, state, hinv_u, torch.argsort(order),
+            None if mask is None else mask[order])
 
 
 def optq(w, hessian, w_alphabet: Alphabet, act_alphabet: Alphabet | None = None,
          axe: AxeConfig | None = None, rounding: str = ROUND_NEAREST, act_order: bool = True,
          sparsity: str | None = None) -> GreedyResult:
     """OPTQ with optional AXE constraints (Algorithm 2). ``hessian``: the
-    damped (K, K) proxy; ``act_order`` quantizes rows in descending diag(H)."""
+    damped (K, K) proxy; ``act_order`` quantizes rows in descending diag(H);
+    ``sparsity="2:4"`` fixes a magnitude mask before the solve."""
     K = w.shape[0]
     if hessian.shape != (K, K):
         raise ValueError(f"hessian must be ({K}, {K}), got {tuple(hessian.shape)}")
     validate_sparsity(sparsity)
-    w_perm, scale, state, hinv_u, inv_order = optq_setup(
-        w, hessian, w_alphabet, act_alphabet, axe, rounding, act_order)
+    w_perm, scale, state, hinv_u, inv_order, mask = optq_setup(
+        w, hessian, w_alphabet, act_alphabet, axe, rounding, act_order, sparsity)
     q_perm, pos, neg = _optq_loop(w_perm, hinv_u, state, w_bits=w_alphabet.bits,
-                                  rounding=rounding)
+                                  rounding=rounding, mask=mask)
     return GreedyResult(q_int=q_perm[inv_order], scale=scale, w_alphabet=w_alphabet,
                         act_alphabet=act_alphabet, axe=axe, aux={"pos": pos, "neg": neg})
 

@@ -15,7 +15,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .alphabet import SLICE_2TO4, Alphabet, accumulator_range, outer_accumulator_bits
+from .alphabet import Alphabet, accumulator_range, outer_accumulator_bits
 from .ep_init import tiled
 
 
@@ -85,10 +85,17 @@ def certify(q_int: torch.Tensor, act: Alphabet, p_bits: int, tile: int | None = 
             sparsity: str | None = None) -> CertReport:
     """Analytic overflow certificate for ``q_int`` (K, C): every (channel,
     tile) partial fits ``p_bits`` (= P_I) and, tiled, the total fits P_O of
-    Eq. 22. Reads a few scalars to the host."""
-    if sparsity is not None:
-        raise NotImplementedError(f"certify(sparsity={sparsity!r}): {SLICE_2TO4}")
+    Eq. 22. Reads a few scalars to the host.
+
+    ``sparsity="2:4"`` checks (loudly) that the codes keep the pattern and
+    records it: the Eq. 6 worst cases already see the masked zeros, and the
+    pattern halves the depth of every later Eq. 22 re-derivation."""
     k = q_int.shape[0]
+    if sparsity is not None:
+        from .sparsity import check_2to4, validate_sparsity
+
+        validate_sparsity(sparsity)
+        check_2to4(q_int)
     pos, neg = tile_signed_sums(q_int, tile)  # (C, n_tiles)
     hi = act.nu * pos + act.mu * neg  # worst-case max per tile (Eq. 6/7)
     lo = act.mu * pos + act.nu * neg  # worst-case min per tile (Eq. 6/8)

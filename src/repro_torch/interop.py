@@ -9,7 +9,8 @@ leaves over repeats, ``(R, ...)``; layer ``r * period + s`` of the port
 takes slice ``r`` of slot ``s``. Packed leaves become
 :class:`~repro_torch.models.layers.PackedLinear` modules whose
 :class:`~repro_torch.quant.spec.DatapathSpec` is rebuilt from ``spec_arr``
-(the reference's static ``spec`` node is not an array and is ignored).
+(the reference's static ``spec`` node is not an array and is ignored); a
+2:4 leaf's ``meta`` rides along.
 
 :func:`paged_cache_from_numpy` carries the reference's paged cache
 (``repro.models.transformer.init_paged_cache``, arrays as numpy) into the
@@ -45,13 +46,11 @@ def to_tensor(a, device) -> torch.Tensor:
 
 def _site(leaf, r: int, device) -> torch.nn.Module:
     if isinstance(leaf, dict) and "packed" in leaf:
-        if "meta" in leaf:
-            raise NotImplementedError("2:4 sparse sites arrive with the 2:4 slice of the port")
         arrays = {k: to_tensor(np.asarray(v)[r], device)
                   for k, v in leaf.items() if k != "spec"}
         spec = DatapathSpec.from_array(arrays["spec_arr"].reshape(-1).cpu().numpy()).leaf_spec()
         return PackedLinear(
-            packed=arrays["packed"], scale=arrays["scale"],
+            packed=arrays["packed"], meta=arrays.get("meta"), scale=arrays["scale"],
             col_sums=arrays.get("col_sums"), spec=spec, spec_arr=arrays["spec_arr"],
             act_scale=arrays.get("act_scale"), act_zp=arrays.get("act_zp"),
             bias=arrays.get("bias"))

@@ -6,12 +6,18 @@ the greedy loop of ``repro/core/gpfq.py::_gpfq_loop`` with the AXE
 constraints: the hand-written CUDA kernel (``csrc/gpfq_solve.cu``,
 replacing the Pallas ``_kernel`` at ``repro/kernels/gpfq_solve.py:33``) for
 CUDA tensors, its plain version :func:`gpfq_solve_plain` for CPU tensors.
-``gpfq_solve.launches`` counts kernel launches (one per solve).
+``gpfq_solve.launches`` counts kernel launches (one per solve),
+``gpfq_solve.masked_launches`` those with a mask.
 
 Unlike the reference wrapper, this one takes the (K,) tile-id vector as an
 input, so a caller that permutes rows (``act_order``) passes the permuted
 ids, and masks a ragged last channel panel instead of requiring
-``C % block_c == 0``. ``mode`` selects the constraint:
+``C % block_c == 0``. An optional (K, C) uint8 ``mask`` (the 2:4 support,
+rows in solve order) zeroes ``v`` where it is 0, after ``v`` is formed and
+before the constraints, as ``repro/core/gpfq.py:207-213`` does; the U
+update keeps the unmasked weight. The Pallas kernel has no mask: the
+reference runs sparse solves in its ``lax`` loop, the port through B5.
+``mode`` selects the constraint:
 
     "plain" — GPFQ without AXE (no soft threshold, no clip, no bookkeeping)
     "split" — AXE, per-sign budgets (unsigned activations)
@@ -52,8 +58,11 @@ def row_terms(xg: torch.Tensor, xh: torch.Tensor):
     return hg, hn
 
 
-def _check(w, xg, xh, lam, tid, mode, rounding):
+def _check(w, xg, xh, lam, tid, mode, rounding, mask=None):
     k, c = w.shape
+    if mask is not None and (mask.shape != (k, c) or mask.dtype != torch.uint8):
+        raise ValueError(f"gpfq_solve: mask {tuple(mask.shape)} {mask.dtype}, "
+                         f"want ({k}, {c}) uint8")
     if xg.dim() != 2 or xg.shape[0] != k or xh.shape != xg.shape:
         raise ValueError(f"gpfq_solve: w {tuple(w.shape)}, xg {tuple(xg.shape)}, "
                          f"xh {tuple(xh.shape)}")
@@ -68,12 +77,13 @@ def _check(w, xg, xh, lam, tid, mode, rounding):
 
 
 def gpfq_solve_plain(w, xg, xh, hg, hn, lam, tid, a: float, b: float, *, qmax: float,
-                     mode: str = "split", rounding: str = "nearest", return_v: bool = False):
+                     mode: str = "split", rounding: str = "nearest", return_v: bool = False,
+                     mask=None):
     """The kernel's plain version: the per-row loop of ``_gpfq_loop`` in
     PyTorch, on the kernel's arguments. Returns (Q (K, C), U (D, C), pos,
     neg), plus V (K, C) — every code's value before rounding (after Pi and
     Psi) — when ``return_v``. One host read (the tile ids)."""
-    _check(w, xg, xh, lam, tid, mode, rounding)
+    _check(w, xg, xh, lam, tid, mode, rounding, mask)
     k, c = w.shape
     n_tiles = lam.shape[0]
     f32 = dict(dtype=torch.float32, device=w.device)
@@ -83,10 +93,13 @@ def gpfq_solve_plain(w, xg, xh, hg, hn, lam, tid, a: float, b: float, *, qmax: f
     neg = torch.zeros((n_tiles, c), **f32)
     v_all = torch.empty((k, c), **f32) if return_v else None
     tids = tid.tolist()
+    m = None if mask is None else mask.to(torch.float32)
     if tids and (min(tids) < 0 or max(tids) >= n_tiles):  # lam is indexed by them
         raise ValueError(f"gpfq_solve: tile ids outside [0, {n_tiles})")
     for i in range(k):
         v = w[i] * (hg[i] / hn[i]) + (xh[i] @ u) / hn[i]
+        if m is not None:
+            v = v * m[i]
         t = tids[i]
         if mode != "plain":
             v = torch.sign(v) * torch.relu(torch.abs(v) - lam[t])
@@ -113,7 +126,7 @@ def gpfq_solve_plain(w, xg, xh, hg, hn, lam, tid, a: float, b: float, *, qmax: f
 
 def gpfq_solve_kernel(w, xg, xh, hg, hn, lam, tid, a: float, b: float, *, qmax: float,
                       mode: str = "split", rounding: str = "nearest",
-                      force_global_u: bool = False):
+                      force_global_u: bool = False, mask=None):
     """Launch the CUDA kernel on CUDA tensors (the arguments of
     :func:`gpfq_solve_plain`). Checks device, dtype, shape and contiguity
     and raises on what the kernel does not take; raises if the launch
@@ -121,16 +134,17 @@ def gpfq_solve_kernel(w, xg, xh, hg, hn, lam, tid, a: float, b: float, *, qmax: 
     [0, n_tiles) traps on the device, and the error surfaces at the next
     synchronisation. ``force_global_u`` keeps U in global memory even
     where the panel fits shared memory (to test that variant)."""
-    _check(w, xg, xh, lam, tid, mode, rounding)
+    _check(w, xg, xh, lam, tid, mode, rounding, mask)
     if not w.is_cuda:
         raise ValueError(f"gpfq_solve_kernel takes CUDA tensors, got {w.device}")
-    for name, t in (("w", w), ("xg", xg), ("xh", xh), ("hg", hg), ("hn", hn), ("lam", lam),
-                    ("tid", tid)):
+    tensors = [("w", w), ("xg", xg), ("xh", xh), ("hg", hg), ("hn", hn), ("lam", lam),
+               ("tid", tid)] + ([] if mask is None else [("mask", mask)])
+    for name, t in tensors:
         if t.device != w.device:
             raise ValueError(f"gpfq_solve: {name} on {t.device}, w on {w.device}")
         if not t.is_contiguous():
             raise ValueError(f"gpfq_solve: {name} must be contiguous")
-        want = torch.int32 if name == "tid" else torch.float32
+        want = {"tid": torch.int32, "mask": torch.uint8}.get(name, torch.float32)
         if t.dtype != want:
             raise TypeError(f"gpfq_solve: {name} must be {want}, got {t.dtype}")
     k, c = w.shape
@@ -145,13 +159,16 @@ def gpfq_solve_kernel(w, xg, xh, hg, hn, lam, tid, a: float, b: float, *, qmax: 
     neg = torch.empty((n_tiles, c), **f32)
     err = _library().gpfq_solve_launch(
         w.data_ptr(), xg.data_ptr(), xh.data_ptr(), hg.data_ptr(), hn.data_ptr(),
-        lam.data_ptr(), tid.data_ptr(), q.data_ptr(), u.data_ptr(), pos.data_ptr(),
+        lam.data_ptr(), tid.data_ptr(), None if mask is None else mask.data_ptr(),
+        q.data_ptr(), u.data_ptr(), pos.data_ptr(),
         neg.data_ptr(), k, d, c, n_tiles, a, b, qmax, MODES[mode], int(rounding == "zero"),
         int(force_global_u), torch.cuda.current_stream(w.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"gpfq_solve kernel launch failed: CUDA error {err}")
     gpfq_solve.launches += 1
+    if mask is not None:
+        gpfq_solve.masked_launches += 1
     return q, u, pos, neg
 
 
@@ -163,7 +180,7 @@ def _library() -> ctypes.CDLL:
     lib = load_library("gpfq_solve")
     # pointers and the stream as c_void_p: a bare int would be cut to 32 bits
     lib.gpfq_solve_launch.argtypes = (
-        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
+        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     lib.gpfq_solve_launch.restype = ctypes.c_int
     lib.gpfq_solve_layout.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
@@ -184,6 +201,7 @@ def gpfq_solve(
     w_bits: int = 4,
     mode: str = "split",
     rounding: str = "nearest",
+    mask: torch.Tensor | None = None,  # (K, C) {0, 1} 2:4 support, rows in solve order
 ):
     """One GPFQ solve: the CUDA kernel for CUDA tensors, its plain version
     for CPU tensors. Returns (Q, U, pos, neg). Never falls back."""
@@ -193,16 +211,20 @@ def gpfq_solve(
     xh = xh.to(torch.float32).contiguous()
     lam = lam.to(torch.float32).contiguous()
     tid = tile_ids.to(device=w_int.device, dtype=torch.int32).contiguous()
+    if mask is not None:
+        mask = mask.to(device=w_int.device, dtype=torch.uint8).contiguous()
     hg, hn = row_terms(xg, xh)
     if not w_int.is_cuda:
         return gpfq_solve_plain(w_int, xg, xh, hg, hn, lam, tid, a, b, qmax=qmax, mode=mode,
-                                rounding=rounding)
+                                rounding=rounding, mask=mask)
     return gpfq_solve_kernel(w_int, xg, xh, hg, hn, lam, tid, a, b, qmax=qmax, mode=mode,
-                             rounding=rounding)
+                             rounding=rounding, mask=mask)
 
 
-#: kernel launches since the last reset (the main-path proof of chip_smoke)
+#: kernel launches since the last reset (the main-path proof of chip_smoke),
+#: and those of them with a 2:4 mask
 gpfq_solve.launches = 0
+gpfq_solve.masked_launches = 0
 
 
 def tie_limited_agreement(q_a: torch.Tensor, q_b: torch.Tensor, v: torch.Tensor,

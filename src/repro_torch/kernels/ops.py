@@ -1,5 +1,6 @@
 """Public wrappers around the kernels (port of ``repro/kernels/ops.py``:
-the serving path's activation quantizer and the GPFQ panel solver)."""
+the serving path's activation quantizer, the fused norm-and-quantize and
+the GPFQ panel solver)."""
 
 from __future__ import annotations
 
@@ -20,6 +21,15 @@ def quantize_activations(x: torch.Tensor):
     return codes, scale, zp
 
 
+def norm_and_quantize(x, gamma, act_scale, act_zp, **kw):
+    """RMSNorm then the 8-bit activation quantizer, fused: kernel B6 for
+    CUDA tensors, its plain version for CPU tensors (``block_m``, ``bits``
+    and ``eps`` as the reference takes them)."""
+    from .quant_rmsnorm import quant_rmsnorm
+
+    return quant_rmsnorm(x, gamma, act_scale, act_zp, **kw)
+
+
 def gpfq_quantize_panel(w_int, xg, xh, lam, budget_b, *, w_bits: int = 4, tile: int = 128,
                         rounding: str = "nearest"):
     """The reference's panel-solver call: split budgets [-B, B], tile ids in
@@ -33,4 +43,4 @@ def gpfq_quantize_panel(w_int, xg, xh, lam, budget_b, *, w_bits: int = 4, tile: 
     return q
 
 
-__all__ = ["gpfq_quantize_panel", "quantize_activations"]
+__all__ = ["gpfq_quantize_panel", "norm_and_quantize", "quantize_activations"]

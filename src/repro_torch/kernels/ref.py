@@ -1,6 +1,6 @@
 """Plain oracles of the kernels (port of ``repro/kernels/ref.py``): the
-W4A8 GEMM in exact integer arithmetic and the GPFQ loop, on either
-device."""
+W4A8 GEMM in exact integer arithmetic, the GPFQ loop and the fused
+RMSNorm quantizer, on either device."""
 
 from __future__ import annotations
 
@@ -23,7 +23,12 @@ def w4a8_matmul_ref(x_int8, w_packed, w_scale, act_scale, act_zp):
 def w4a8_tile_partials_ref(x_int8, w_packed, tile: int):
     """Per-K-tile int32 partial sums (M, n_tiles, N): the inner-accumulator
     watermark of each certified tile."""
-    q = unpack_int4(w_packed)
+    return tile_partials(x_int8, unpack_int4(w_packed), tile)
+
+
+def tile_partials(x_int8, q, tile: int):
+    """Per-K-tile int32 partial sums (M, n_tiles, N) of codes ``x_int8``
+    (M, K) against integer weight codes ``q`` (K, N)."""
     m, k = x_int8.shape
     n = q.shape[1]
     nt = k // tile
@@ -52,3 +57,13 @@ def gpfq_solve_ref(w_int, xg, xh, *, w_bits, lam, budget_b, tile, rounding="near
                                   float(budget_b), qmax=float(2 ** (w_bits - 1) - 1),
                                   mode="split", rounding=rounding)
     return q
+
+
+def quant_rmsnorm_ref(x, gamma, act_scale, act_zp, *, eps=1e-6, bits=8):
+    """RMSNorm times gamma, then the quantizer dividing by ``act_scale``
+    (``repro/kernels/ref.py:66``; the kernel multiplies by its reciprocal)."""
+    xf = x.to(torch.float32)
+    scale = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    y = xf * scale * gamma.to(torch.float32)
+    q = torch.round(y / act_scale) + act_zp
+    return torch.clamp(q, 0, 2**bits - 1).to(torch.uint8)

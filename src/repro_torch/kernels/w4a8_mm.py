@@ -22,6 +22,14 @@ version :func:`w4a8_matmul_plain` for CPU tensors or when a caller asks for
 the reference. Integer sums are exact, so the kernel tiles K however suits
 the card; the ``assert_inner`` debug check still checks every certified
 T-wide tile. ``w4a8_matmul.launches`` counts kernel launches.
+
+The 2:4 sparse GEMM :func:`w4a8_sparse_matmul` (kernel B4, replacing the
+Pallas ``_sparse_kernel`` at ``repro/kernels/w4a8_mm.py:311``) takes the
+weights as :func:`compress_2to4` stores them and runs B1's datapath on
+them: the same kernel source with a loader that expands each group of 4 K
+rows in registers (``w4a8_sparse_matmul.launches`` counts it apart), and
+the plain version :func:`w4a8_sparse_matmul_plain`. Both are bit-equal to
+B1 on the dense-with-zeros codes.
 """
 
 from __future__ import annotations
@@ -57,6 +65,43 @@ def pack_int4(q: torch.Tensor) -> torch.Tensor:
     return torch.bitwise_or(low, high).to(torch.int8)
 
 
+def compress_2to4(q: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(..., K, N) 2:4-sparse int codes -> (packed (..., K//4, N) int8,
+    meta (..., K//4, N) int8). Per group of 4 K rows and column the (<= 2)
+    kept codes go into one packed byte (low nibble = first) and their
+    in-group positions into one meta byte (bits 0-1 / 2-3). Nonzero slots
+    come first in in-group order (stable), as in the reference, so a group
+    with fewer than 2 nonzeros pads with zero codes at the first zero slots.
+    The 2:4 property itself is checked by ``certify``, not here."""
+    q = q.to(torch.int8)
+    *lead, k, n = q.shape
+    if k % 4:
+        raise ValueError(f"2:4 compression needs K % 4 == 0, got K={k}")
+    g = q.reshape(*lead, k // 4, 4, n)
+    order = torch.argsort((g == 0).to(torch.uint8), dim=-2, stable=True)
+    idx = order[..., :2, :]  # (..., k//4, 2, n) positions of the kept codes
+    vals = torch.gather(g, -2, idx)
+    meta = torch.bitwise_or(idx[..., 0, :], torch.bitwise_left_shift(idx[..., 1, :], 2))
+    return pack_int4(vals.reshape(*lead, k // 2, n)), meta.to(torch.int8)
+
+
+def unpack_sparse24(packed: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
+    """(..., K//4, N) packed + meta -> (..., K, N) int8 dense-with-zeros
+    codes. The two position terms add, as in the reference, so a meta with
+    equal positions sums its codes. Leading dims pass through."""
+    vals = unpack_int4(packed)  # (..., K//2, N)
+    *lead, k2, n = vals.shape
+    v = vals.reshape(*lead, k2 // 2, 2, n)
+    m = meta.to(torch.int32)
+    i0 = torch.bitwise_and(m, 3).unsqueeze(-2)  # (..., g4, 1, n)
+    i1 = torch.bitwise_and(torch.bitwise_right_shift(m, 2), 3).unsqueeze(-2)
+    pos = torch.arange(4, dtype=torch.int32, device=packed.device).reshape(4, 1)
+    zero = torch.zeros((), dtype=torch.int8, device=packed.device)
+    dense = (torch.where(pos == i0, v[..., 0:1, :], zero)
+             + torch.where(pos == i1, v[..., 1:2, :], zero))
+    return dense.reshape(*lead, 2 * k2, n)
+
+
 def exact_int_matmul(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """Exact integer product of integer-valued (M, K) and (K, N) tensors,
     as int32. The CPU has an int32 matmul; CUDA has none, so there the
@@ -81,16 +126,19 @@ def _fit_block(dim: int, pref: int) -> int:
 
 
 def check_inner(x: torch.Tensor, w_packed: torch.Tensor, block_k: int,
-                p_inner: int) -> int:
+                p_inner: int, meta: torch.Tensor | None = None) -> int:
     """Debug check of the P_I certificate: every certified K tile's int32
     partial (tile width ``_fit_block(K, block_k)``, as the reference
-    wrapper takes it) must satisfy |partial| <= 2^(P_I-1)-1. Returns the
-    watermark; raises OverflowError otherwise. Reads one scalar to host."""
-    from .ref import w4a8_tile_partials_ref
+    wrapper takes it) must satisfy |partial| <= 2^(P_I-1)-1; with ``meta``
+    the weights are 2:4-compressed and the tiles are those of the expanded
+    codes. Returns the watermark; raises OverflowError otherwise. Reads one
+    scalar to host."""
+    from .ref import tile_partials
 
     bk = _fit_block(x.shape[1], block_k)
     limit = 2 ** (p_inner - 1) - 1
-    watermark = int(w4a8_tile_partials_ref(x, w_packed, bk).abs().max())
+    q = unpack_int4(w_packed) if meta is None else unpack_sparse24(w_packed, meta)
+    watermark = int(tile_partials(x, q, bk).abs().max())
     if watermark > limit:
         raise OverflowError(
             f"inner accumulator overflow: {watermark} > {limit} "
@@ -106,48 +154,78 @@ def w4a8_matmul_plain(x: torch.Tensor, w_packed: torch.Tensor, sw: torch.Tensor,
     return ((acc - corr.reshape(1, -1)) * sw.reshape(1, -1)).to(out_dtype)
 
 
+def w4a8_sparse_matmul_plain(x: torch.Tensor, w_packed: torch.Tensor, w_meta: torch.Tensor,
+                             sw: torch.Tensor, corr: torch.Tensor,
+                             out_dtype=torch.float32) -> torch.Tensor:
+    """B4's plain version: expand with :func:`unpack_sparse24`, then B1's
+    exact integer product and epilogue."""
+    acc = exact_int_matmul(x, unpack_sparse24(w_packed, w_meta)).to(torch.float32)
+    return ((acc - corr.reshape(1, -1)) * sw.reshape(1, -1)).to(out_dtype)
+
+
+def _launch(name: str, x, weights, sw, corr, out_dtype, rows_per_k: int):
+    """Check and launch the B1 (``weights`` = (w_packed,)) or B4 (``(packed,
+    meta)``) entry point on CUDA tensors; raise on what the kernel does not
+    take or on a CUDA error from the launch."""
+    m, k = x.shape
+    n = weights[0].shape[1]
+    if not x.is_cuda:
+        raise ValueError(f"{name}_kernel takes CUDA tensors, got {x.device}")
+    named = (("x", x), ("sw", sw), ("corr", corr)) + tuple(
+        zip(("w_packed", "w_meta"), weights))
+    for what, t in named:
+        if t.device != x.device:
+            raise ValueError(f"{name}: {what} on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be contiguous")
+    if x.dtype not in _ACT_DTYPES or any(w.dtype != torch.int8 for w in weights):
+        raise TypeError(f"{name}: codes {x.dtype} / weights {[w.dtype for w in weights]}")
+    if out_dtype not in _OUT_DTYPES:
+        raise TypeError(f"{name}: out_dtype {out_dtype}")
+    if sw.dtype != torch.float32 or corr.dtype != torch.float32:
+        raise TypeError(f"{name}: sw and corr must be float32")
+    if any(w.shape != (k // rows_per_k, n) for w in weights) or k % rows_per_k:
+        raise ValueError(f"{name}: x {tuple(x.shape)} does not match weights "
+                         f"{[tuple(w.shape) for w in weights]}")
+    if sw.numel() != n or corr.numel() != n:
+        raise ValueError(f"{name}: sw/corr need {n} entries")
+    if k % 4 or n % 4:
+        raise ValueError(f"{name} kernel takes K and N multiples of 4, got K={k} N={n}")
+    if any(t.data_ptr() % 4 for t in (x, *weights)):
+        raise ValueError(f"{name} kernel needs 4-byte aligned codes and weights")
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    if m == 0:
+        return out
+    err = getattr(_library(), f"{name}_launch")(
+        x.data_ptr(), *(w.data_ptr() for w in weights), sw.data_ptr(), corr.data_ptr(),
+        out.data_ptr(), m, n, k, int(x.dtype == torch.int8),
+        int(out_dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    return out
+
+
 def w4a8_matmul_kernel(x: torch.Tensor, w_packed: torch.Tensor, sw: torch.Tensor,
                        corr: torch.Tensor, out_dtype=torch.float32) -> torch.Tensor:
     """Launch the CUDA kernel on CUDA tensors, with ``sw``/``corr`` already
     formed (the arguments of :func:`w4a8_matmul_plain`). Checks device,
     dtype, shape, contiguity and alignment and raises on what the kernel
     does not take; raises if the launch returns a CUDA error."""
-    m, k = x.shape
-    n = w_packed.shape[1]
-    if not x.is_cuda:
-        raise ValueError(f"w4a8_matmul_kernel takes CUDA tensors, got {x.device}")
-    for name, t in (("x", x), ("w_packed", w_packed), ("sw", sw), ("corr", corr)):
-        if t.device != x.device:
-            raise ValueError(f"w4a8_matmul: {name} on {t.device}, x on {x.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"w4a8_matmul: {name} must be contiguous")
-    if x.dtype not in _ACT_DTYPES or w_packed.dtype != torch.int8:
-        raise TypeError(f"w4a8_matmul: codes {x.dtype} / weights {w_packed.dtype}")
-    if out_dtype not in _OUT_DTYPES:
-        raise TypeError(f"w4a8_matmul: out_dtype {out_dtype}")
-    if sw.dtype != torch.float32 or corr.dtype != torch.float32:
-        raise TypeError("w4a8_matmul: sw and corr must be float32")
-    if w_packed.shape[0] * 2 != k:
-        raise ValueError(f"x {tuple(x.shape)} does not match w_packed {tuple(w_packed.shape)}")
-    if sw.numel() != n or corr.numel() != n:
-        raise ValueError(f"w4a8_matmul: sw/corr need {n} entries")
-    if k % 4 or n % 4:
-        raise ValueError(
-            f"w4a8_matmul kernel takes K and N multiples of 4, got K={k} N={n}")
-    if x.data_ptr() % 4 or w_packed.data_ptr() % 4:
-        raise ValueError("w4a8_matmul kernel needs 4-byte aligned x and w_packed")
-    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    if m == 0:
-        return out
-    err = _library().w4a8_matmul_launch(
-        x.data_ptr(), w_packed.data_ptr(), sw.data_ptr(), corr.data_ptr(),
-        out.data_ptr(), m, n, k, int(x.dtype == torch.int8),
-        int(out_dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"w4a8_matmul kernel launch failed: CUDA error {err}")
+    out = _launch("w4a8_matmul", x, (w_packed,), sw, corr, out_dtype, rows_per_k=2)
     w4a8_matmul.launches += 1
+    return out
+
+
+def w4a8_sparse_matmul_kernel(x: torch.Tensor, w_packed: torch.Tensor, w_meta: torch.Tensor,
+                              sw: torch.Tensor, corr: torch.Tensor,
+                              out_dtype=torch.float32) -> torch.Tensor:
+    """Launch kernel B4 on CUDA tensors (the arguments of
+    :func:`w4a8_sparse_matmul_plain`), with the checks of B1's launcher."""
+    out = _launch("w4a8_sparse_matmul", x, (w_packed, w_meta), sw, corr, out_dtype,
+                  rows_per_k=4)
+    w4a8_sparse_matmul.launches += 1
     return out
 
 
@@ -161,6 +239,9 @@ def _library() -> ctypes.CDLL:
     lib.w4a8_matmul_launch.argtypes = (
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.w4a8_matmul_launch.restype = ctypes.c_int
+    lib.w4a8_sparse_matmul_launch.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.w4a8_sparse_matmul_launch.restype = ctypes.c_int
     return lib
 
 
@@ -218,14 +299,77 @@ def w4a8_decode_matmul(x, w_packed, w_scale, col_sums, act_scale, act_zp, **kw):
                        col_sums=col_sums, **kw)
 
 
+def w4a8_sparse_matmul(
+    x: torch.Tensor,  # (M, K) uint8 or int8 activation codes
+    w_packed: torch.Tensor,  # (K//4, N) int8 packed 2:4 codes (2 nibbles per group)
+    w_meta: torch.Tensor,  # (K//4, N) int8 in-group positions
+    w_scale: torch.Tensor,  # (N,) per-channel weight scales
+    act_scale,
+    act_zp,
+    *,
+    col_sums: torch.Tensor,  # (N,) or (1, N) int32, pack-time: required
+    block_k: int = 128,
+    p_inner: int = 16,
+    assert_inner: bool = False,
+    out_dtype=torch.float32,
+    reference: bool = False,
+) -> torch.Tensor:
+    """W4A8 GEMM over 2:4-compressed weights, bit-identical to
+    :func:`w4a8_matmul` on the dense-with-zeros codes: kernel B4 for CUDA
+    tensors, its plain version for CPU tensors or when ``reference`` is
+    set. ``corr``/``sw`` are formed as for B1. Never falls back."""
+    m, k = x.shape
+    k4, n = w_packed.shape
+    if k != 4 * k4 or w_meta.shape != w_packed.shape:
+        raise ValueError(f"x {tuple(x.shape)} does not match w_packed {tuple(w_packed.shape)} "
+                         f"/ w_meta {tuple(w_meta.shape)}")
+    if x.dtype not in _ACT_DTYPES:
+        raise TypeError(f"activation codes must be uint8 or int8, got {x.dtype}")
+    if w_packed.dtype != torch.int8 or w_meta.dtype != torch.int8:
+        raise TypeError(f"w_packed and w_meta must be int8, got {w_packed.dtype}, "
+                        f"{w_meta.dtype}")
+    if out_dtype not in _OUT_DTYPES:
+        raise TypeError(f"out_dtype must be bfloat16 or float32, got {out_dtype}")
+    if _fit_block(k, block_k) % 4:
+        raise ValueError(f"K tile {_fit_block(k, block_k)} must be a multiple of 4 for "
+                         f"2:4 codes (K={k})")
+    if col_sums is None:
+        raise ValueError("w4a8_sparse_matmul needs the pack-time col_sums")
+    corr = col_sums.reshape(-1).to(torch.float32) * act_zp
+    sw = w_scale.reshape(-1).to(torch.float32) * act_scale
+    if assert_inner:
+        check_inner(x, w_packed, block_k, p_inner, meta=w_meta)
+    if reference or not x.is_cuda:
+        return w4a8_sparse_matmul_plain(x, w_packed, w_meta, sw, corr, out_dtype)
+    return w4a8_sparse_matmul_kernel(x, w_packed, w_meta, sw.contiguous(), corr.contiguous(),
+                                     out_dtype)
+
+
+#: kernel B4 launches since the last reset
+w4a8_sparse_matmul.launches = 0
+
+
+def w4a8_sparse_decode_matmul(x, w_packed, w_meta, w_scale, col_sums, act_scale, act_zp, **kw):
+    """Decode-shaped entry of the 2:4 GEMM (the sparse counterpart of
+    :func:`w4a8_decode_matmul`)."""
+    return w4a8_sparse_matmul(x, w_packed, w_meta, w_scale, act_scale, act_zp,
+                              col_sums=col_sums, **kw)
+
+
 __all__ = [
     "check_inner",
+    "compress_2to4",
     "datapath_kernel_args",
     "exact_int_matmul",
     "pack_int4",
     "unpack_int4",
+    "unpack_sparse24",
     "w4a8_decode_matmul",
     "w4a8_matmul",
     "w4a8_matmul_kernel",
     "w4a8_matmul_plain",
+    "w4a8_sparse_decode_matmul",
+    "w4a8_sparse_matmul",
+    "w4a8_sparse_matmul_kernel",
+    "w4a8_sparse_matmul_plain",
 ]

@@ -9,9 +9,11 @@ takes float32 weights, as the reference's solvers do: a bfloat16
 configuration (smollm-360m as published) raises ``TypeError``. The JSON report
 is the reference launcher's; ``--out DIR`` writes ``DIR/quantized``, which
 ``repro_torch.launch.serve --artifact`` and ``repro.launch.serve
---artifact`` both load. ``--device`` defaults to ``cuda``. ``--ckpt-dir``,
-``--sparsity 2:4`` and non-dense architectures are not yet ported and
-refuse.
+--artifact`` both load. ``--device`` defaults to ``cuda``.
+``--sparsity 2:4`` calibrates with the mask-aware solvers, certifies every
+site at the halved effective depth and exports ``meta``-compressed 2:4
+sites (sites with K % 4 != 0 stay dense). ``--ckpt-dir`` and non-dense
+architectures are not yet ported and refuse.
 """
 
 from __future__ import annotations
@@ -45,7 +47,9 @@ def main(argv=None):
     ap.add_argument("--no-constrain", action="store_true",
                     help="unconstrained Base algorithm (Table 1)")
     ap.add_argument("--sparsity", default=None, choices=("2:4",),
-                    help="not yet ported (the 2:4 slice)")
+                    help="2:4 semi-structured weight sparsity: mask-aware "
+                         "solve, certificates against the halved effective "
+                         "depth (sites with K %% 4 != 0 stay dense)")
     ap.add_argument("--calib-batches", type=int, default=4)
     ap.add_argument("--calib-batch-size", type=int, default=4)
     ap.add_argument("--seq", type=int, default=128)
@@ -57,8 +61,6 @@ def main(argv=None):
     if args.ckpt_dir is not None:
         raise SystemExit("--ckpt-dir is not yet ported: checkpoint restore arrives with "
                          "the training slice of the port")
-    if args.sparsity is not None:
-        raise SystemExit("--sparsity 2:4 is not yet ported: it arrives with the 2:4 slice")
 
     device = resolve_device(args.device)
     try:

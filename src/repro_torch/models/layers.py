@@ -30,7 +30,9 @@ from repro_torch.kernels.paged_attention import (
 from repro_torch.kernels.w4a8_mm import (
     datapath_kernel_args,
     unpack_int4,
+    unpack_sparse24,
     w4a8_decode_matmul,
+    w4a8_sparse_decode_matmul,
 )
 from repro_torch.quant.spec import (
     AttnDatapathSpec,
@@ -101,18 +103,22 @@ class Linear(nn.Module):
 class PackedLinear(nn.Module):
     """A packed-int4 serving site (the reference's packed leaf dict).
 
-    Buffers: ``packed`` (K//2, N) int8, ``scale`` (1, N) per-channel weight
-    scales, ``col_sums`` (1, N) int32 pack-time code sums (None on legacy
-    artifacts until :func:`~repro_torch.quant.serve_packed.ensure_col_sums`),
+    Buffers: ``packed`` (K//2, N) int8 (for a 2:4 site, (K//4, N) kept
+    codes beside ``meta`` (K//4, N) int8 in-group positions, as
+    :func:`~repro_torch.kernels.w4a8_mm.compress_2to4` stores them),
+    ``scale`` (1, N) per-channel weight scales, ``col_sums`` (1, N) int32
+    pack-time code sums (None on legacy artifacts until
+    :func:`~repro_torch.quant.serve_packed.ensure_col_sums`),
     ``spec_arr`` the persistable spec twin, and optional ``act_scale`` /
     ``act_zp`` (0-d f32, a calibrated static activation quantizer) and
     ``bias`` (N,). ``spec`` is the site's
     :class:`~repro_torch.quant.spec.DatapathSpec`."""
 
     def __init__(self, packed, scale, col_sums=None, spec=None, spec_arr=None,
-                 act_scale=None, act_zp=None, bias=None):
+                 act_scale=None, act_zp=None, bias=None, meta=None):
         super().__init__()
         self.register_buffer("packed", packed)
+        self.register_buffer("meta", meta)
         self.register_buffer("scale", scale)
         self.register_buffer("col_sums", col_sums)
         self.register_buffer("spec_arr", spec_arr)
@@ -125,9 +131,16 @@ class PackedLinear(nn.Module):
         return packed_linear(x, self)
 
 
+def site_codes(leaf: PackedLinear) -> torch.Tensor:
+    """The (K, N) int8 codes of a packed site, dense-with-zeros for 2:4."""
+    if leaf.meta is not None:
+        return unpack_sparse24(leaf.packed, leaf.meta)
+    return unpack_int4(leaf.packed)
+
+
 def dequant_weight(leaf: PackedLinear) -> torch.Tensor:
     """Dequantized (K, N) weight of a packed site, in the scale's dtype."""
-    return unpack_int4(leaf.packed).to(leaf.scale.dtype) * leaf.scale
+    return site_codes(leaf).to(leaf.scale.dtype) * leaf.scale
 
 
 def _static_act_codes(x2, leaf: PackedLinear, spec: DatapathSpec):
@@ -154,10 +167,13 @@ def packed_linear(x, leaf: PackedLinear, *, spec: DatapathSpec | None = None,
     if spec is not None and embedded is not None:
         embedded.require_matches(spec, context="packed_linear")
     resolved = embedded if embedded is not None else (spec or DatapathSpec())
-    if resolved.sparsity is not None:
+    # a 2:4 site carries meta: spec and layout must agree, or the codes
+    # would be expanded wrongly
+    if (resolved.sparsity is not None) != (leaf.meta is not None):
         raise DatapathMismatchError(
-            f"packed_linear: sparsity={resolved.sparsity!r} sites are served "
-            f"by the 2:4 slice of the port, not yet ported")
+            "packed_linear: datapath field 'sparsity' disagrees with the leaf "
+            f"layout (spec sparsity={resolved.sparsity!r}, leaf "
+            f"{'carries' if leaf.meta is not None else 'lacks'} a 2:4 metadata leaf)")
 
     backend = packed_backend()
     if backend == "dequant":
@@ -176,10 +192,14 @@ def packed_linear(x, leaf: PackedLinear, *, spec: DatapathSpec | None = None,
         codes, act_scale, act_zp = quantize_activations(x2)
     col_sums = leaf.col_sums
     if col_sums is None:  # legacy artifact without the pack-time term
-        col_sums = unpack_int4(leaf.packed).to(torch.int32).sum(dim=-2)
-    y = w4a8_decode_matmul(
+        col_sums = site_codes(leaf).to(torch.int32).sum(dim=-2)
+    if leaf.meta is not None:
+        matmul, weights = w4a8_sparse_decode_matmul, (leaf.packed, leaf.meta)
+    else:
+        matmul, weights = w4a8_decode_matmul, (leaf.packed,)
+    y = matmul(
         codes,
-        leaf.packed,
+        *weights,
         leaf.scale.reshape(-1).to(torch.float32),
         col_sums.reshape(-1),
         act_scale,

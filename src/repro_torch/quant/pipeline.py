@@ -145,6 +145,10 @@ def _site_ptq(ptq: PTQConfig, site: SiteSpec, override) -> PTQConfig:
     unconstrained solver."""
     dp = override if override is not None else site.datapath
     if dp is None:
+        if ptq.sparsity is not None and site.k % 4 != 0:
+            # 2:4 groups need K % 4 == 0: this site stays dense under a
+            # model-wide sparse recipe (as serve_packed packs it)
+            return sweep_config(ptq, sparsity=None)
         return ptq
     constrained = dp.p_inner is not None and dp.p_inner < 32
     return sweep_config(

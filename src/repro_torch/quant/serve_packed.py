@@ -1,5 +1,6 @@
-"""Packed-int4 serving models (port of ``repro/quant/serve_packed.py``,
-dense sites).
+"""Packed-int4 serving models (port of ``repro/quant/serve_packed.py``):
+dense sites, and 2:4 sparse sites stored compressed (packed kept codes
+plus ``meta`` positions) when their spec says ``sparsity="2:4"``.
 
 Two sources of packed sites:
 
@@ -32,9 +33,10 @@ import torch
 
 from repro_torch.core.alphabet import weight_alphabet
 from repro_torch.core.quantizers import quantize_int, weight_scales
-from repro_torch.kernels.w4a8_mm import pack_int4, unpack_int4
+from repro_torch.core.sparsity import is_2to4, mask_2to4
+from repro_torch.kernels.w4a8_mm import compress_2to4, pack_int4
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import MLP, Attention, Linear, Norm, PackedLinear
+from repro_torch.models.layers import MLP, Attention, Linear, Norm, PackedLinear, site_codes
 
 from .families import SiteSpec, check_supported, get_adapter
 from .spec import (
@@ -59,7 +61,6 @@ __all__ = [
     "upgrade_packed_params",
 ]
 
-_SLICE_2TO4 = "2:4 sparse sites arrive with the 2:4 slice of the port"
 _COMPONENTS = {"mixer": Attention, "ffn": MLP}
 
 
@@ -98,17 +99,26 @@ def _rtn_codes(w: torch.Tensor, w_bits: int) -> tuple[torch.Tensor, torch.Tensor
 def _pack_leaf(w: torch.Tensor, spec: DatapathSpec | None = None) -> PackedLinear:
     """(K, N) float weight -> RTN-packed site with bf16 scales and the
     pack-time ``col_sums``. RTN ships no activation quantizer, so the
-    embedded spec has ``static_act`` cleared."""
+    embedded spec has ``static_act`` cleared. A 2:4 spec masks the RTN
+    codes (mask, then round: no error feedback) and stores them
+    compressed."""
     spec = replace((spec or DatapathSpec()).leaf_spec(), static_act=False)
     if spec.w_bits > 4:
         raise ValueError(
             f"int4 packing supports w_bits <= 4, got {spec.w_bits}; "
             f"serve this site as a high-precision leaf instead")
-    if spec.sparsity is not None:
-        raise NotImplementedError(_SLICE_2TO4)
     q, scale = _rtn_codes(w, spec.w_bits)
+    packed, meta = pack_int4(q), None
+    if spec.sparsity is not None:
+        if w.shape[-2] % 4:
+            raise ValueError(
+                f"2:4 sparsity needs K % 4 == 0, got K={w.shape[-2]}; "
+                f"serve this site dense or in high precision instead")
+        q = q * mask_2to4(q)
+        packed, meta = compress_2to4(q)
     return PackedLinear(
-        packed=pack_int4(q),
+        packed=packed,
+        meta=meta,
         scale=scale.to(torch.bfloat16),
         col_sums=q.sum(dim=-2, keepdim=True).to(torch.int32),
         spec=spec,
@@ -153,6 +163,10 @@ def pack_decode_params(model, cfg: ModelConfig | None = None, ptq=None):
             return None
         site = by_name[name]
         spec = (site.datapath_for(ptq) if ptq is not None else site.datapath) or DatapathSpec()
+        if spec.sparsity is not None and site.k % 4 != 0:
+            # 2:4 groups need K % 4 == 0; Eq. 22 halves depth and tile
+            # alike, so P_O stays valid for the dense codes served here
+            spec = replace(spec, sparsity=None)
         if spec.w_bits > 4:
             q, s = _rtn_codes(mod.w, spec.w_bits)
             return Linear((q * s).to(mod.w.dtype))
@@ -178,23 +192,33 @@ def _site_rec_leaf(rec: dict, site: SiteSpec, name: str, device):
     or tensors), "spec":
     DatapathSpec with act numerics, "bias": optional (C,)}. Returns a
     PackedLinear, or a float :class:`Linear` (dequantized weight plus the
-    corrected bias) when the codes have no int4 container (w_bits > 4 or
-    odd K)."""
+    corrected bias) when the codes have no int4 container (w_bits > 4, odd
+    K, or a 2:4 spec at K % 4 != 0). A 2:4 spec requires 2:4 codes, else
+    :class:`DatapathMismatchError`, and packs them compressed."""
     spec = rec["spec"]
-    if spec.sparsity is not None:
-        raise NotImplementedError(f"site {name}: {_SLICE_2TO4}")
     q = _f32(rec["q"], device)
     scale = _f32(rec["scale"], device)
     bias = rec.get("bias")
     bias = _f32(bias, device) if site.use_bias and bias is not None else None
-    if spec.w_bits > 4 or site.k % 2 != 0:
+    if spec.w_bits > 4 or site.k % 2 != 0 or (spec.sparsity is not None and site.k % 4 != 0):
         return Linear(q * scale, bias)
+    packed, meta = pack_int4(q), None
+    if spec.sparsity is not None:
+        # the certificate holds at the 2:4 effective depth only
+        if not is_2to4(q):
+            raise DatapathMismatchError(
+                f"site {name}: certified sparsity={spec.sparsity!r} but the codes "
+                f"are not 2:4 (some group of 4 along K has more than 2 nonzeros) — "
+                f"the certificate's effective-depth bound would not hold for these "
+                f"weights")
+        packed, meta = compress_2to4(q)
     act_scale = act_zp = None
     if spec.static_act:
         act_scale = torch.tensor(spec.act_scale, dtype=torch.float32, device=device)
         act_zp = torch.tensor(float(spec.act_zp), dtype=torch.float32, device=device)
     return PackedLinear(
-        packed=pack_int4(q),
+        packed=packed,
+        meta=meta,
         scale=scale,
         col_sums=q.sum(dim=-2, keepdim=True).to(torch.int32),
         spec=spec.leaf_spec(),
@@ -392,7 +416,7 @@ def ensure_col_sums(model):
     model."""
     for leaf in _packed_modules(model):
         if leaf.col_sums is None:
-            leaf.col_sums = unpack_int4(leaf.packed).to(torch.int32).sum(dim=-2, keepdim=True)
+            leaf.col_sums = site_codes(leaf).to(torch.int32).sum(dim=-2, keepdim=True)
     return model
 
 
@@ -424,18 +448,26 @@ def upgrade_packed_params(model, default: DatapathSpec | None = None):
 # Byte accounting
 # ---------------------------------------------------------------------------
 def packed_weight_bytes(cfg: ModelConfig, *, scale_bytes_per: int = 2,
-                        static_act: bool = False, with_bias: bool = False) -> dict:
+                        static_act: bool = False, with_bias: bool = False,
+                        sparsity: str | None = None) -> dict:
     """Analytic packed-artifact bytes (codes + per-channel scale +
     ``col_sums`` + spec twin + optional static-act and bias) against the
     bf16 baseline. Defaults describe the RTN :func:`pack_decode_params`
-    model (bf16 scales, dynamic act, no bias)."""
-    elems = code = scale = col = spec_b = act = bias = 0
+    model (bf16 scales, dynamic act, no bias). ``sparsity="2:4"`` counts
+    every site with K % 4 == 0 compressed: K/4 code bytes plus K/4 meta
+    bytes per column, the same as dense K/2 at int4 (2:4 buys the halved
+    certified depth, not bytes); other sites are counted dense."""
+    elems = code = scale = col = spec_b = act = bias = meta_b = 0
     for slot in packable_sites(cfg):
         for kind in ("mixer", "ffn"):
             for s in slot[kind]:
                 st = s.stacked or 1
                 elems += s.k * s.c * st
-                code += s.k * s.c * st // 2  # an int8 byte holds 2 codes
+                if sparsity is not None and s.k % 4 == 0:
+                    code += s.k * s.c * st // 4  # 2 kept codes per group
+                    meta_b += s.k * s.c * st // 4  # one position byte per group
+                else:
+                    code += s.k * s.c * st // 2  # an int8 byte holds 2 codes
                 scale += s.c * st * scale_bytes_per
                 col += s.c * st * 4  # int32
                 spec_b += st * _SPEC_ARR_LEN * 4  # f32 spec_arr twin
@@ -444,12 +476,12 @@ def packed_weight_bytes(cfg: ModelConfig, *, scale_bytes_per: int = 2,
                 if with_bias and s.use_bias:
                     bias += s.c * st * 4
     r = cfg.repeats
-    total = (code + scale + col + spec_b + act + bias) * r
+    total = (code + meta_b + scale + col + spec_b + act + bias) * r
     return {
         "weight_elems": elems * r,
         "bf16_bytes": 2 * elems * r,
         "packed_code_bytes": code * r,
-        "meta_bytes": 0,
+        "meta_bytes": meta_b * r,
         "scale_bytes": scale * r,
         "col_sums_bytes": col * r,
         "spec_bytes": spec_b * r,

@@ -41,6 +41,7 @@ from repro.serving import GenerationEngine as JEngine
 from repro_torch.checkpoint import save_pytree
 from repro_torch.configs import get_config
 from repro_torch.core.axe import PTQConfig
+from repro_torch.core.sparsity import is_2to4
 from repro_torch.data import DataConfig, TokenBatcher
 from repro_torch.interop import params_from_numpy
 from repro_torch.kernels.gpfq_solve import gpfq_solve
@@ -202,8 +203,10 @@ def test_plan_overrides_and_refusals(calibrated):
                         device="cpu")
     with pytest.raises(TypeError, match="float32"):
         calibrate_and_quantize(bf16, bf16.cfg, calib, PTQConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="2:4 slice"):
-        calibrate_and_quantize(model, cfg, calib, PTQConfig(sparsity="2:4"), device="cpu")
+    qm24 = calibrate_and_quantize(model, cfg, calib, PTQConfig(sparsity="2:4"), device="cpu")
+    assert qm24.cert_summary()["ok"]
+    for name, ql in qm24.quantized_linears():
+        assert ql.cert.sparsity == "2:4" and is_2to4(ql.q_int), name
 
 
 def test_calibration_defaults_to_the_card(calibrated):
@@ -228,7 +231,7 @@ def test_quantize_launcher_then_serve_cpu(tmp_path, capsys):
     assert out.shape == (2, 12)
     printed = capsys.readouterr().out
     assert "[quantize] artifact v2" in printed and "tok/s" in printed
-    for flag in (["--sparsity", "2:4"], ["--ckpt-dir", str(tmp_path)], ["--arch", "tiny-moe"]):
+    for flag in (["--ckpt-dir", str(tmp_path)], ["--arch", "tiny-moe"]):
         argv = ["--arch", ARCH, "--device", "cpu"] + flag
         with pytest.raises(SystemExit, match="not yet ported"):
             quantize_launcher.main(argv)

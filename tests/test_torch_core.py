@@ -23,6 +23,7 @@ from repro.core import calibration as JC
 from repro.core import equalization as JQ
 from repro.core import overflow as JO
 from repro.core import quantizers as JZ
+from repro.core import sparsity as JS
 from repro_torch.core import alphabet as A
 from repro_torch.core import calibration as C
 from repro_torch.core import ep_init as E
@@ -71,8 +72,10 @@ def test_bound_algebra_matches_reference(signed):
             37.0, -12.0, jact)
     with pytest.raises(ValueError):
         A.strict_budgets(4, A.act_alphabet(8), 0.5)
-    with pytest.raises(NotImplementedError, match="2:4 slice"):
-        A.min_accumulator_bits(64, 8, 4, False, sparsity="2:4")
+    for k in (1, 63, 64, 960, 2560):
+        for signed_in in (False, True):
+            assert A.min_accumulator_bits(k, 8, 4, signed_in, sparsity="2:4") == (
+                JA.min_accumulator_bits(k, 8, 4, signed_in, sparsity="2:4"))
 
 
 def _codes(rng, k, c, lim=7):
@@ -116,9 +119,16 @@ def test_certificate_matches_reference(k, c, tile, p, signed, rng):
     assert stacked.headroom_bits == jstacked.headroom_bits and bool(stacked) == bool(jstacked)
 
 
-def test_certificate_refuses_sparsity(rng):
-    with pytest.raises(NotImplementedError, match="2:4 slice"):
-        O.certify(_t(_codes(rng, 8, 4)), A.act_alphabet(8), 16, 4, sparsity="2:4")
+def test_sparse_certificate_matches_reference(rng):
+    q = _codes(rng, 64, 8)
+    q24 = q * np.asarray(JS.mask_2to4(jnp.asarray(q)))
+    act, jact = A.act_alphabet(8), JA.act_alphabet(8)
+    rep = O.certify(_t(q24), act, 16, 16, sparsity="2:4")
+    jrep = JO.certify(jnp.asarray(q24), jact, 16, 16, sparsity="2:4")
+    assert vars(rep) == vars(jrep) and rep.sparsity == "2:4"
+    assert O.min_feasible_p_bits(rep) == JO.min_feasible_p_bits(jrep)
+    with pytest.raises(ValueError, match="2:4"):
+        O.certify(_t(q), act, 16, 16, sparsity="2:4")
 
 
 @pytest.mark.parametrize("signed", [False, True])

@@ -38,6 +38,7 @@ from repro_torch.core import optq as OQ
 from repro_torch.core.axe import PTQConfig, check_weight, quantize_linear
 from repro_torch.core.calibration import ActObserver, LayerStats
 from repro_torch.core.overflow import certify
+from repro_torch.core.sparsity import is_2to4
 from repro_torch.kernels import gpfq_solve as B5
 from repro_torch.kernels.ops import gpfq_quantize_panel
 from repro_torch.kernels.ref import gpfq_solve_ref
@@ -277,8 +278,9 @@ def test_standard_gpfq_matches_reference(rng):
     _tie_ok(np.asarray(jr.q_int)[_n(order)], q, v)
     with pytest.raises(ValueError, match="shape mismatch"):
         G.gpfq(_t(w), _t(x), _t(xq[:, :-1]), A.weight_alphabet(4))
-    with pytest.raises(NotImplementedError, match="2:4 slice"):
-        G.gpfq(_t(w), _t(x), _t(xq), A.weight_alphabet(4), sparsity="2:4")
+    r24 = G.gpfq(_t(w), _t(x), _t(xq), A.weight_alphabet(4), act,
+                 axe=G.AxeConfig(p_bits=12, tile=16), act_order=True, sparsity="2:4")
+    assert is_2to4(r24.q_int) and certify(r24.q_int, act, 12, 16, sparsity="2:4").ok
 
 
 @pytest.mark.parametrize("act_order", [True, False])
@@ -293,8 +295,8 @@ def test_optq_matches_reference(act_order, axe_kw, rng):
                 axe=None if axe_kw is None else JAxe(**axe_kw), act_order=act_order)
     r = OQ.optq(_t(w), _t(hess), A.weight_alphabet(4), act, axe=axe, act_order=act_order)
     np.testing.assert_array_equal(_n(r.scale), np.asarray(jr.scale))
-    w_perm, _, state, hinv_u, inv_order = OQ.optq_setup(_t(w), _t(hess), A.weight_alphabet(4),
-                                                        act, axe, "nearest", act_order)
+    w_perm, _, state, hinv_u, inv_order, _ = OQ.optq_setup(
+        _t(w), _t(hess), A.weight_alphabet(4), act, axe, "nearest", act_order)
     order = torch.argsort(inv_order)
     q, _, _, v = OQ._optq_loop(w_perm, hinv_u, state, w_bits=4, rounding="nearest",
                                return_v=True)
@@ -344,7 +346,7 @@ def test_quantize_linear_matches_reference(algorithm, act_order, rng):
             order, q, v = _gpfq_trace(_t(w), G.gh_inverse(h, g), h, cfg.act_alphabet, cfg.axe,
                                       "nearest", act_order)
         else:
-            w_perm, _, state, hinv_u, inv_order = OQ.optq_setup(
+            w_perm, _, state, hinv_u, inv_order, _ = OQ.optq_setup(
                 _t(w), s.optq_hessian(cfg.damp_frac), cfg.w_alphabet, cfg.act_alphabet,
                 cfg.axe, "nearest", act_order)
             order = torch.argsort(inv_order)
@@ -370,8 +372,8 @@ def test_quantize_linear_refuses_what_the_reference_cannot_calibrate(rng):
         quantize_linear(w.to(torch.bfloat16), s, PTQConfig(tile=8))
     with pytest.raises(NotImplementedError, match="MoE slice"):
         check_weight(torch.zeros(2, 16, 8))
-    with pytest.raises(NotImplementedError, match="2:4 slice"):
-        quantize_linear(w, s, PTQConfig(tile=8, sparsity="2:4"))
+    ql24 = quantize_linear(w, s, PTQConfig(tile=8, sparsity="2:4"))
+    assert is_2to4(ql24.q_int) and ql24.cert.ok and ql24.cert.sparsity == "2:4"
     # the reference fails on bfloat16 weights as well
     js = JLayerStats(k=16)
     js.update(jnp.asarray(np.random.default_rng(0).standard_normal((8, 16)), jnp.float32))
