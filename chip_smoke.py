@@ -55,10 +55,16 @@ result unless every phase passed):
    and within 1e-4 (f32) or one bf16 ulp on rows with no q or probability
    code within 1e-3 of a rounding boundary, watermarks equal to the plain
    version's, and the full-magnitude case reaching qk_worst_abs and
-   pv_worst_abs exactly; each timed at smollm-360m decode (4 slots x 80 and
-   x 2048 tokens, bf16) beside its byte bound, its plain version and
+   pv_worst_abs exactly; idle slots (length 0) give 0. The cases include
+   rows across the kernels' split boundaries in PagedEngine's 512-page
+   table (1 token beside 2048, idle slots, k * S * bs +- 1 tokens for the
+   card's split count S). One B2 and one B3 call run under
+   ``torch.cuda.set_sync_debug_mode("error")`` (the wrapper reads no
+   length on the host). Each is timed at smollm-360m decode (4 slots x 80
+   and x 2048 tokens, 1 x 2048, 16 x 512, bf16, 512-page table) beside its
+   split count, its byte bound, its plain version,
    ``scaled_dot_product_attention`` on K/V gathered beforehand (the
-   yardstick; the port never calls it);
+   yardstick; the port never calls it) and the first kernels' time;
 7. the paged slice: smollm-360m at full width, bf16, RTN-packed, through
    ``PagedEngine`` (block 64, 64 pages, 4 slots, chunks of 8, attention
    ``auto``): (a) 4 x prompt 64 + 16 new against ``GenerationEngine``,
@@ -133,17 +139,31 @@ GPFQ_CASES = [(k, c, "split", "nearest") for k, c in SHAPES_KN] + [
     (960, 320, "plain", "nearest"), (8192, 64, "split", "nearest")]
 GPFQ_SAMPLES = 2048
 CALIB_BATCHES, CALIB_BATCH, CALIB_SEQ, EVAL_BATCHES = 4, 4, 128, 2
-#: phase 6: (B, nkv, g, hd, bs, P, lengths or a sweep mode, softcap)
+#: phase 6: (B, nkv, g, hd, bs, P, lengths or a sweep mode, softcap); P is
+#: the table's width. The last four cross the kernels' split boundaries in
+#: PagedEngine's 512-page table: a 1-token row beside a 2048-token one,
+#: idle slots (length 0, sentinel rows), and k * S * bs +- 1 tokens for the
+#: card's split count S (one page per split, then one more)
 PAGED_CASES = (
     [(4, 2, 2, 16, bs, 2 if bs == 128 else 3, mode, None)
      for bs in (8, 16, 128) for mode in ("ragged", "exact", "exact+-1")]
     + [(3, 1, 3, 7, 8, 3, "ragged", None), (2, 3, 1, 16, 8, 2, "ragged", None),
        (3, 1, 5, 11, 16, 2, "ragged", None), (3, 2, 2, 16, 8, 4, "ragged", 10.0),
        (4, 5, 3, 64, 64, 33, (1, 63, 64, 65), None),
-       (4, 5, 3, 64, 64, 33, (80, 2048, 80, 2048), None)])
+       (4, 5, 3, 64, 64, 33, (80, 2048, 80, 2048), None),
+       (2, 5, 3, 64, 64, 512, (1, 2048), None),
+       (4, 5, 3, 64, 64, 512, (0, 80, 0, 2048), None),
+       (4, 5, 3, 64, 64, 512, "split+-1", None),
+       (16, 5, 3, 64, 64, 512, "split+-1", None)])
 #: smollm-360m decode attention: 15 query heads over 5 kv heads, hd 64
 SMOLLM_NKV, SMOLLM_G, SMOLLM_HD = 5, 3, 64
-PAGED_TIMED_LENS = (80, 2048)
+#: timed (slots, tokens), in PagedEngine's 512-page table (max_seq_len / bs)
+PAGED_TIMED = ((4, 80), (4, 2048), (1, 2048), (16, 512))
+PAGED_TABLE = 512
+#: the first kernels' times at the same shapes (ms; chip_smoke.py phase 6 at
+#: commit aa35be4, NVIDIA H100 80GB HBM3, 700.00 W)
+PAGED_FIRST_MS = {("float", 4, 80): 0.06840, ("float", 4, 2048): 1.13171,
+                  ("int8", 4, 80): 0.07446, ("int8", 4, 2048): 1.24144}
 #: phase 7: the paged engine's configuration
 PAGED_BLOCK, PAGED_BLOCKS, PAGED_SLOTS, PAGED_CHUNK = 64, 64, 4, 8
 TRACE_REQUESTS, PREFIX_LEN = 12, 128
@@ -711,9 +731,12 @@ def phase_calibration(torch):
 # ---------------------------------------------------------------------------
 def paged_case(torch, rng, B, nkv, g, hd, bs, P, lens, dtype):
     """One paged-attention call on the card: distinct pages per row, the
-    sentinel nb past each row's pages; ``lens`` a tuple or a sweep mode of
-    the reference's tests (ragged, exact, exact+-1)."""
+    sentinel nb past each row's pages in a table P wide, a pool of the pages
+    the lengths need and 4 more; ``lens`` a tuple or a sweep mode of the
+    reference's tests (ragged, exact, exact+-1) or "split+-1" (k * S * bs
+    +- 1 tokens, k = 1, 2, for the card's split count S)."""
     import numpy as np
+    from repro_torch.kernels import paged_attention as PA
 
     full = P * bs
     if lens == "ragged":
@@ -722,14 +745,17 @@ def paged_case(torch, rng, B, nkv, g, hd, bs, P, lens, dtype):
         lens = [((i % P) + 1) * bs for i in range(B)]
     elif lens == "exact+-1":
         lens = [max(1, bs - 1), bs + 1, full, max(1, full - 1)][:B]
+    elif lens == "split+-1":
+        S = PA.split_plan(B, nkv, P, PA._sm_count(0))
+        lens = [k * S * bs + d for k in (1, 2) for d in (-1, 1)] * (B // 4)
     lens = np.asarray(lens, np.int32)
-    nb = B * P + 4
+    need = [-(-int(n) // bs) for n in lens]
+    nb = sum(need) + 4
     tab = np.full((B, P), nb, np.int32)
     perm, o = rng.permutation(nb), 0
     for b in range(B):
-        n = -(-int(lens[b]) // bs)
-        tab[b, :n] = perm[o:o + n]
-        o += n
+        tab[b, :need[b]] = perm[o:o + need[b]]
+        o += need[b]
     dev = torch.device("cuda")
 
     def normal(*shape):
@@ -805,14 +831,16 @@ def phase_paged_kernels(torch):
         for dtype in (torch.float32, torch.bfloat16):
             q, kp, vp, tab, ln = paged_case(torch, rng, B, nkv, g, hd, bs, P, lens, dtype)
             kp, vp = kp.to(dtype), vp.to(dtype)
+            case = (B, nkv, g, hd, bs, P, tuple(ln.tolist()), cap)
+            live = ln > 0  # an idle slot: the kernels give 0, the plain B2 softmax NaN
             out = PA.paged_attention_kernel(q, kp, vp, tab, ln, softcap=cap)
             ref = PA.paged_attention_plain(q, kp, vp, tab, ln, softcap=cap)
             torch.cuda.synchronize()
-            e = (out.float() - ref.float()).abs().max().item()
+            e = (out[live].float() - ref[live].float()).abs().max().item()
             err["float"] = max(err["float"], e)
-            ok = (torch.allclose(out, ref, rtol=1e-5, atol=1e-5) if dtype == torch.float32
-                  else bf16_ulp_ok(torch, out, ref))
-            check(ok, f"B2 != plain at {(B, nkv, g, hd, bs, P, lens, cap)} {dtype}: {e}")
+            ok = (torch.allclose(out[live], ref[live], rtol=1e-5, atol=1e-5)
+                  if dtype == torch.float32 else bf16_ulp_ok(torch, out[live], ref[live]))
+            check(ok and not out[~live].any(), f"B2 != plain at {case} {dtype}: {e}")
             (kc, ks), (vc, vs) = PA.quantize_kv_pages(kp), PA.quantize_kv_pages(vp)
             wm = torch.zeros(2, dtype=torch.int32, device="cuda")
             out = PA.paged_attention_int8_kernel(q, kc, vc, tab, ln, ks, vs, softcap=cap,
@@ -826,19 +854,19 @@ def phase_paged_kernels(torch):
             err["int8"] = max(err["int8"], diff.max().item())
             clean = ~ties
             n_ties += int(ties.sum())
-            check(diff.max().item() <= 5e-2 and bool(clean.any()),
-                  f"B3 != plain at {(B, nkv, g, hd, bs, P, lens)} {dtype}: {diff.max().item()}")
+            check(diff.max().item() <= 5e-2 and bool(clean.any()) and not out[~live].any(),
+                  f"B3 != plain at {case} {dtype}: {diff.max().item()}")
             ok = (diff[clean].max().item() <= 1e-4 if dtype == torch.float32
                   else bf16_ulp_ok(torch, out[clean], ref[clean]))
-            check(ok, f"B3 != plain off the ties at {(B, nkv, g, hd, bs, P, lens)} {dtype}")
+            check(ok, f"B3 != plain off the ties at {case} {dtype}")
             check(wm.cpu().tolist() == wm_ref.tolist(), f"B3 watermarks {wm.tolist()} != "
-                                                        f"plain {wm_ref.tolist()}")
+                                                        f"plain {wm_ref.tolist()} at {case}")
             PA.check_bounds(wm, AttnDatapathSpec.for_cache(hd, bs))
             n_cases += 1
     print(f"[paged] B2 and B3 against their plain versions: {n_cases} cases x (f32, bf16) "
           f"agree (B2 max |err| {err['float']:.3g}; B3 max |err| {err['int8']:.3g}, "
           f"{n_ties} near-tie rows within 5e-2, the others within 1e-4 / one bf16 ulp; "
-          f"watermarks equal)")
+          f"watermarks equal; idle slots 0)")
 
     # the full-magnitude case: every q and k code 127, v codes 127, full pages
     spec = AttnDatapathSpec.for_cache(SMOLLM_HD, PAGED_BLOCK)
@@ -858,45 +886,69 @@ def phase_paged_kernels(torch):
     print(f"[paged] full magnitude: watermarks {reached} = (qk_worst_abs, pv_worst_abs) within "
           f"P_qk={spec.p_qk}, P_pv={spec.p_pv} ({spec.describe()})")
 
-    # times at smollm-360m decode, bf16 q (and bf16 pages for B2)
+    # the wrapper reads no length on the host: one B2 and one B3 call under
+    # the sync debug mode "error"
+    q, kp, vp, tab, ln = paged_case(torch, rng, 2, SMOLLM_NKV, SMOLLM_G, SMOLLM_HD, PAGED_BLOCK,
+                                    PAGED_TABLE, (1, 2048), torch.bfloat16)
+    kp, vp = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+    (kc, ks), (vc, vs) = PA.quantize_kv_pages(kp), PA.quantize_kv_pages(vp)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        PA.paged_decode_attention(q, kp, vp, tab, ln)
+        PA.paged_decode_attention(q, kc, vc, tab, ln, k_scales=ks, v_scales=vs, watermarks=wm)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print("[paged] one B2 and one B3 call under torch.cuda.set_sync_debug_mode('error'): "
+          "no synchronization")
+
+    # times at smollm-360m decode, bf16 q (and bf16 pages for B2), in
+    # PagedEngine's 512-page table; the plain version and the SDPA yardstick
+    # take the table cut to the pages the lengths need (the same function)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     rows = {"float": [], "int8": []}
-    for n in PAGED_TIMED_LENS:
-        P = -(-n // PAGED_BLOCK)
-        q, kp, vp, tab, ln = paged_case(torch, rng, PAGED_SLOTS, SMOLLM_NKV, SMOLLM_G,
-                                        SMOLLM_HD, PAGED_BLOCK, P, (n,) * PAGED_SLOTS,
-                                        torch.bfloat16)
+    for slots, n in PAGED_TIMED:
+        q, kp, vp, tab, ln = paged_case(torch, rng, slots, SMOLLM_NKV, SMOLLM_G, SMOLLM_HD,
+                                        PAGED_BLOCK, PAGED_TABLE, (n,) * slots, torch.bfloat16)
         kp, vp = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
         (kc, ks), (vc, vs) = PA.quantize_kv_pages(kp), PA.quantize_kv_pages(vp)
+        cut = tab[:, :-(-n // PAGED_BLOCK)].contiguous()
+        splits = PA.split_plan(slots, SMOLLM_NKV, PAGED_TABLE, PA._sm_count(0))
         for kind, pages, scale_args in (("float", (kp, vp), ()), ("int8", (kc, vc), (ks, vs))):
             if kind == "float":
                 def kern():
                     return PA.paged_attention_kernel(q, *pages, tab, ln)
 
                 def plain():
-                    return PA.paged_attention_plain(q, *pages, tab, ln)
+                    return PA.paged_attention_plain(q, *pages, cut, ln)
             else:
                 def kern():
                     return PA.paged_attention_int8_kernel(q, *pages, tab, ln, *scale_args)
 
                 def plain():
-                    return PA.paged_attention_int8_plain(q, *pages, tab, ln, *scale_args)
-            lib_call, lib_out = sdpa_yardstick(torch, q, *pages, tab, ln, *scale_args)
+                    return PA.paged_attention_int8_plain(q, *pages, cut, ln, *scale_args)
+            lib_call, lib_out = sdpa_yardstick(torch, q, *pages, cut, ln, *scale_args)
             scale_kw = dict(zip(("k_scales", "v_scales"), scale_args))
-            oracle = PA.paged_attention_reference(q, *pages, tab, ln, **scale_kw)
+            oracle = PA.paged_attention_reference(q, *pages, cut, ln, **scale_kw)
             lib_err = (lib_out().float() - oracle.float()).abs().max().item()
             check(lib_err < 5e-2, f"the SDPA yardstick disagrees ({kind}, {n}): {lib_err}")
             bms, by = paged_bound_ms(torch, q, pages[0], ln, kind == "int8")
-            row = {"slots": PAGED_SLOTS, "tokens": n, "nh": SMOLLM_NKV * SMOLLM_G,
+            row = {"slots": slots, "tokens": n, "nh": SMOLLM_NKV * SMOLLM_G,
                    "nkv": SMOLLM_NKV, "hd": SMOLLM_HD, "bs": PAGED_BLOCK, "dtype": "bfloat16",
+                   "table_cols": PAGED_TABLE, "splits": splits,
                    "ms": time_ms(torch, kern, flush=flush),
                    "plain_ms": time_ms(torch, plain, reps=10, flush=flush),
                    "library_ms": time_ms(torch, lib_call, flush=flush),
                    "bound_ms": bms, "bound_by": by}
             rows[kind].append(row)
-            print(f"[paged] {'B2' if kind == 'float' else 'B3'} {PAGED_SLOTS} slots x {n} "
-                  f"tokens: kernel {row['ms']:.5f} ms  plain {row['plain_ms']:.5f} ms  "
-                  f"sdpa {row['library_ms']:.5f} ms  bound {bms:.5f} ms ({by})")
+            # printed for the reader only: not measured in this run, so it
+            # stays out of the kernels record
+            first = PAGED_FIRST_MS.get((kind, slots, n))
+            print(f"[paged] {'B2' if kind == 'float' else 'B3'} {slots} slots x {n} tokens, "
+                  f"{splits} splits: kernel {row['ms']:.5f} ms  bound {bms:.5f} ms ({by})  "
+                  f"plain {row['plain_ms']:.5f} ms  sdpa {row['library_ms']:.5f} ms  first "
+                  f"kernel (PR 14) {'n/a' if first is None else f'{first:.5f} ms'}")
     return rows, err
 
 
@@ -1188,14 +1240,16 @@ def phase_paged_slice(torch):
                and not e.is_user_annotation]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     b2 = sum(e.self_device_time_total for e in kernels if "paged_attn_float" in e.key) / 1e3
+    b2_calls = sum(e.count for e in kernels if "paged_attn_float" in e.key)
     b1 = sum(e.self_device_time_total for e in kernels if "w4a8_kernel" in e.key) / 1e3
     check(b2 > 0 and b1 > 0, "the profiler saw no B2 or B1 kernel in a decode chunk")
     print(f"[profile] one decode chunk of {chunk['k']} steps, {PAGED_SLOTS} slots: "
           f"{chunk['wall_ms']:.3f} ms on the host clock, device busy {busy:.3f} ms "
-          f"({100 * busy / chunk['wall_ms']:.1f}%), B2 {b2:.3f} ms, B1 {b1:.3f} ms")
+          f"({100 * busy / chunk['wall_ms']:.1f}%), B2 {b2:.3f} ms in {b2_calls} launches "
+          f"({1e3 * b2 / max(b2_calls, 1):.3f} us a launch), B1 {b1:.3f} ms")
     return {"a": cmp_a, "runs": runs, "c": cmp_c,
             "profile": {"chunk_wall_ms": chunk["wall_ms"], "busy_ms": busy, "b2_ms": b2,
-                        "b1_ms": b1, "steps": chunk["k"]}}
+                        "b2_launches": b2_calls, "b1_ms": b1, "steps": chunk["k"]}}
 
 
 # ---------------------------------------------------------------------------
@@ -1619,7 +1673,7 @@ def phase_sparse_slice(torch, dense_calib, paged):
 
 def paged_record(name, rows, err, launches, source_line) -> dict:
     """One record for a paged-attention kernel: times at smollm-360m decode,
-    4 slots x 80 tokens (the slice's lengths); the 2048-token rows beside."""
+    4 slots x 80 tokens (the slice's lengths); the other timed shapes beside."""
     main = rows[0]
     return {
         "name": name,
@@ -1634,8 +1688,10 @@ def paged_record(name, rows, err, launches, source_line) -> dict:
         "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
         "timed_as": f"one call at smollm-360m decode: {main['slots']} slots x {main['tokens']} "
-                    f"tokens, nh 15 / nkv 5, hd 64, bs 64, bf16 q, cold L2; the library call is "
-                    f"scaled_dot_product_attention on K/V gathered beforehand",
+                    f"tokens in a {main['table_cols']}-page table ({main['splits']} splits), "
+                    f"nh 15 / nkv 5, hd 64, bs 64, bf16 q, cold L2; the library call is "
+                    f"scaled_dot_product_attention on K/V gathered beforehand; every timed "
+                    f"shape in shapes",
         "shapes": rows,
     }
 

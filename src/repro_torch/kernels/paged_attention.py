@@ -19,8 +19,9 @@ free-slot sentinels, clamped on reads (and masked anyway).
   B3 for int8 pages with scales); CPU tensors take the plain versions. It
   checks ``attn_spec`` against the pool as the reference does.
 
-``paged_decode_attention.launches`` and ``.int8_launches`` count kernel
-launches of B2 and B3.
+``paged_decode_attention.launches`` and ``.int8_launches`` count calls of
+B2 and B3 (one CUDA launch each; each call splits its rows' pages over
+blocks, ``split_plan``).
 """
 
 from __future__ import annotations
@@ -40,6 +41,9 @@ MAX_GROUP = 16
 SMEM_LIMIT = 232_448
 #: width of the band around a rounding boundary that counts as a near-tie
 TIE_EPS = 1e-3
+#: blocks per SM the kernels' split plan fills (B2's block at smollm-360m's
+#: shapes holds 75 KB of shared memory: three fit on an H100 SM)
+BLOCKS_PER_SM = 3
 
 
 def _div(x: torch.Tensor, c: float) -> torch.Tensor:
@@ -122,10 +126,46 @@ def _near_tie(x: torch.Tensor, eps: float) -> torch.Tensor:
     return torch.abs(torch.abs(x - torch.floor(x)) - 0.5) < eps
 
 
+def int8_q_codes(q, spec: AttnDatapathSpec, nkv: int):
+    """B3's per-head symmetric q quantization: codes (B, nkv, g, hd) as
+    float64, scales (B, nkv, g, 1) f32, and the unrounded q / scale."""
+    B, nh, hd = q.shape
+    qf = q.to(torch.float32)
+    q_scale = torch.clamp(_div(torch.amax(torch.abs(qf), dim=-1, keepdim=True), spec.q_qmax),
+                          min=1e-8)
+    qv = qf / q_scale
+    q_codes = torch.clamp(torch.round(qv), -spec.q_qmax, spec.q_qmax)
+    g = nh // nkv
+    return q_codes.reshape(B, nkv, g, hd).to(torch.float64), q_scale.reshape(B, nkv, g, 1), qv
+
+
+def int8_page_scores(qc, qs, k_codes, k_scales, page, valid, softcap=None):
+    """One page of B3's scores: the exact integer QK^T (B, nkv, g, bs) and
+    the finished f32 scores, ``s_int * q_scale * k_scale / sqrt(hd)``,
+    softcapped, -inf where ``valid`` (B, bs) is False."""
+    hd = k_codes.shape[-1]
+    s_int = torch.einsum("bkgd,bskd->bkgs", qc, k_codes[page].to(torch.float64))
+    s = s_int.to(torch.float32) * qs * k_scales[page][:, :, None, None]
+    s = _softcap(_div(s, math.sqrt(hd)), softcap)
+    return s_int, s.masked_fill(~valid[:, None, None, :], -math.inf)
+
+
+def int8_page_step(s, m, prob_qmax):
+    """One page of B3's recurrence from the running maximum ``m``: the new
+    maximum, p * prob_qmax before rounding, the probability codes and the
+    correction exp(m - m_safe) (0 while m is -inf)."""
+    m_new = torch.maximum(m, torch.amax(s, dim=-1))
+    m_safe = torch.where(torch.isfinite(m_new), m_new, torch.zeros_like(m_new))
+    p_scaled = torch.exp(s - m_safe[..., None]) * prob_qmax
+    corr = torch.exp(torch.where(torch.isfinite(m), m - m_safe, torch.full_like(m, -math.inf)))
+    return m_new, p_scaled, torch.round(p_scaled), corr
+
+
 def paged_attention_int8_plain(q, k_codes, v_codes, block_table, seq_lens, k_scales,
                                v_scales, *, softcap=None, spec: AttnDatapathSpec | None = None,
                                watermarks: torch.Tensor | None = None,
-                               return_ties: bool = False, tie_eps: float = TIE_EPS):
+                               return_ties: bool = False, tie_eps: float = TIE_EPS,
+                               prob_codes: list | None = None):
     """Plain version of kernel B3, page by page in the order of the
     reference's ``_quant_kernel``. Integer dots are exact (float64 products
     of integer codes on any device). ``watermarks`` (2,) int32, when given,
@@ -133,20 +173,15 @@ def paged_attention_int8_plain(q, k_codes, v_codes, block_table, seq_lens, k_sca
     ``return_ties`` also returns a (B, nh) mask of the rows where a q code or
     a probability code lay within ``tie_eps`` of a rounding boundary: there
     another exp or division of equal accuracy may round the other way, so
-    agreement with such rows is tie-limited."""
+    agreement with such rows is tie-limited. ``prob_codes``, a list, receives
+    each page's probability codes (B, nkv, g, bs) in table order."""
     B, nh, hd = q.shape
     nb, bs, nkv, _ = k_codes.shape
     g = nh // nkv
     spec = spec or AttnDatapathSpec.for_cache(hd, bs)
     dev = q.device
-    qf = q.to(torch.float32)
-    q_scale = torch.clamp(_div(torch.amax(torch.abs(qf), dim=-1, keepdim=True), spec.q_qmax),
-                          min=1e-8)
-    qv = qf / q_scale
-    q_codes = torch.clamp(torch.round(qv), -spec.q_qmax, spec.q_qmax)
+    qc, qs, qv = int8_q_codes(q, spec, nkv)
     ties = _near_tie(qv, tie_eps).any(dim=-1).reshape(B, nkv, g)
-    qc = q_codes.reshape(B, nkv, g, hd).to(torch.float64)
-    qs = q_scale.reshape(B, nkv, g, 1)
     tab = torch.clamp(block_table.long(), max=nb - 1)
     lens = seq_lens.to(torch.int64)
     n_pages = min(block_table.shape[1], -(-int(lens.max()) // bs)) if B else 0
@@ -157,21 +192,14 @@ def paged_attention_int8_plain(q, k_codes, v_codes, block_table, seq_lens, k_sca
     for j in range(n_pages):
         page = tab[:, j]
         valid = (j * bs + torch.arange(bs, device=dev))[None, :] < lens[:, None]  # (B, bs)
-        s_int = torch.einsum("bkgd,bskd->bkgs", qc, k_codes[page].to(torch.float64))
+        s_int, s = int8_page_scores(qc, qs, k_codes, k_scales, page, valid, softcap)
         if watermarks is not None:
             wm_qk = max(wm_qk, int(torch.where(valid[:, None, None, :], s_int.abs(), 0).max()))
-        s = s_int.to(torch.float32) * qs * k_scales[page][:, :, None, None]
-        s = _softcap(_div(s, math.sqrt(hd)), softcap)
-        s = s.masked_fill(~valid[:, None, None, :], -math.inf)
-        m_new = torch.maximum(m, torch.amax(s, dim=-1))
-        m_safe = torch.where(torch.isfinite(m_new), m_new, torch.zeros_like(m_new))
-        p = torch.exp(s - m_safe[..., None])
-        corr = torch.exp(torch.where(torch.isfinite(m), m - m_safe,
-                                     torch.full_like(m, -math.inf)))
-        p_scaled = p * spec.prob_qmax
+        m, p_scaled, p_codes, corr = int8_page_step(s, m, spec.prob_qmax)
         if return_ties:
             ties |= (_near_tie(p_scaled, tie_eps) & valid[:, None, None, :]).any(dim=-1)
-        p_codes = torch.round(p_scaled)
+        if prob_codes is not None:
+            prob_codes.append(p_codes)
         pv_int = torch.einsum("bkgs,bskd->bkgd", p_codes.to(torch.float64),
                               v_codes[page].to(torch.float64))
         if watermarks is not None:
@@ -179,7 +207,6 @@ def paged_attention_int8_plain(q, k_codes, v_codes, block_table, seq_lens, k_sca
         pv = pv_int.to(torch.float32) * _div(v_scales[page], spec.prob_qmax)[:, :, None, None]
         l = l * corr + torch.sum(_div(p_codes, spec.prob_qmax), dim=-1)
         acc = acc * corr[..., None] + pv
-        m = m_new
     out = (acc / torch.clamp(l[..., None], min=1e-20)).reshape(B, nh, hd).to(q.dtype)
     if watermarks is not None:
         watermarks[0] = max(int(watermarks[0]), wm_qk)
@@ -198,12 +225,56 @@ def _library() -> ctypes.CDLL:
     lib = load_library("paged_attention")
     # pointers and the stream as c_void_p: a bare int would be cut to 32 bits
     lib.paged_attention_launch.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_float] * 2
+        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10 + [ctypes.c_float] * 2
         + [ctypes.c_int, ctypes.c_void_p])
     lib.paged_attention_launch.restype = ctypes.c_int
-    lib.paged_attention_smem_bytes.argtypes = [ctypes.c_int] * 5
+    lib.paged_attention_smem_bytes.argtypes = [ctypes.c_int] * 7
     lib.paged_attention_smem_bytes.restype = ctypes.c_size_t
+    lib.paged_attention_workspace_bytes.argtypes = [ctypes.c_int] * 5
+    lib.paged_attention_workspace_bytes.restype = ctypes.c_size_t
+    lib.paged_attention_sync_ints.argtypes = [ctypes.c_int] * 2
+    lib.paged_attention_sync_ints.restype = ctypes.c_size_t
+    lib.paged_attention_flag_words.argtypes = [ctypes.c_int] * 4
+    lib.paged_attention_flag_words.restype = ctypes.c_size_t
     return lib
+
+
+def split_plan(batch: int, nkv: int, n_cols: int, n_sm: int) -> int:
+    """Splits S of each row's pages for the grid (nkv, batch, S): as many as
+    fill BLOCKS_PER_SM blocks on each of ``n_sm`` SMs in one wave, at least
+    1 and at most the table's width ``n_cols``. A function of shapes alone:
+    each row divides its own ceil(len / bs) pages over the S splits on the
+    device, so the plan never reads ``seq_lens`` (a host read would
+    synchronize)."""
+    return max(1, min(n_cols, BLOCKS_PER_SM * n_sm // max(1, batch * nkv)))
+
+
+@functools.cache
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+class _SyncBuffers:
+    """Per (device, stream): the kernels' synchronization buffers, zeroed
+    once here and never by a launch. ``counters`` (int32): per (slot, kv
+    head) a done counter and a ticket, which every call's last block resets
+    to 0. ``flags`` (B3, 64-bit): per split and head the split's published
+    maximum (nonzero once published), which the row's last block resets to 0
+    as well. No launch depends on a value from the host, so a launch may be
+    captured in a CUDA graph and replayed."""
+
+    def __init__(self):
+        self.counters = self.flags = None
+
+    def next(self, device, n_counters: int, n_flags: int):
+        if self.counters is None or self.counters.numel() < n_counters:
+            self.counters = torch.zeros(max(n_counters, 1024), dtype=torch.int32, device=device)
+        if self.flags is None or self.flags.numel() < n_flags:
+            self.flags = torch.zeros(max(n_flags, 1024), dtype=torch.int64, device=device)
+        return self.counters, self.flags
+
+
+_SYNC: dict[tuple[int, int], _SyncBuffers] = {}
 
 
 def _check_kernel_args(q, k_pages, v_pages, block_table, seq_lens, extra=()):
@@ -239,24 +310,33 @@ def _launch(q, k_pages, v_pages, k_scales, v_scales, block_table, seq_lens, wm, 
     B, nh, hd = q.shape
     nb, bs, nkv, _ = k_pages.shape
     g = nh // nkv
+    n_cols = block_table.shape[1]
     quantized = k_scales is not None
     lib = _library()
-    smem = lib.paged_attention_smem_bytes(g, hd, bs, k_pages.element_size(), int(quantized))
+    n_splits = split_plan(B, nkv, n_cols, _sm_count(q.device.index))
+    smem = lib.paged_attention_smem_bytes(g, hd, bs, k_pages.element_size(), int(quantized),
+                                          n_cols, n_splits)
     if smem > SMEM_LIMIT:
         raise ValueError(f"paged attention: one block needs {smem} B of shared memory "
                          f"(g {g}, hd {hd}, bs {bs}) > Hopper's {SMEM_LIMIT} B")
     out = torch.empty_like(q)
     if B == 0:
         return out
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ws = torch.empty(lib.paged_attention_workspace_bytes(B, nkv, g, hd, n_splits) // 4,
+                     dtype=torch.float32, device=q.device)
+    counters, flags = _SYNC.setdefault((q.device.index, stream), _SyncBuffers()).next(
+        q.device, lib.paged_attention_sync_ints(B, nkv),
+        lib.paged_attention_flag_words(B, nkv, g, n_splits))
     err = lib.paged_attention_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scales.data_ptr() if quantized else None,
         v_scales.data_ptr() if quantized else None,
         block_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-        wm.data_ptr() if wm is not None else None,
-        B, nb, bs, nkv, g, hd, block_table.shape[1], int(q.dtype == torch.bfloat16),
+        wm.data_ptr() if wm is not None else None, ws.data_ptr(), counters.data_ptr(),
+        flags.data_ptr(), B, nb, bs, nkv, g, hd, n_cols, n_splits, int(q.dtype == torch.bfloat16),
         int(quantized), math.sqrt(hd), 0.0 if softcap is None else float(softcap),
-        int(softcap is not None), torch.cuda.current_stream(q.device).cuda_stream)
+        int(softcap is not None), stream)
     if err != 0:
         raise RuntimeError(f"paged attention kernel launch failed: CUDA error {err}")
     return out
@@ -355,7 +435,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_table, seq_lens, *, k_scal
     return out
 
 
-#: kernel launches since the last reset (the main-path proof of chip_smoke):
+#: kernel calls since the last reset (the main-path proof of chip_smoke):
 #: B2 (float pages) and B3 (int8 pages)
 paged_decode_attention.launches = 0
 paged_decode_attention.int8_launches = 0
@@ -364,6 +444,9 @@ paged_decode_attention.int8_launches = 0
 __all__ = [
     "check_bounds",
     "dequantize_kv_pages",
+    "int8_page_scores",
+    "int8_page_step",
+    "int8_q_codes",
     "paged_attention_int8_kernel",
     "paged_attention_int8_plain",
     "paged_attention_kernel",
@@ -371,4 +454,5 @@ __all__ = [
     "paged_attention_reference",
     "paged_decode_attention",
     "quantize_kv_pages",
+    "split_plan",
 ]
