@@ -32,16 +32,25 @@ result unless every phase passed):
    two matrices would fail), the AXE state of P_I = 16, T = 128 and 8-bit
    unsigned activations, the act_order permutation and permuted tile ids;
    plus (960, 320) in round-to-zero, in joint mode (signed activations) and
-   without AXE, and (8192, 64), whose U lives in global memory. Each case
-   holds tie-limited agreement (codes equal in every channel up to the
-   first row whose pre-rounding value lies within 1e-3 of a rounding
+   without AXE, and (8192, 64) (128 row blocks, one U tile of channels).
+   Each case holds tie-limited agreement (codes equal in every channel up
+   to the first row whose pre-rounding value lies within 1e-3 of a rounding
    boundary), pos/neg equal to the tile sums of the kernel's own codes
-   exactly, and the certificate of the kernel's codes;
+   exactly, the certificate of the kernel's codes, a second run
+   bit-identical to the first (Q, U, pos, neg), and U equal to
+   Xg^T W - Xh^T Q recomputed in float64 from the kernel's own codes
+   (rtol 1e-4); it prints the block plan (64-row blocks, 2 + 2 x K/64
+   kernels), the device kernels one solve launched (counted by the C
+   launcher, held to the plan), the time of the per-panel kernel it
+   replaced (commit fbec649) beside the kernel's, and for the split cases
+   a profiler view of one solve (its kernels by name, held to the plan,
+   and their span);
 5. the calibration slice: smollm-360m at full width in float32 (the
    reference's solvers take float32 weights), ``calibrate_and_quantize``
    with the default ``PTQConfig`` on 4 x 4 x 128 tokens — exactly 224 B5
    launches (7 sites x 32 layers) and 224 certified sites; its wall time;
-   a second, instrumented calibration for the breakdown of that time — then the
+   a second, instrumented calibration for the breakdown of that time (B5's
+   share and its sum per layer) — then the
    exported v2 artifact, written with ``save_pytree`` and loaded back,
    served greedy (batch 4 x prompt 64 + 16 new, B1 with float32 output and
    the calibrated static activation quantizers): exactly 3584 B1 launches
@@ -85,7 +94,8 @@ result unless every phase passed):
    the expanded int8 codes and ``torch.sparse.to_sparse_semi_structured``
    int8 x int8 (or the library's refusal); B5 with a 2:4 mask at one
    layer's shapes (tie-limited agreement, exact pos/neg, zeros where the
-   mask is 0, the sparse certificate) timed masked and unmasked; B6
+   mask is 0, U consistent with its own codes, the sparse certificate)
+   timed masked and unmasked; B6
    (``quant_rmsnorm``) driven once through ``ops.norm_and_quantize`` at
    (256, 960), (512, 1024) and (1024, 4096), then held to its plain version
    in f32 and bf16 (exact, or one code on under 1% of elements) and timed
@@ -138,6 +148,13 @@ GPFQ_CASES = [(k, c, "split", "nearest") for k, c in SHAPES_KN] + [
     (960, 320, "split", "zero"), (960, 320, "joint", "nearest"),
     (960, 320, "plain", "nearest"), (8192, 64, "split", "nearest")]
 GPFQ_SAMPLES = 2048
+#: the per-panel B5 that the blocked one replaced (one block per channel
+#: panel) on the same cases, for the [gpfq] lines only (ms; chip_smoke.py
+#: phase 4 at commit fbec649, NVIDIA H100 80GB HBM3, 700.00 W)
+GPFQ_PANEL_MS = {(960, 960, "split", "nearest"): 6.9895, (960, 320, "split", "nearest"): 7.0172,
+                (960, 2560, "split", "nearest"): 6.9624, (2560, 960, "split", "nearest"): 26.0790,
+                (960, 320, "split", "zero"): 6.9972, (960, 320, "joint", "nearest"): 6.9997,
+                (960, 320, "plain", "nearest"): 6.9432, (8192, 64, "split", "nearest"): 1729.6852}
 CALIB_BATCHES, CALIB_BATCH, CALIB_SEQ, EVAL_BATCHES = 4, 4, 128, 2
 #: phase 6: (B, nkv, g, hd, bs, P, lengths or a sweep mode, softcap); P is
 #: the table's width. The last four cross the kernels' split boundaries in
@@ -184,6 +201,7 @@ def reset_counts():
     w4a8_sparse_matmul.launches = 0
     gpfq_solve.launches = 0
     gpfq_solve.masked_launches = 0
+    gpfq_solve.device_kernels = 0
     paged_decode_attention.launches = 0
     paged_decode_attention.int8_launches = 0
     quant_rmsnorm.launches = 0
@@ -199,6 +217,7 @@ def read_counts() -> dict:
             "w4a8_sparse_matmul": w4a8_sparse_matmul.launches,
             "gpfq_solve": gpfq_solve.launches,
             "gpfq_solve_masked": gpfq_solve.masked_launches,
+            "gpfq_solve_device_kernels": gpfq_solve.device_kernels,
             "paged_decode_attention": paged_decode_attention.launches,
             "paged_decode_attention_int8": paged_decode_attention.int8_launches,
             "quant_rmsnorm": quant_rmsnorm.launches}
@@ -529,32 +548,81 @@ def gpfq_case_inputs(torch, k: int, c: int, mode: str, rounding: str, gen):
     return args, act, order, axe
 
 
+def u_consistent(torch, args, q, u) -> bool:
+    """U equal to Xg^T W - Xh^T Q recomputed in float64 from the solve's own
+    codes: rtol 1e-4, and an atol of 1e-4 of the largest sum of the terms'
+    magnitudes (an entry that cancels to near 0 keeps f32 rounding of its
+    terms)."""
+    w, xg, xh = (a.double() for a in args[:3])
+    qd = q.double()
+    ref = xg.T @ w - xh.T @ qd
+    scale = float((xg.abs().T @ w.abs() + xh.abs().T @ qd.abs()).max())
+    return bool(torch.allclose(u.double(), ref, rtol=1e-4, atol=1e-4 * scale))
+
+
+def gpfq_profile(torch, fn, plan: dict) -> dict:
+    """One solve under torch.profiler, run after a warm-up solve and a
+    short device sleep (``spin_kernel``) in the same trace, so the trace is
+    open before the solve starts: the card's kernels for the solve (those
+    that start after the sleep) by name, held to the plan (one Gram
+    product, one sum of its parts, a recurrence and an update per row
+    block), and the span from the first one's start to the last one's
+    end."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100_000)
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    marks = [e.time_range.start for e in evs if "spin_kernel" in e.name]
+    check(len(marks) == 1, f"the profiler saw {len(marks)} device sleeps, not 1")
+    evs = sorted((e.time_range.start, e.time_range.end, e.name) for e in evs
+                 if "gpfq_" in e.name and e.time_range.start > marks[0])
+    names = {n: sum(f"gpfq_{n}_kernel" in e[2] for e in evs)
+             for n in ("gram", "gram_sum", "rows", "update")}
+    want = {"gram": 1, "gram_sum": 1, "rows": plan["blocks"], "update": plan["blocks"]}
+    check(names == want, f"the profiler saw gpfq_solve kernels {names}, the plan has {want}")
+    return {"kernels": len(evs), "by_name": names,
+            "span_ms": (evs[-1][1] - evs[0][0]) / 1e3}
+
+
 def phase_gpfq(torch):
     from repro_torch.core.overflow import certify
     from repro_torch.kernels.gpfq_solve import (
+        block_plan,
+        gpfq_solve,
         gpfq_solve_kernel,
         gpfq_solve_plain,
-        panel_layout,
         tie_limited_agreement,
     )
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
-    layouts = {d: panel_layout(d) for d in (960, 2560, 8192)}
-    check(layouts == {960: (32, False), 2560: (16, False), 8192: (32, True)},
-          f"gpfq_solve panel layouts {layouts}")
-    check(panel_layout(960, force_global_u=True) == (32, True), "forced global U layout")
     rows, max_err = [], 0.0
     for k, c, mode, rounding in GPFQ_CASES:
+        plan = block_plan(k, k, c)
+        check(plan["rows"] == 64 and plan["kernels"] == 2 + 2 * -(-k // 64),
+              f"gpfq_solve plan K={k} C={c}: {plan}")
         args, act, order, axe = gpfq_case_inputs(torch, k, c, mode, rounding, gen)
         kw = dict(qmax=7.0, mode=mode, rounding=rounding)
+        before = gpfq_solve.device_kernels
         q, u, pos, neg = gpfq_solve_kernel(*args, **kw)
+        kernels = gpfq_solve.device_kernels - before
+        check(kernels == plan["kernels"], f"gpfq_solve K={k} C={c}: {kernels} kernels "
+                                          f"launched, plan {plan['kernels']}")
+        again = gpfq_solve_kernel(*args, **kw)
         pq, pu, ppos, pneg, v = gpfq_solve_plain(*args, **kw, return_v=True)
         torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip((q, u, pos, neg), again)),
+              f"gpfq_solve K={k} C={c}: two runs differ")
+        del again
         ok, share, cut = tie_limited_agreement(pq, q, v, rounding, 1e-3)
         check(ok, f"gpfq_solve K={k} C={c} {mode}/{rounding}: codes differ before the first "
                   f"tie (share equal {share:.5f})")
+        check(u_consistent(torch, args, q, u),
+              f"gpfq_solve K={k} C={c}: U is not Xg^T W - Xh^T Q of its own codes")
         max_err = max(max_err, (q - pq).abs().max().item())
         tid, n_tiles = args[6], args[5].shape[0]
         if mode == "plain":
@@ -571,19 +639,31 @@ def phase_gpfq(torch):
             rep = certify(q[torch.argsort(order)], act, 16, 128)
             check(bool(rep), f"gpfq_solve K={k} C={c} {mode}: certificate fails: {rep}")
             cert = rep.headroom_bits
-        bc, global_u = panel_layout(k)
         ms = time_ms(torch, lambda: gpfq_solve_kernel(*args, **kw), reps=5, flush=flush)
         plain_ms = wall_ms(torch, lambda: gpfq_solve_plain(*args, **kw), reps=2)
         bms, by = gpfq_bound_ms(k, k, c)
-        rows.append({"K": k, "C": c, "mode": mode, "rounding": rounding, "bc": bc,
-                     "global_u": global_u, "share_equal": share, "channels_cut_by_tie": cut,
+        rows.append({"K": k, "C": c, "mode": mode, "rounding": rounding,
+                     "row_blocks": plan["blocks"], "kernels_per_solve": kernels,
+                     "share_equal": share, "channels_cut_by_tie": cut,
                      "headroom_bits": cert, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
                      "bound_by": by, "library_ms": None})
-        print(f"[gpfq] K={k:5d} C={c:5d} {mode:5s} {rounding:7s} bc={bc} "
-              f"U in {'global' if global_u else 'shared'} memory: tie-limited agreement ok, "
+        print(f"[gpfq] K={k:5d} C={c:5d} {mode:5s} {rounding:7s} {plan['blocks']} blocks of "
+              f"{plan['rows']} rows, {kernels} kernels a solve: tie-limited agreement ok, "
               f"{share:.5f} of codes equal ({cut} channels cut by a tie), pos/neg exact, "
-              f"headroom {cert if cert is None else round(cert, 4)} bits; kernel {ms:.4f} ms  "
+              f"two runs bit-identical, U consistent, "
+              f"headroom {cert if cert is None else round(cert, 4)} bits; kernel {ms:.4f} ms "
+              f"(per-panel kernel: {GPFQ_PANEL_MS[(k, c, mode, rounding)]:.4f} ms)  "
               f"plain {plain_ms:.1f} ms  bound {bms:.4f} ms ({by})")
+        if (mode, rounding) == ("split", "nearest"):
+            prof = gpfq_profile(torch, lambda: gpfq_solve_kernel(*args, **kw), plan)
+            rows[-1]["profile"] = prof
+            print(f"[gpfq-profile] K={k:5d} C={c:5d}: {prof['kernels']} kernels on the card "
+                  f"{prof['by_name']}, as planned; span {prof['span_ms']:.4f} ms")
+    layer = {(r["K"], r["C"]): r["ms"] for r in rows
+             if (r["mode"], r["rounding"]) == ("split", "nearest")}
+    print(f"[gpfq] one smollm-360m layer's 7 sites: {sum(layer[kn] for kn in LAYER_SITES):.4f} "
+          f"ms (per-panel kernel: "
+          f"{sum(GPFQ_PANEL_MS[(*kn, 'split', 'nearest')] for kn in LAYER_SITES):.4f} ms)")
     return rows, max_err
 
 
@@ -684,6 +764,8 @@ def phase_calibration(torch):
           f"({100 * spent['eigh'] / wall_i:.1f}%), solve {spent['solve']:.3f} s "
           f"({100 * spent['solve'] / wall_i:.1f}%), host observer {spent['observer']:.3f} s "
           f"({100 * spent['observer'] / wall_i:.1f}%)")
+    print(f"[calib] B5 per layer {1e3 * b5_s / cfg.n_layers:.3f} ms (7 solves, summed over "
+          f"the instrumented run's {len(b5_events)} solves / {cfg.n_layers} layers)")
     print(f"[calib] float ppl {ppl_f:.4f}, quantized ppl {ppl_q:.4f} on {EVAL_BATCHES} eval "
           f"batches (random weights)")
 
@@ -1443,6 +1525,8 @@ def phase_sparse_kernels(torch, gpfq_rows):
         b5_err = max(b5_err, (q - pq).abs().max().item())
         check(not q[mask == 0].any(), f"masked gpfq_solve K={k} C={c}: a pruned code is "
                                       f"nonzero")
+        check(u_consistent(torch, args, q, u),
+              f"masked gpfq_solve K={k} C={c}: U is not Xg^T W - Xh^T Q of its own codes")
         tid, n_tiles = args[6], args[5].shape[0]
         sums_p = torch.zeros((n_tiles, c), device=dev).index_add_(0, tid.long(), q.clamp(min=0))
         sums_n = torch.zeros((n_tiles, c), device=dev).index_add_(0, tid.long(), q.clamp(max=0))

@@ -3,11 +3,16 @@
 GPFQ is sequential in K: each row's code depends on the error of every
 earlier row through the running error matrix U. :func:`gpfq_solve` runs
 the greedy loop of ``repro/core/gpfq.py::_gpfq_loop`` with the AXE
-constraints: the hand-written CUDA kernel (``csrc/gpfq_solve.cu``,
+constraints: the hand-written CUDA kernels (``csrc/gpfq_solve.cu``,
 replacing the Pallas ``_kernel`` at ``repro/kernels/gpfq_solve.py:33``) for
 CUDA tensors, its plain version :func:`gpfq_solve_plain` for CPU tensors.
-``gpfq_solve.launches`` counts kernel launches (one per solve),
-``gpfq_solve.masked_launches`` those with a mask.
+On the card the solve is blocked (:func:`block_plan`): rows in blocks of
+64, each projected through U at once, run through a short per-channel
+recurrence and folded into U by f32 tile products, all enqueued by one
+library call. ``gpfq_solve.launches`` counts solves on the card,
+``gpfq_solve.masked_launches`` those with a mask and
+``gpfq_solve.device_kernels`` the kernels the library launched for them
+(counted in the C launcher, launch by launch).
 
 Unlike the reference wrapper, this one takes the (K,) tile-id vector as an
 input, so a caller that permutes rows (``act_order``) passes the permuted
@@ -36,18 +41,25 @@ MODES = {"plain": 0, "split": 1, "joint": 2, "soft": 3}
 ROUNDINGS = ("nearest", "zero")
 
 
-def panel_layout(d: int, force_global_u: bool = False) -> tuple[int, bool]:
-    """(channels per block, U in global memory?) that the kernel's launcher
-    chooses for a D-deep U on the current card: the widest of 32 and 16
-    channels whose U panel fits the block's opt-in shared memory, else 32
-    channels with U in global memory. Needs the built kernel library."""
-    bc, global_u = ctypes.c_int(), ctypes.c_int()
-    err = _library().gpfq_solve_layout(d, int(force_global_u), ctypes.byref(bc),
-                                       ctypes.byref(global_u))
-    if err != 0:
-        raise ValueError(f"gpfq_solve kernel: no panel layout for rows of depth D={d} "
-                         f"(CUDA error {err})")
-    return bc.value, bool(global_u.value)
+#: the fields of ``gpfq_solve_plan`` (``csrc/gpfq_solve.cu``), in its order
+PLAN_FIELDS = ("rows", "blocks", "d_tiles", "c_tiles", "chain_ctas", "kernels", "gram_floats",
+               "part_floats", "gram_splits", "gram_span")
+
+
+@functools.cache
+def block_plan(k: int, d: int, c: int) -> dict:
+    """The kernel launcher's plan for a (K, D, C) solve, from the built
+    library (asked once per shape, so a solve makes one library call in
+    the steady state): rows per block and row blocks; the update's D tiles
+    and channel tiles; the recurrence's CTAs; the device kernels enqueued
+    (the Gram product and the sum of its D parts, then a recurrence and an
+    update per row block); the floats of the two workspaces (every D part's
+    Gram blocks and their sums; the projection's partials, one per D tile);
+    and the Gram product's D parts and their width."""
+    out = (ctypes.c_longlong * len(PLAN_FIELDS))()
+    if _library().gpfq_solve_plan(k, d, c, out) != 0:
+        raise ValueError(f"gpfq_solve kernel: no plan for K={k} D={d} C={c}")
+    return dict(zip(PLAN_FIELDS, out))
 
 
 def row_terms(xg: torch.Tensor, xh: torch.Tensor):
@@ -76,6 +88,29 @@ def _check(w, xg, xh, lam, tid, mode, rounding, mask=None):
         raise ValueError(f"gpfq_solve: rounding {rounding!r} not in {ROUNDINGS}")
 
 
+def constrain_codes(v, t: int, lam, a: float, b: float, pos, neg, *, qmax: float,
+                    mode: str, rounding: str):
+    """One row of the greedy loop once v is formed (and masked): Pi_lambda
+    and Psi_{a,b} of tile ``t``, rounding and the clip to [-qmax, qmax], then
+    the tile's budget bookkeeping (``pos``/``neg`` updated in place). Returns
+    (codes, v after the constraints)."""
+    if mode != "plain":
+        v = torch.sign(v) * torch.relu(torch.abs(v) - lam[t])
+        if mode == "split":
+            lo = torch.clamp(a - neg[t], max=0.0)
+            hi = torch.clamp(b - pos[t], min=0.0)
+            v = torch.minimum(torch.maximum(v, lo), hi)
+        elif mode == "joint":
+            rem = torch.clamp(b - (pos[t] - neg[t]), min=0.0)
+            v = torch.minimum(torch.maximum(v, -rem), rem)
+    q = torch.round(v) if rounding == "nearest" else torch.trunc(v)
+    q = torch.clamp(q, -qmax, qmax)
+    if mode != "plain":
+        pos[t] += torch.clamp(q, min=0.0)
+        neg[t] += torch.clamp(q, max=0.0)
+    return q, v
+
+
 def gpfq_solve_plain(w, xg, xh, hg, hn, lam, tid, a: float, b: float, *, qmax: float,
                      mode: str = "split", rounding: str = "nearest", return_v: bool = False,
                      mask=None):
@@ -100,23 +135,10 @@ def gpfq_solve_plain(w, xg, xh, hg, hn, lam, tid, a: float, b: float, *, qmax: f
         v = w[i] * (hg[i] / hn[i]) + (xh[i] @ u) / hn[i]
         if m is not None:
             v = v * m[i]
-        t = tids[i]
-        if mode != "plain":
-            v = torch.sign(v) * torch.relu(torch.abs(v) - lam[t])
-            if mode == "split":
-                lo = torch.clamp(a - neg[t], max=0.0)
-                hi = torch.clamp(b - pos[t], min=0.0)
-                v = torch.minimum(torch.maximum(v, lo), hi)
-            elif mode == "joint":
-                rem = torch.clamp(b - (pos[t] - neg[t]), min=0.0)
-                v = torch.minimum(torch.maximum(v, -rem), rem)
+        q, v = constrain_codes(v, tids[i], lam, a, b, pos, neg, qmax=qmax, mode=mode,
+                               rounding=rounding)
         if return_v:
             v_all[i] = v
-        q = torch.round(v) if rounding == "nearest" else torch.trunc(v)
-        q = torch.clamp(q, -qmax, qmax)
-        if mode != "plain":
-            pos[t] += torch.clamp(q, min=0.0)
-            neg[t] += torch.clamp(q, max=0.0)
         u += torch.outer(xg[i], w[i])
         u -= torch.outer(xh[i], q)
         q_all[i] = q
@@ -125,15 +147,14 @@ def gpfq_solve_plain(w, xg, xh, hg, hn, lam, tid, a: float, b: float, *, qmax: f
 
 
 def gpfq_solve_kernel(w, xg, xh, hg, hn, lam, tid, a: float, b: float, *, qmax: float,
-                      mode: str = "split", rounding: str = "nearest",
-                      force_global_u: bool = False, mask=None):
-    """Launch the CUDA kernel on CUDA tensors (the arguments of
-    :func:`gpfq_solve_plain`). Checks device, dtype, shape and contiguity
-    and raises on what the kernel does not take; raises if the launch
-    returns a CUDA error. It never waits for the card: a tile id outside
-    [0, n_tiles) traps on the device, and the error surfaces at the next
-    synchronisation. ``force_global_u`` keeps U in global memory even
-    where the panel fits shared memory (to test that variant)."""
+                      mode: str = "split", rounding: str = "nearest", mask=None):
+    """Run the blocked solve on CUDA tensors (the arguments of
+    :func:`gpfq_solve_plain`): one library call enqueues every kernel of
+    :func:`block_plan` on the current stream. Checks device, dtype, shape
+    and contiguity and raises on what the kernel does not take; raises if a
+    launch returns a CUDA error. It never waits for the card and reads
+    nothing back: a tile id outside [0, n_tiles) traps on the device, and
+    the error surfaces at the next synchronisation."""
     _check(w, xg, xh, lam, tid, mode, rounding, mask)
     if not w.is_cuda:
         raise ValueError(f"gpfq_solve_kernel takes CUDA tensors, got {w.device}")
@@ -157,13 +178,18 @@ def gpfq_solve_kernel(w, xg, xh, hg, hn, lam, tid, a: float, b: float, *, qmax: 
     u = torch.empty((d, c), **f32)
     pos = torch.empty((n_tiles, c), **f32)
     neg = torch.empty((n_tiles, c), **f32)
+    plan = block_plan(k, d, c)
+    gram = torch.empty((plan["gram_floats"],), **f32)
+    part = torch.empty((plan["part_floats"],), **f32)
+    launched = ctypes.c_int(0)
     err = _library().gpfq_solve_launch(
         w.data_ptr(), xg.data_ptr(), xh.data_ptr(), hg.data_ptr(), hn.data_ptr(),
         lam.data_ptr(), tid.data_ptr(), None if mask is None else mask.data_ptr(),
-        q.data_ptr(), u.data_ptr(), pos.data_ptr(),
-        neg.data_ptr(), k, d, c, n_tiles, a, b, qmax, MODES[mode], int(rounding == "zero"),
-        int(force_global_u), torch.cuda.current_stream(w.device).cuda_stream,
+        q.data_ptr(), u.data_ptr(), pos.data_ptr(), neg.data_ptr(), gram.data_ptr(),
+        part.data_ptr(), k, d, c, n_tiles, a, b, qmax, MODES[mode], int(rounding == "zero"),
+        torch.cuda.current_stream(w.device).cuda_stream, ctypes.byref(launched),
     )
+    gpfq_solve.device_kernels += launched.value
     if err != 0:
         raise RuntimeError(f"gpfq_solve kernel launch failed: CUDA error {err}")
     gpfq_solve.launches += 1
@@ -180,12 +206,11 @@ def _library() -> ctypes.CDLL:
     lib = load_library("gpfq_solve")
     # pointers and the stream as c_void_p: a bare int would be cut to 32 bits
     lib.gpfq_solve_launch.argtypes = (
-        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)])
     lib.gpfq_solve_launch.restype = ctypes.c_int
-    lib.gpfq_solve_layout.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-                                      ctypes.POINTER(ctypes.c_int)]
-    lib.gpfq_solve_layout.restype = ctypes.c_int
+    lib.gpfq_solve_plan.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
+    lib.gpfq_solve_plan.restype = ctypes.c_int
     return lib
 
 
@@ -221,10 +246,13 @@ def gpfq_solve(
                              rounding=rounding, mask=mask)
 
 
-#: kernel launches since the last reset (the main-path proof of chip_smoke),
-#: and those of them with a 2:4 mask
+#: solves run on the card since the last reset (the main-path proof of
+#: chip_smoke), those of them with a 2:4 mask, and the device kernels the
+#: C launcher launched for them (``block_plan(...)["kernels"]`` each when
+#: every launch succeeds)
 gpfq_solve.launches = 0
 gpfq_solve.masked_launches = 0
+gpfq_solve.device_kernels = 0
 
 
 def tie_limited_agreement(q_a: torch.Tensor, q_b: torch.Tensor, v: torch.Tensor,
@@ -253,10 +281,11 @@ def tie_limited_agreement(q_a: torch.Tensor, q_b: torch.Tensor, v: torch.Tensor,
 
 __all__ = [
     "MODES",
+    "block_plan",
+    "constrain_codes",
     "gpfq_solve",
     "gpfq_solve_kernel",
     "gpfq_solve_plain",
-    "panel_layout",
     "row_terms",
     "tie_limited_agreement",
 ]
