@@ -11,17 +11,22 @@ result unless every phase passed):
 1. the card (``nvidia-smi`` name and power limit) and the build of every
    CUDA kernel from ``src/repro_torch/kernels/csrc`` with ``nvcc``;
 2. the W4A8 kernel (``w4a8_matmul``) against its plain version on the card
-   at the main path's shapes — M in {4, 256} x (K, N) in {(960, 960),
+   at the main path's shapes — M in {1, 4, 8, 64, 256, 300} (decode to
+   the paged engine's largest prompt) x (K, N) in {(960, 960),
    (960, 320), (960, 2560), (2560, 960)}, uint8 and int8 activation codes,
    bf16 output, plus a ragged M=3, N=100 case — all bit-equal; the P_I
-   certificate check on an l1-budgeted weight; per shape the kernel's time,
-   the plain version's, the ``torch._int_mm`` yardstick's and the
-   byte/operation bound;
+   certificate check on an l1-budgeted weight; per shape the kernel's plan
+   (path, grid, K chunks), its time, the plain version's, the
+   ``torch._int_mm`` yardstick's and the byte/operation bound, per M the
+   sums over one layer's 7 sites beside the previous kernel's, and the
+   wrapper's host time a call with its plan cached and computed anew;
 3. the slice: smollm-360m at full width (32 layers, d_model 960, bf16,
    seeded random init), RTN-packed, greedy ``GenerationEngine.generate`` of
    batch 4 x prompt 64 + 16 new tokens. The kernel's launch counter must
-   rise by 7 sites x 32 layers x 16 forwards = 3584 over that run, and the
-   same generate on the ``reference`` backend must give identical tokens.
+   rise by 7 sites x 32 layers x 16 forwards = 3584 over that run (224 of
+   them in the prefill, at M = 256), and the same generate on the
+   ``reference`` backend must give identical tokens. The profiled decode
+   step's w4a8 kernels, counted by name, must equal the launch counter's 224.
 
 4. the GPFQ panel solver (``gpfq_solve``, kernel B5) against its plain
    version on the card at the (K, C) shapes of one smollm-360m layer —
@@ -85,12 +90,14 @@ result unless every phase passed):
    shared 128-token prefix and one fully cached prompt, warm streams
    against a cold engine's (identical or tie-limited), the cached admit
    adding 0 to every kernel counter. It prints decode-step time, tokens/s,
-   admit time, peak memory and a profiler breakdown of one decode chunk.
+   admit time, peak memory and a profiler breakdown of one decode chunk,
+   whose w4a8 kernels, counted by name, must equal the launch counter's
+   224 a step.
 
 8. the 2:4 kernels: B4 (``w4a8_sparse_matmul``) at phase 2's shapes,
    uint8 and int8 codes, bit-equal to its plain version and to B1 on the
    expanded codes, the P_I check on an l1-budgeted 2:4 weight, and per
-   shape its time beside B1's, the plain version's, ``torch._int_mm`` on
+   shape its plan and time beside B1's, the plain version's, ``torch._int_mm`` on
    the expanded int8 codes and ``torch.sparse.to_sparse_semi_structured``
    int8 x int8 (or the library's refusal); B5 with a 2:4 mask at one
    layer's shapes (tie-limited agreement, exact pos/neg, zeros where the
@@ -143,6 +150,16 @@ SHAPES_KN = [(960, 960), (960, 320), (960, 2560), (2560, 960)]
 LAYER_SITES = [(960, 960), (960, 320), (960, 320), (960, 960),
                (960, 2560), (960, 2560), (2560, 960)]
 BATCH, PROMPT, MAX_NEW = 4, 64, 16
+#: phases 2 and 8: M at one layer's shapes, from decode (1-8: K split over
+#: a cluster of blocks) to the paged engine's largest prompt (it admits
+#: prompts of 8-300 tokens one at a time)
+W4A8_M = (1, 4, 8, 64, 256, 300)
+#: the previous B1/B4 (one block per 64-column tile, dp4a on the CUDA
+#: cores) summed over one layer's 7 sites, ms, cold L2: chip_smoke.py phases
+#: 2 and 8 at commit 9ae5607, NVIDIA H100 80GB HBM3, 700.00 W; for the
+#: [w4a8] and [b4] lines only
+PREVIOUS_LAYER_MS = {("b1", 4): 0.12925, ("b1", 256): 0.18382, ("b4", 4): 0.13309,
+                     ("b4", 256): 0.21293}
 #: phase 4: (K, C, mode, rounding); the first four are one layer's shapes
 GPFQ_CASES = [(k, c, "split", "nearest") for k, c in SHAPES_KN] + [
     (960, 320, "split", "zero"), (960, 320, "joint", "nearest"),
@@ -238,6 +255,37 @@ def bound_ms(m: int, k: int, n: int) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def plan_fields(plan) -> dict:
+    """The plan a B1/B4 wrapper last launched with (its ``last_plan``):
+    grid and K chunks."""
+    return {"grid": list(plan.grid), "k_chunks": plan.grid[2],
+            "plan": f"grid {plan.grid} ({plan.blocks} blocks), {plan.grid[2]} K chunk(s) of "
+                    f"{plan.ck} rows, {plan.vec}-byte loads"}
+
+
+def layer_sum(rows, m: int, key: str):
+    """``key`` summed over the 7 sites of one smollm-360m layer at M = m
+    (None where a site has none)."""
+    by_shape = {(r["K"], r["N"]): r for r in rows if r["M"] == m}
+    vals = [by_shape[kn][key] for kn in LAYER_SITES]
+    return None if any(v is None for v in vals) else sum(vals)
+
+
+def print_layer_sums(tag: str, who: str, rows) -> None:
+    """One line per M: the kernel's, plain version's, ``_int_mm``'s and the
+    bound's sums over one layer's 7 sites, with the previous kernel's beside."""
+    for m in W4A8_M:
+        lib = layer_sum(rows, m, "library_ms")
+        old = PREVIOUS_LAYER_MS.get((who, m))
+        extra = (f"  B1 on the same codes {layer_sum(rows, m, 'b1_ms'):.5f} ms"
+                 if who == "b4" else "")
+        print(f"[{tag}] M={m:4d} one layer's 7 sites: kernel {layer_sum(rows, m, 'ms'):.5f} ms"
+              f"{extra}  plain {layer_sum(rows, m, 'plain_ms'):.5f} ms  _int_mm "
+              f"{'n/a' if lib is None else f'{lib:.5f}'} ms  bound "
+              f"{layer_sum(rows, m, 'bound_ms'):.5f} ms  previous kernel (9ae5607) "
+              f"{'not measured' if old is None else f'{old:.5f} ms'}")
+
+
 def time_ms(torch, fn, reps: int = 30, flush=None) -> float:
     """Median device time of ``fn`` over ``reps`` runs by CUDA events, with
     the L2 cache flushed before each run (a decode step finds each layer's
@@ -259,6 +307,11 @@ def time_ms(torch, fn, reps: int = 30, flush=None) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def w4a8_seen(kernels) -> int:
+    """The profiler's count of B1/B4 kernels, by the name ``w4a8_kernel``."""
+    return sum(e.count for e in kernels if "w4a8_kernel" in e.key)
 
 
 def reset_peak(torch) -> None:
@@ -333,7 +386,7 @@ def phase_kernel(torch):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
-    cases = [(m, k, n) for m in (4, 256) for k, n in SHAPES_KN] + [(3, 960, 100)]
+    cases = [(m, k, n) for m in W4A8_M for k, n in SHAPES_KN] + [(3, 960, 100)]
     rows, max_err = [], 0.0
     for m, k, n in cases:
         q = torch.randint(-8, 8, (k, n), generator=gen, device=dev)
@@ -368,6 +421,7 @@ def phase_kernel(torch):
                 corr = col_sums.to(torch.float32) * zp
                 row["ms"] = time_ms(torch, lambda: w4a8_matmul_kernel(
                     x, wp, sw, corr, torch.bfloat16), flush=flush)
+                row.update(plan_fields(w4a8_matmul.last_plan))
                 row["plain_ms"] = time_ms(torch, lambda: w4a8_matmul_plain(
                     x, wp, sw, corr, torch.bfloat16), flush=flush)
                 row["library_ms"] = None
@@ -390,7 +444,10 @@ def phase_kernel(torch):
         lib = "n/a" if row["library_ms"] is None else f"{row['library_ms']:.5f}"
         print(f"[w4a8] M={m:4d} K={k:5d} N={n:5d} bit-equal(u8,s8) "
               f"kernel {row['ms']:.5f} ms  plain {row['plain_ms']:.5f} ms  "
-              f"_int_mm {lib} ms  bound {row['bound_ms']:.5f} ms ({row['bound_by']})")
+              f"_int_mm {lib} ms  bound {row['bound_ms']:.5f} ms ({row['bound_by']})  "
+              f"{row['plan']}")
+    print_layer_sums("w4a8", "b1", rows)
+    host = wrapper_host_us(torch, gen)
 
     # the P_I certificate on an l1-budgeted weight: every certified 64-wide
     # tile (K=960 is not a multiple of T=128) keeps sum|q| <= 128 per
@@ -414,7 +471,44 @@ def phase_kernel(torch):
     check(raised, "an unbudgeted weight passed the P_I=16 check")
     print(f"[w4a8] assert_inner: l1-budgeted weight passes P_I=16 "
           f"(watermark {watermark} <= {2 ** 15 - 1}); an unbudgeted one raises")
-    return rows, max_err
+    return rows, max_err, host
+
+
+def wrapper_host_us(torch, gen, rounds: int = 6, calls: int = 2000) -> dict:
+    """Host time of one ``w4a8_matmul_kernel`` call at a decode site (M =
+    4, K = N = 960), with the plan cached and with it computed anew each
+    call (the cache cleared first), in alternating rounds; median us a
+    call. The card runs each kernel in about 5 us, faster than the host
+    enqueues them, so the wall time of a run of calls is the host's."""
+    from repro_torch.kernels import w4a8_mm as W
+
+    dev = torch.device("cuda")
+    q = torch.randint(-8, 8, (960, 960), generator=gen, device=dev)
+    x = torch.randint(0, 256, (BATCH, 960), generator=gen, device=dev).to(torch.uint8)
+    wp, sw, corr = W.pack_int4(q), torch.ones(960, device=dev), torch.zeros(960, device=dev)
+
+    def cached():
+        W.w4a8_matmul_kernel(x, wp, sw, corr, torch.bfloat16)
+
+    def anew():
+        W.w4a8_plan.cache_clear()
+        W.w4a8_matmul_kernel(x, wp, sw, corr, torch.bfloat16)
+
+    times = {"cached": [], "anew": []}
+    for r in range(rounds):
+        for name in (("cached", "anew") if r % 2 == 0 else ("anew", "cached")):
+            fn = cached if name == "cached" else anew
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            times[name].append(1e6 * (time.perf_counter() - t) / calls)
+    out = {name: statistics.median(v) for name, v in times.items()}
+    print(f"[w4a8] wrapper host time a call (M={BATCH}, K=N=960, median of {rounds} "
+          f"alternating rounds of {calls}): plan cached {out['cached']:.3f} us, plan computed "
+          f"each call {out['anew']:.3f} us")
+    return out
 
 
 def phase_slice(torch):
@@ -454,7 +548,11 @@ def phase_slice(torch):
     # per-phase times, and the packed path against the dequant one
     tokens = torch.as_tensor(prompts, device="cuda")
     with torch.inference_mode(), use_packed_backend("kernel"):
+        reset_counts()
         logits, caches = T.prefill(model, {"tokens": tokens}, PROMPT + MAX_NEW)
+        prefill_launches = read_counts()["w4a8_matmul"]
+        check(prefill_launches == 7 * cfg.n_layers,
+              f"{prefill_launches} w4a8 launches in a prefill, expected {7 * cfg.n_layers}")
         step_tok = torch.as_tensor(out[:, PROMPT:PROMPT + 1], device="cuda")
         prefill_ms = wall_ms(torch, lambda: T.prefill(model, {"tokens": tokens},
                                                       PROMPT + MAX_NEW), reps=5)
@@ -467,10 +565,12 @@ def phase_slice(torch):
         b = dq[..., :cfg.vocab].float().flatten()
         corr = torch.corrcoef(torch.stack([a, b]))[0, 1].item()
         check(corr > 0.99, f"kernel vs dequant prefill logits correlation {corr}")
+        reset_counts()
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             T.decode_step(model, step_tok, caches, PROMPT)
             torch.cuda.synchronize()
+        step_launches = read_counts()["w4a8_matmul"]
         events = prof.key_averages()
         print(events.table(sort_by="self_cuda_time_total", row_limit=12))
         # device kernels only (the CPU ops' device columns repeat them); one
@@ -481,16 +581,23 @@ def phase_slice(torch):
         w4a8_ms = sum(e.self_device_time_total for e in kernels
                       if "w4a8_kernel" in e.key) / 1e3
         check(w4a8_ms > 0, "the profiler saw no w4a8 kernel in a decode step")
+        seen = w4a8_seen(kernels)
+        check(seen == step_launches == 7 * cfg.n_layers,
+              f"the profiler saw {seen} w4a8 kernels in a decode step, the launch counter "
+              f"{step_launches}, expected {7 * cfg.n_layers}")
         print(f"[profile] one decode step: device busy {busy_ms:.3f} ms "
               f"({100 * busy_ms / decode_ms:.1f}% of the {decode_ms:.3f} ms step), "
-              f"w4a8 kernels {w4a8_ms:.3f} ms")
+              f"w4a8 kernels {w4a8_ms:.3f} ms; by name {seen}, launch counter "
+              f"{step_launches}")
 
     head_bytes = cfg.vocab_padded * cfg.d_model * 2
     step_bytes = packed_weight_bytes(cfg)["packed_code_bytes"] + head_bytes
     print(f"[slice] smollm-360m full width ({cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"bf16), batch {BATCH} x prompt {PROMPT} + {MAX_NEW} new, greedy")
     print(f"[slice] w4a8 launches in one generate: {launches} (= 7 x {cfg.n_layers} x "
-          f"{MAX_NEW}); tokens identical to the reference backend")
+          f"{MAX_NEW}: {prefill_launches} in the prefill at M={BATCH * PROMPT}, "
+          f"{launches - prefill_launches} at M={BATCH}); tokens identical to the reference "
+          f"backend")
     print(f"[slice] generate wall {wall:.4f} s, {BATCH * MAX_NEW / wall:.1f} tok/s; "
           f"prefill {prefill_ms:.3f} ms, decode step {decode_ms:.3f} ms (host clock)")
     print(f"[slice] decode-step byte bound: {step_bytes / 1e6:.1f} MB (packed codes + bf16 "
@@ -1307,11 +1414,13 @@ def phase_paged_slice(torch):
         if chunk:
             return orig_chunk(k)
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        before = read_counts()["w4a8_matmul"]
         with torch.profiler.profile(activities=acts) as prof:
             t = time.perf_counter()
             buf = orig_chunk(k)
             chunk["wall_ms"] = 1e3 * (time.perf_counter() - t)
         chunk["k"], chunk["prof"] = k, prof
+        chunk["launches"] = read_counts()["w4a8_matmul"] - before
         return buf
 
     prof_eng._chunk = profiled
@@ -1325,10 +1434,15 @@ def phase_paged_slice(torch):
     b2_calls = sum(e.count for e in kernels if "paged_attn_float" in e.key)
     b1 = sum(e.self_device_time_total for e in kernels if "w4a8_kernel" in e.key) / 1e3
     check(b2 > 0 and b1 > 0, "the profiler saw no B2 or B1 kernel in a decode chunk")
+    seen = w4a8_seen(kernels)
+    check(seen == chunk["launches"] == 7 * cfg.n_layers * chunk["k"],
+          f"the profiler saw {seen} w4a8 kernels in a decode chunk of {chunk['k']} steps, the "
+          f"launch counter {chunk['launches']}")
     print(f"[profile] one decode chunk of {chunk['k']} steps, {PAGED_SLOTS} slots: "
           f"{chunk['wall_ms']:.3f} ms on the host clock, device busy {busy:.3f} ms "
           f"({100 * busy / chunk['wall_ms']:.1f}%), B2 {b2:.3f} ms in {b2_calls} launches "
-          f"({1e3 * b2 / max(b2_calls, 1):.3f} us a launch), B1 {b1:.3f} ms")
+          f"({1e3 * b2 / max(b2_calls, 1):.3f} us a launch), B1 {b1:.3f} ms in "
+          f"{seen} launches by name (launch counter {chunk['launches']})")
     return {"a": cmp_a, "runs": runs, "c": cmp_c,
             "profile": {"chunk_wall_ms": chunk["wall_ms"], "busy_ms": busy, "b2_ms": b2,
                         "b2_launches": b2_calls, "b1_ms": b1, "steps": chunk["k"]}}
@@ -1418,7 +1532,7 @@ def phase_sparse_kernels(torch, gpfq_rows):
     # B4 at phase 2's shapes: bit-equal to its plain version and to B1 on
     # the expanded codes
     b4_rows, b4_err = [], 0.0
-    cases = [(m, k, n) for m in (4, 256) for k, n in SHAPES_KN] + [(3, 960, 100)]
+    cases = [(m, k, n) for m in W4A8_M for k, n in SHAPES_KN] + [(3, 960, 100)]
     for m, k, n in cases:
         q = torch.randint(-8, 8, (k, n), generator=gen, device=dev)
         q = q * mask_2to4(q.float()).to(q.dtype)
@@ -1448,6 +1562,7 @@ def phase_sparse_kernels(torch, gpfq_rows):
                 corr = col_sums.to(torch.float32) * zp
                 row["ms"] = time_ms(torch, lambda: w4a8_sparse_matmul_kernel(
                     x, packed, meta, sw, corr, torch.bfloat16), flush=flush)
+                row.update(plan_fields(w4a8_sparse_matmul.last_plan))
                 row["b1_ms"] = time_ms(torch, lambda: w4a8_matmul_kernel(
                     x, dense, sw, corr, torch.bfloat16), flush=flush)
                 row["plain_ms"] = time_ms(torch, lambda: w4a8_sparse_matmul_plain(
@@ -1479,7 +1594,8 @@ def phase_sparse_kernels(torch, gpfq_rows):
         print(f"[b4] M={m:4d} K={k:5d} N={n:5d} bit-equal to plain and B1 (u8,s8) "
               f"kernel {row['ms']:.5f} ms  B1 {row['b1_ms']:.5f} ms  plain "
               f"{row['plain_ms']:.5f} ms  _int_mm {lib} ms  semi-structured {ss}  bound "
-              f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
+              f"{row['bound_ms']:.5f} ms ({row['bound_by']})  {row['plan']}")
+    print_layer_sums("b4", "b4", b4_rows)
 
     # the P_I check over the certified tiles of the expanded codes, on an
     # l1-budgeted 2:4 weight
@@ -1822,12 +1938,23 @@ def gpfq_record(rows, max_err, launches, masked_rows, masked_err, masked_launche
     }
 
 
+def layer_record(rows, m: int, keys) -> dict:
+    """``keys`` summed over one layer's 7 sites at M = m, and the bound's
+    kind (bytes only if every site is bound by bytes)."""
+    by_shape = {(r["K"], r["N"]): r for r in rows if r["M"] == m}
+    layer = [by_shape[kn] for kn in LAYER_SITES]
+    rec = {key: layer_sum(rows, m, key) for key in keys}
+    rec["bound_by"] = ("bytes" if all(r["bound_by"] == "bytes" for r in layer)
+                       else "operations")
+    return rec
+
+
 def sparse_kernel_record(rows, max_err, launches):
     """One record for w4a8_sparse_matmul (B4): times summed over the 7 site
     shapes of one layer at decode (M = 4), B1's times on the expanded codes
-    beside; per-shape rows beside."""
-    by_shape = {(r["K"], r["N"]): r for r in rows if r["M"] == BATCH}
-    layer = [by_shape[kn] for kn in LAYER_SITES]
+    beside; the same sums at prefill (M = 256) in ``m256``; per-shape rows
+    beside."""
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms", "b1_ms")
     return {
         "name": "w4a8_sparse_matmul",
         "route": "cuda",
@@ -1836,15 +1963,11 @@ def sparse_kernel_record(rows, max_err, launches):
         "pallas_call": "src/repro/kernels/w4a8_mm.py:410",
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": sum(r["ms"] for r in layer),
-        "plain_ms": sum(r["plain_ms"] for r in layer),
-        "bound_ms": sum(r["bound_ms"] for r in layer),
-        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in layer) else "operations",
-        "library_ms": sum(r["library_ms"] for r in layer),
-        "b1_ms": sum(r["b1_ms"] for r in layer),
+        **layer_record(rows, BATCH, keys),
+        "m256": layer_record(rows, BATCH * PROMPT, keys),
         "timed_as": "sum over the 7 packed 2:4 sites of one layer at decode, M=4, cold L2; "
-                    "the library call is torch._int_mm on the expanded int8 codes; b1_ms is "
-                    "the dense kernel on the same codes",
+                    "m256 the same at prefill, M=256; the library call is torch._int_mm on "
+                    "the expanded int8 codes; b1_ms is the dense kernel on the same codes",
         "shapes": rows,
     }
 
@@ -1875,12 +1998,13 @@ def rmsnorm_record(rows, max_err, launches):
     }
 
 
-def kernel_record(rows, max_err, launches):
+def kernel_record(rows, max_err, launches, host):
     """One record for w4a8_matmul: times summed over the 7 site shapes of
     one layer at decode (M = batch = 4), the main path's most frequent
-    call (15 of 16 forwards); per-shape rows beside."""
-    by_shape = {(r["K"], r["N"]): r for r in rows if r["M"] == BATCH}
-    layer = [by_shape[kn] for kn in LAYER_SITES]
+    call (15 of 16 forwards); the same sums at prefill (M = 256, the other
+    forward) in ``m256``; per-shape rows and the wrapper's host time a call
+    beside."""
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms")
     return {
         "name": "w4a8_matmul",
         "route": "cuda",
@@ -1888,13 +2012,13 @@ def kernel_record(rows, max_err, launches):
         "replaces": "src/repro/kernels/w4a8_mm.py:140",
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": sum(r["ms"] for r in layer),
-        "plain_ms": sum(r["plain_ms"] for r in layer),
-        "bound_ms": sum(r["bound_ms"] for r in layer),
-        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in layer) else "operations",
-        "library_ms": sum(r["library_ms"] for r in layer),
-        "timed_as": "sum over the 7 packed sites of one layer at decode, M=4, cold L2",
+        **layer_record(rows, BATCH, keys),
+        "m256": layer_record(rows, BATCH * PROMPT, keys),
+        "timed_as": "sum over the 7 packed sites of one layer at decode, M=4, cold L2; m256 "
+                    "the same at prefill, M=256; the library call is torch._int_mm on the "
+                    "pre-unpacked int8 codes",
         "shapes": rows,
+        "wrapper_host_us": host,
     }
 
 
@@ -1915,7 +2039,7 @@ def main() -> int:
     torch.set_float32_matmul_precision("highest")
 
     phase_card(torch)
-    rows, max_err = phase_kernel(torch)
+    rows, max_err, host = phase_kernel(torch)
     launches = phase_slice(torch)
     gpfq_rows, gpfq_err = phase_gpfq(torch)
     calib = phase_calibration(torch)
@@ -1924,7 +2048,7 @@ def main() -> int:
     sparse_k = phase_sparse_kernels(torch, gpfq_rows)
     sparse = phase_sparse_slice(torch, calib, paged)
     print(json.dumps({"kernels": [
-        kernel_record(rows, max_err, launches),
+        kernel_record(rows, max_err, launches, host),
         paged_record("paged_decode_attention", paged_rows["float"], paged_err["float"],
                      paged["runs"]["act"]["counts"]["paged_decode_attention"], 189),
         paged_record("paged_decode_attention_int8", paged_rows["int8"], paged_err["int8"],

@@ -11,108 +11,100 @@
 // both sign-extended); corr = col_sums * act_zp and sw = w_scale * act_scale
 // are f32 vectors formed by the caller.
 //
-// What bounds it on an H100: at decode (M = batch, a few rows) the packed
-// weight stream, K*N/2 bytes per call, read once from HBM: the kernel is
-// bandwidth-bound and its design reads each weight byte exactly once per
-// M tile with 128-byte coalesced rows. At prefill (M in the hundreds) the
-// int8 MACs; this first version runs them as dp4a on the CUDA cores (no
-// tensor cores yet: wgmma / mma with in-register nibble unpack is the
-// planned next step), so prefill sits well below the int8 tensor-core peak.
+// One kernel for every M, `w4a8_kernel`: int8 tensor cores, mma.sync
+// m16n8k32 (.u8.s8, or .s8.s8 for signed codes; int32 accumulation in the
+// tensor core is exact). 64 x 64 output tiles, 2 x 2 warps of 32 x 32; the
+// x tile and the packed weight tile stream through a 4-stage cp.async ring
+// in shared memory, 128 K rows a stage. A lane's B fragment is built from
+// shared memory by the nibble unpack (`sext_nibbles`, `quad_codes`): n8
+// tile j of a warp's 32-column group takes columns {4i + j}, so one quad
+// of 4 adjacent columns (two 32-bit words) gives a lane its B register for
+// all four n8 tiles; the epilogue puts each column back in its place. The
+// Python plan (`w4a8_plan` in kernels/w4a8_mm.py) hands this launcher the
+// load width, the K chunk and the grid as ints; each call is one launch.
 //
-// Design: one block of 256 threads per (BM rows x 64 columns) output tile.
-// Thread (tn, ks) owns 4 adjacent columns and the K quads q = ks, ks + 16,
-// ... (split-K over 16 thread rows, so a decode-sized N still spreads its
-// weight reads over many warps). Per quad it loads one 32-bit word from
-// each of the two packed rows (4 columns x 2 codes each), sign-extends the
-// 8 nibbles with per-byte SIMD ops, transposes them into one 4-code word
-// per column with byte permutes, and runs one dp4a per (row, column). The
-// 16 K slices reduce through shared memory; the epilogue rounds exactly as
-// the plain version does: int32 -> f32 (RN), subtract, multiply, each
-// rounded on its own (no fused multiply-add), then f32 -> bf16 (RN).
-// Integer sums are exact in any order, so the result is bit-equal to the
-// plain version for every K split.
+// Where the output tiles alone would leave SMs idle (every decode-sized
+// call), K is split into up to 8 chunks of whole stages (one stage a chunk
+// where M fits one row tile), and the split is reduced inside the launch:
+// the chunks of a tile are one thread block cluster, every block pushes
+// each 4-column vector of its tile's live rows into the receive buffer of
+// the rank that owns it (distributed shared memory), and after one cluster
+// barrier each rank sums its vectors and runs their epilogue. No
+// workspace, no atomics, no memset and no value from the host, so a launch
+// replays in a CUDA graph.
+// The epilogue rounds exactly as the plain version does: int32 -> f32
+// (RN), subtract, multiply, each rounded on its own (no fused
+// multiply-add), then f32 -> bf16 (RN). Integer sums are exact in any
+// order, so the kernel is bit-equal to the plain version for every split.
+//
+// Every smollm-360m call is bound by latency, not by its bytes (0.15-1.23
+// MB of weights a site) or its operations: at M = 4 a block's first stage
+// lands 1.1-1.6 us after it starts, and the main loop, the split's sum and
+// the epilogue follow in series behind it. A separate dp4a
+// kernel for M <= 8 (one block per column tile and K chunk, 150-640 blocks
+// a site), timed against this one site by site (PERF.md section 6), won
+// by 0.05-0.3 us a call at K = 960, N <= 960 and lost by 0.2-0.5 us at the
+// two larger sites and at M = 8: one layer ran 0.3-0.8 us faster on this
+// kernel alone at every M from 1 to 8, so there is no second kernel.
 //
 // The 2:4 sparse GEMM (kernel B4) is the same kernel with another weight
-// loader. It replaces the Pallas TPU kernel repro/kernels/w4a8_mm.py:311
-// (`_sparse_kernel`, pallas_call at :410; wrappers w4a8_sparse_matmul :349,
-// w4a8_sparse_decode_matmul :431). Its weights are (K/4, N) int8 `packed`
-// (per group of 4 K rows and column, low nibble = first kept code, high =
-// second) and (K/4, N) `meta` (bits 0-1 / 2-3 = the in-group positions of
-// the two). One group of 4 K rows is exactly one dp4a word: the loader
+// loader. It replaces the Pallas TPU kernel
+// repro/kernels/w4a8_mm.py:311 (`_sparse_kernel`, pallas_call at :410;
+// wrappers w4a8_sparse_matmul :349, w4a8_sparse_decode_matmul :431). Its
+// weights are (K/4, N) int8 `packed` (per group of 4 K rows and column,
+// low nibble = first kept code, high = second) and (K/4, N) `meta` (bits
+// 0-1 / 2-3 = the in-group positions of the two). One group of 4 K rows is
+// one 4-code word, as a quad of the dense layout is: the loader
 // sign-extends the two nibbles, shifts each to the byte of its position and
-// adds the two words per byte (__vadd4), so a hand-made meta with equal
-// positions sums the codes as the reference's unpack_sparse24 does. The
-// dense weight is never written to memory. Weight bytes per column are
-// K/4 + K/4, the same as B1's K/2, so B4 is bound like B1 (bytes at decode,
-// dp4a issue at prefill); mma.sp with a meta re-layout at pack time is
-// later work.
+// adds the two words per byte (a masked add), so a hand-made meta with
+// equal positions sums the codes as the reference's unpack_sparse24 does.
+// Weight bytes per column are K/4 + K/4, the same as B1's K/2, so B4 is
+// bound as B1 is; mma.sp with a meta re-laid out at pack time is later
+// work.
+//
+// Measured (chip_smoke.py phases 2 and 8, NVIDIA H100 80GB HBM3, 700 W, cold
+// L2, an event pair around one launch; an empty kernel reads 5.0 us so):
+// one smollm-360m layer's 7 sites take 0.0640 ms at M = 4 (8.5-9.9 us a
+// site) and 0.0899 ms at M = 256 (9.9-15.9 us a site); B4 is 1.03-1.12x
+// B1 at M = 4 and 1.06-1.24x at M = 256. PERF.md section 6 has the
+// breakdown.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBN = 64;              // output columns per block
-constexpr int kTN = kBN / 4;         // threads along N, 4 columns each
-constexpr int kKS = kThreads / kTN;  // K slices per block
-
-// 4-lane dot product with int32 accumulate: signed x signed, or the
-// unsigned-activation x signed-weight form of dp4a.
-template <bool ASigned>
-__device__ __forceinline__ int dot4(uint32_t a, uint32_t w, int c);
-
-template <>
-__device__ __forceinline__ int dot4<true>(uint32_t a, uint32_t w, int c) {
-  return __dp4a(static_cast<int>(a), static_cast<int>(w), c);
-}
-
-template <>
-__device__ __forceinline__ int dot4<false>(uint32_t a, uint32_t w, int c) {
-  int d;
-  asm("dp4a.u32.s32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(w), "r"(c));
-  return d;
-}
+// ---------------------------------------------------------------------------
+// Building blocks
+// ---------------------------------------------------------------------------
 
 // Four nibbles, one per byte in [0, 15], to four sign-extended int8 bytes:
-// (n ^ 8) - 8 per byte without borrows between bytes.
+// per byte (n ^ 8) + 0x78 stays below 0x88 (no carry into the next byte),
+// and flipping bit 7 of it gives (n ^ 8) - 8 mod 256.
 __device__ __forceinline__ uint32_t sext_nibbles(uint32_t v) {
-  return __vsub4(v ^ 0x08080808u, 0x08080808u);
+  return ((v ^ 0x08080808u) + 0x78787878u) ^ 0x80808080u;
 }
 
-template <typename OutT>
-__device__ __forceinline__ OutT from_float(float v);
-
-template <>
-__device__ __forceinline__ float from_float<float>(float v) { return v; }
-
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// The 4 K codes (rows 4q .. 4q+3) of each of the 4 columns n0 .. n0+3, as
-// one dp4a word per column, from the dense packed layout (Sparse = false:
-// byte rows 2q and 2q+1 of the (K/2, N) weight) or the 2:4 layout (Sparse =
-// true: row q of the (K/4, N) packed codes and of their meta).
+// The 4 K codes of each of 4 adjacent columns, as one 4-code word per
+// column (wc[j] = column j's codes for K rows 4q .. 4q+3), from two 32-bit
+// words of the weights. Dense (Sparse = false): `lo`, `hi` are the 4
+// columns' bytes of packed rows 2q and 2q+1. 2:4 (Sparse = true): `lo` is
+// row q of the packed kept codes, `hi` row q of their meta.
 template <bool Sparse>
-__device__ __forceinline__ void load_quad(const int8_t* __restrict__ w,
-                                          const uint8_t* __restrict__ meta, int q, int n0,
-                                          int N, uint32_t wc[4]);
+__device__ __forceinline__ void quad_codes(uint32_t lo, uint32_t hi, uint32_t wc[4]);
 
 template <>
-__device__ __forceinline__ void load_quad<false>(const int8_t* __restrict__ w,
-                                                 const uint8_t* __restrict__, int q, int n0,
-                                                 int N, uint32_t wc[4]) {
-  const uint32_t w0 = *reinterpret_cast<const uint32_t*>(w + (size_t)(2 * q) * N + n0);
-  const uint32_t w1 = *reinterpret_cast<const uint32_t*>(w + (size_t)(2 * q + 1) * N + n0);
+__device__ __forceinline__ void quad_codes<false>(uint32_t lo, uint32_t hi, uint32_t wc[4]) {
   // codes of rows 4q, 4q+1 (byte row 2q) and 4q+2, 4q+3 (byte row 2q+1),
   // one byte per column
-  const uint32_t a = sext_nibbles(w0 & 0x0F0F0F0Fu);
-  const uint32_t b = sext_nibbles((w0 >> 4) & 0x0F0F0F0Fu);
-  const uint32_t c = sext_nibbles(w1 & 0x0F0F0F0Fu);
-  const uint32_t d = sext_nibbles((w1 >> 4) & 0x0F0F0F0Fu);
+  const uint32_t a = sext_nibbles(lo & 0x0F0F0F0Fu);
+  const uint32_t b = sext_nibbles((lo >> 4) & 0x0F0F0F0Fu);
+  const uint32_t c = sext_nibbles(hi & 0x0F0F0F0Fu);
+  const uint32_t d = sext_nibbles((hi >> 4) & 0x0F0F0F0Fu);
   // 4x4 byte transpose: wc[j] = [a_j, b_j, c_j, d_j], the 4 K codes of column j
   const uint32_t ab_lo = __byte_perm(a, b, 0x5140);  // a0 b0 a1 b1
   const uint32_t ab_hi = __byte_perm(a, b, 0x7362);  // a2 b2 a3 b3
@@ -125,129 +117,417 @@ __device__ __forceinline__ void load_quad<false>(const int8_t* __restrict__ w,
 }
 
 template <>
-__device__ __forceinline__ void load_quad<true>(const int8_t* __restrict__ w,
-                                                const uint8_t* __restrict__ meta, int q,
-                                                int n0, int N, uint32_t wc[4]) {
-  const uint32_t p = *reinterpret_cast<const uint32_t*>(w + (size_t)q * N + n0);
-  const uint32_t mw = *reinterpret_cast<const uint32_t*>(meta + (size_t)q * N + n0);
-  const uint32_t v0 = sext_nibbles(p & 0x0F0F0F0Fu);         // first kept code per column
-  const uint32_t v1 = sext_nibbles((p >> 4) & 0x0F0F0F0Fu);  // second
+__device__ __forceinline__ void quad_codes<true>(uint32_t lo, uint32_t hi, uint32_t wc[4]) {
+  const uint32_t v0 = sext_nibbles(lo & 0x0F0F0F0Fu);         // first kept code per column
+  const uint32_t v1 = sext_nibbles((lo >> 4) & 0x0F0F0F0Fu);  // second
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    const uint32_t m = mw >> (8 * j);
-    const uint32_t s0 = ((v0 >> (8 * j)) & 0xFFu) << (8 * (m & 3u));
-    const uint32_t s1 = ((v1 >> (8 * j)) & 0xFFu) << (8 * ((m >> 2) & 3u));
-    wc[j] = __vadd4(s0, s1);  // per-byte add, no carry between slots
+    const uint32_t m = hi >> (8 * j);
+    const uint32_t p0 = 8 * (m & 3u), p1 = 8 * ((m >> 2) & 3u);
+    // one nonzero byte each: their sum has no carry between two slots, and
+    // where both slots are one (a hand-made meta) the carry out of it is
+    // masked off, so this is the per-byte add
+    wc[j] = ((((v0 >> (8 * j)) & 0xFFu) << p0) + (((v1 >> (8 * j)) & 0xFFu) << p1)) &
+            ((0xFFu << p0) | (0xFFu << p1));
   }
 }
 
-template <int BM, bool ASigned, bool Sparse, typename OutT>
+// cp.async of CP bytes (4 or 16) into shared memory, zero-filled when
+// `bytes` is 0 (rows past M, columns past N, K past the chunk).
+template <int CP>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (CP == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+                 "r"(bytes));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+                 "r"(bytes));
+  }
+}
+
+// Four 8 x 8 matrices of 16-bit elements (here 8 rows x 16 int8 codes
+// each) from shared memory into the A fragment of mma.m16n8k32.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// d += a x b on the int8 tensor cores: a 16x32 (row) by 32x8 (col) product
+// with int32 accumulation, unsigned or signed A codes, signed B codes.
+template <bool ASigned>
+__device__ __forceinline__ void mma_16832(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  if constexpr (ASigned) {
+    asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+        "{%8,%9}, {%0,%1,%2,%3};\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm("mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+        "{%8,%9}, {%0,%1,%2,%3};\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+}
+
+__device__ __forceinline__ float epilogue(int s, int n, const float* sw, const float* corr) {
+  return __fmul_rn(__fsub_rn(__int2float_rn(s), corr[n]), sw[n]);
+}
+
+// Four adjacent outputs at `off` from their exact sums; sw and corr are
+// indexed from n (the tile's staged vectors, from the column in the tile).
+__device__ __forceinline__ void store4(float* out, size_t off, int4 s, int n, const float* sw,
+                                       const float* corr) {
+  *reinterpret_cast<float4*>(out + off) =
+      make_float4(epilogue(s.x, n, sw, corr), epilogue(s.y, n + 1, sw, corr),
+                  epilogue(s.z, n + 2, sw, corr), epilogue(s.w, n + 3, sw, corr));
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* out, size_t off, int4 s, int n,
+                                       const float* sw, const float* corr) {
+  __nv_bfloat162 lo, hi;
+  lo.x = __float2bfloat16_rn(epilogue(s.x, n, sw, corr));
+  lo.y = __float2bfloat16_rn(epilogue(s.y, n + 1, sw, corr));
+  hi.x = __float2bfloat16_rn(epilogue(s.z, n + 2, sw, corr));
+  hi.y = __float2bfloat16_rn(epilogue(s.w, n + 3, sw, corr));
+  uint2 v;
+  v.x = *reinterpret_cast<uint32_t*>(&lo);
+  v.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(out + off) = v;
+}
+
+__device__ __forceinline__ int4 add4(int4 a, int4 b) {
+  return make_int4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+constexpr int kMaxClusterChunks = 8;  // K chunks of a tile: one portable cluster
+
+struct Problem {
+  const uint8_t* x;
+  const int8_t* w;
+  const uint8_t* meta;
+  const float* sw;
+  const float* corr;
+  void* out;
+  int M, N, K;
+  int ck;  // K rows per chunk (blockIdx.z)
+};
+
+// The tile's epilogue vectors sw and corr (BN each, 0 past N) on their way
+// into shared memory (cp.async, in the caller's commit group), for the
+// block's share of the epilogue.
+template <int BN, int THREADS>
+__device__ __forceinline__ void stage_epilogue(float* sw_s, float* corr_s, int n0,
+                                               const Problem& p) {
+  for (int j = threadIdx.x; j < 2 * BN; j += THREADS) {
+    const int n = n0 + j % BN;
+    const float* src = j < BN ? p.sw : p.corr;
+    cp_async<4>((j < BN ? sw_s : corr_s) + j % BN, n < p.N ? src + n : src, n < p.N ? 4 : 0);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The kernel: int8 tensor cores (mma.sync m16n8k32)
+// ---------------------------------------------------------------------------
+constexpr int kThreads = 128;
+constexpr int kBM = 64, kBK = 128;
+constexpr int kQuads = kBK / 4;     // quads (groups of 4 K rows) a stage
+constexpr int kAStride = kBK + 16;  // bytes; A fragment reads hit 32 distinct banks
+constexpr int kBRows = 2 * kQuads;  // dense: packed rows; 2:4: packed rows, then meta rows
+
+// 64 x 64 output tiles, 2 x 2 warps of 32 x 32, a 4-stage ring
+constexpr int kWarpsN = 2, kWarpsM = kThreads / 32 / kWarpsN;
+constexpr int kBN = 32 * kWarpsN, kStages = 4;
+constexpr int kWarpRows = kBM / kWarpsM, kMTiles = kWarpRows / 16;
+
+// B rows' pitch in bytes: the dense reads hit 32 distinct banks; the 2:4
+// reads conflict two ways, which costs less than the pitch that avoids it
+// (96 bytes: 78 KB a block, two blocks an SM instead of three at prefill)
+constexpr int kBStride = kBN + 16;
+constexpr int kStageBytes = kBM * kAStride + kBRows * kBStride;
+constexpr int kRingBytes = kStages * kStageBytes;
+
+// Shared memory: the ring, the tile's sw and corr, then (with a K split)
+// the receive buffer, a share of the live rows' 4-column vectors from each
+// chunk; apart from the ring, as another chunk may write into it while
+// this block still reads its ring.
+int smem_bytes(int m, int chunks) {
+  const int rx = chunks > 1 ? ((m < kBM ? m : kBM) * (kBN / 4) + chunks) * 16 : 0;
+  return kRingBytes + 2 * kBN * 4 + rx;
+}
+
+template <int CP, bool ASigned, bool Sparse, typename OutT>
 __global__ void __launch_bounds__(kThreads)
-w4a8_kernel(const uint8_t* __restrict__ x, const int8_t* __restrict__ w,
-            const uint8_t* __restrict__ meta, const float* __restrict__ sw,
-            const float* __restrict__ corr, OutT* __restrict__ out, int M, int N, int K) {
-  __shared__ int red[kKS][BM][kBN];
-  const int tn = threadIdx.x % kTN;
-  const int ks = threadIdx.x / kTN;
-  const int n0 = blockIdx.x * kBN + tn * 4;
-  const int m0 = blockIdx.y * BM;
+w4a8_kernel(Problem p) {
+  constexpr int A_BYTES = kBM * kAStride;
+  extern __shared__ __align__(16) unsigned char smem[];
 
-  int acc[BM][4];
-#pragma unroll
-  for (int i = 0; i < BM; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp / kWarpsN, wn = warp % kWarpsN;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int k_begin = blockIdx.z * p.ck;
+  const int k_end = min(p.K, k_begin + p.ck);
+  const int nkt = (k_end - k_begin + kBK - 1) / kBK;
 
-  if (n0 < N) {  // N % 4 == 0: a column group is wholly in or out
-    const int nq = K / 4;
-    for (int q = ks; q < nq; q += kKS) {
-      uint32_t wc[4];
-      load_quad<Sparse>(w, meta, q, n0, N, wc);
+  // one stage: the (kBM, kBK) x tile and its packed weight rows; K is a
+  // multiple of CP for this load width, so a copy is wholly in or out
+  auto load_stage = [&](int kt, int slot) {
+    unsigned char* sa = smem + slot * kStageBytes;
+    unsigned char* sb = sa + A_BYTES;
+    const int kb = k_begin + kt * kBK;
+    for (int idx = tid; idx < kBM * kBK / CP; idx += kThreads) {
+      const int r = idx / (kBK / CP), col = (idx % (kBK / CP)) * CP;
+      const int m = m0 + r, k = kb + col;
+      const bool ok = m < p.M && k < k_end;
+      cp_async<CP>(sa + r * kAStride + col, ok ? p.x + (size_t)m * p.K + k : p.x, ok ? CP : 0);
+    }
+    for (int idx = tid; idx < kBRows * kBN / CP; idx += kThreads) {
+      const int r = idx / (kBN / CP), col = (idx % (kBN / CP)) * CP;
+      const int n = n0 + col;
+      const int8_t* src;
+      bool ok;
+      if constexpr (Sparse) {
+        const int pr = kb / 4 + r % kQuads;
+        ok = 4 * pr < k_end && n < p.N;
+        src = (r < kQuads ? p.w : reinterpret_cast<const int8_t*>(p.meta)) + (size_t)pr * p.N + n;
+      } else {
+        const int pr = kb / 2 + r;
+        ok = 2 * pr < k_end && n < p.N;
+        src = p.w + (size_t)pr * p.N + n;
+      }
+      cp_async<CP>(sb + r * kBStride + col, ok ? src : p.w, ok ? CP : 0);
+    }
+  };
+
+  float* sw_s = reinterpret_cast<float*>(smem + kRingBytes);
+  float* corr_s = sw_s + kBN;
+
+  int acc[kMTiles][4][4];
 #pragma unroll
-      for (int i = 0; i < BM; ++i) {
-        const int m = m0 + i;
-        const uint32_t xa =
-            m < M ? *reinterpret_cast<const uint32_t*>(x + (size_t)m * K + 4 * q) : 0u;
+  for (int mi = 0; mi < kMTiles; ++mi)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = dot4<ASigned>(xa, wc[j], acc[i][j]);
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0;
+
+  stage_epilogue<kBN, kThreads>(sw_s, corr_s, n0, p);  // in group 0
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nkt) load_stage(s, s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nkt; ++kt) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage kt landed; every warp is done with stage kt - 1
+    if (kt + kStages - 1 < nkt) load_stage(kt + kStages - 1, (kt + kStages - 1) % kStages);
+    cp_async_commit();
+    const unsigned char* sa = smem + (kt % kStages) * kStageBytes;
+    const unsigned char* sb = sa + A_BYTES;
+#pragma unroll
+    for (int ks = 0; ks < kBK / 32; ++ks) {
+      // B: lane (g, t) holds K rows 32 ks + 4t .. +3 (b[j][0]) and 16 more
+      // (b[j][1]) of column 32 wn + 4g + j, for n8 tile j
+      uint32_t b[4][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int ql = 8 * ks + t + 4 * h;  // quad within the stage
+        const int col = 32 * wn + 4 * g;
+        uint32_t wc[4];
+        if constexpr (Sparse) {
+          quad_codes<true>(*reinterpret_cast<const uint32_t*>(sb + ql * kBStride + col),
+                           *reinterpret_cast<const uint32_t*>(sb + (kQuads + ql) * kBStride + col),
+                           wc);
+        } else {
+          quad_codes<false>(*reinterpret_cast<const uint32_t*>(sb + (2 * ql) * kBStride + col),
+                            *reinterpret_cast<const uint32_t*>(sb + (2 * ql + 1) * kBStride + col),
+                            wc);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[j][h] = wc[j];
+      }
+#pragma unroll
+      for (int mi = 0; mi < kMTiles; ++mi) {
+        // A: lane (g, t) gets rows g and g + 8 of the m16 tile, bytes 4t .. +3
+        // and 16 more, as four 8 x 16-byte matrices; lane l addresses row
+        // l % 8 (+ 8 for matrices 1 and 3) at byte 16 (l / 16)
+        uint32_t a[4];
+        ldmatrix_x4(a, sa + (kWarpRows * wm + 16 * mi + (lane & 7) + 8 * ((lane >> 3) & 1)) *
+                               kAStride + 32 * ks + 16 * (lane >> 4));
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_16832<ASigned>(acc[mi][j], a, b[j][0], b[j][1]);
       }
     }
   }
+  cp_async_wait<0>();
 
+  // The split's sum, inside the launch. The chunks of a tile are one thread
+  // block cluster (cluster dims (1, 1, chunks): a block's rank is its
+  // chunk), and rank q owns the q-th share of the tile's 4-column vectors
+  // in its live rows (those below M). Each block sends every vector of its
+  // tile to its owner, into slot `rank` of the owner's receive buffer
+  // (distributed shared memory); after one cluster barrier each rank sums
+  // its slots and runs its share's epilogue. No global workspace, no
+  // atomics, no read of another block's memory after the barrier, nothing
+  // left behind for the next launch. A lane's accumulators (row g (+8),
+  // column 2t + e) of n8 tiles j = 0..3 are tile columns 32 wn + 4 (2t + e)
+  // + j: one whole vector.
+  const int chunks = gridDim.z, rank = blockIdx.z;
+  const int live_rows = min(kBM, p.M - m0);
+  OutT* out = static_cast<OutT*>(p.out);
+  if (chunks == 1) {  // no split: each lane's vectors straight to the output
+    __syncthreads();  // sw and corr, staged by every thread
 #pragma unroll
-  for (int i = 0; i < BM; ++i)
+    for (int mi = 0; mi < kMTiles; ++mi)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) red[ks][i][tn * 4 + j] = acc[i][j];
-  __syncthreads();
-
-  for (int idx = threadIdx.x; idx < BM * kBN; idx += kThreads) {
-    const int i = idx / kBN;
-    const int col = idx % kBN;
-    const int m = m0 + i;
-    const int n = blockIdx.x * kBN + col;
-    if (m < M && n < N) {
-      int s = 0;
+      for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int t = 0; t < kKS; ++t) s += red[t][i][col];
-      const float v = __fmul_rn(__fsub_rn(__int2float_rn(s), corr[n]), sw[n]);
-      out[(size_t)m * N + n] = from_float<OutT>(v);
-    }
+        for (int e = 0; e < 2; ++e) {
+          const int row = kWarpRows * wm + 16 * mi + g + 8 * h, col = 32 * wn + 4 * (2 * t + e);
+          if (row < live_rows && n0 + col < p.N)  // N % 4 == 0: wholly in or out
+            store4(out, (size_t)(m0 + row) * p.N + n0 + col,
+                   make_int4(acc[mi][0][2 * h + e], acc[mi][1][2 * h + e],
+                             acc[mi][2][2 * h + e], acc[mi][3][2 * h + e]),
+                   col, sw_s, corr_s);
+        }
+    return;
+  }
+  const int live = live_rows * (kBN / 4);
+  const int share = (live + chunks - 1) / chunks;
+  int4* rx = reinterpret_cast<int4*>(smem + kRingBytes + 2 * kBN * 4);
+  cg::cluster_group cluster = cg::this_cluster();
+#pragma unroll
+  for (int mi = 0; mi < kMTiles; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = kWarpRows * wm + 16 * mi + g + 8 * h;
+        if (row < live_rows) {
+          const int v = row * (kBN / 4) + 8 * wn + 2 * t + e, q = v / share;
+          const int4 val = make_int4(acc[mi][0][2 * h + e], acc[mi][1][2 * h + e],
+                                     acc[mi][2][2 * h + e], acc[mi][3][2 * h + e]);
+          int4* dst = rx + rank * share + (v - q * share);
+          if (q == rank) {
+            *dst = val;
+          } else {
+            *cluster.map_shared_rank(dst, q) = val;
+          }
+        }
+      }
+  cluster.sync();  // every chunk's vectors are in their owners' buffers
+  for (int u = tid; u < share && rank * share + u < live; u += kThreads) {
+    const int v = rank * share + u;
+    const int i = v / (kBN / 4), col = 4 * (v % (kBN / 4));
+    int4 sum = rx[u];
+    for (int r = 1; r < chunks; ++r) sum = add4(sum, rx[r * share + u]);
+    if (n0 + col < p.N)  // N % 4 == 0: a vector is wholly in or out
+      store4(out, (size_t)(m0 + i) * p.N + n0 + col, sum, col, sw_s, corr_s);
   }
 }
 
-template <int BM, bool ASigned, bool Sparse, typename OutT>
-void launch(const void* x, const void* w, const void* meta, const float* sw,
-            const float* corr, void* out, int M, int N, int K, cudaStream_t stream) {
-  const dim3 grid((N + kBN - 1) / kBN, (M + BM - 1) / BM);
-  w4a8_kernel<BM, ASigned, Sparse, OutT><<<grid, kThreads, 0, stream>>>(
-      static_cast<const uint8_t*>(x), static_cast<const int8_t*>(w),
-      static_cast<const uint8_t*>(meta), sw, corr, static_cast<OutT*>(out), M, N, K);
+// ---------------------------------------------------------------------------
+// Launch
+// ---------------------------------------------------------------------------
+// One launch; with a K split, the chunks of a tile form a cluster.
+template <typename... Args>
+int launch(void (*kernel)(Args...), dim3 grid, int threads, int smem, cudaStream_t s,
+           Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = grid.z;
+  cfg.attrs = attr;
+  cfg.numAttrs = grid.z > 1 ? 1 : 0;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, args...));
 }
 
-template <int BM, bool Sparse>
-void dispatch(const void* x, const void* w, const void* meta, const float* sw,
-              const float* corr, void* out, int M, int N, int K, int a_signed, int out_bf16,
-              cudaStream_t s) {
-  if (a_signed) {
-    if (out_bf16) launch<BM, true, Sparse, __nv_bfloat16>(x, w, meta, sw, corr, out, M, N, K, s);
-    else launch<BM, true, Sparse, float>(x, w, meta, sw, corr, out, M, N, K, s);
-  } else {
-    if (out_bf16) launch<BM, false, Sparse, __nv_bfloat16>(x, w, meta, sw, corr, out, M, N, K, s);
-    else launch<BM, false, Sparse, float>(x, w, meta, sw, corr, out, M, N, K, s);
-  }
+template <bool ASigned, bool Sparse, typename OutT>
+int launch_typed(const Problem& p, int vec, dim3 grid, cudaStream_t s) {
+  auto kernel = vec == 16 ? w4a8_kernel<16, ASigned, Sparse, OutT>
+                          : w4a8_kernel<4, ASigned, Sparse, OutT>;
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               smem_bytes(kBM, kMaxClusterChunks));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch(kernel, grid, kThreads, smem_bytes(p.M, grid.z), s, p);
 }
 
-// rows per block: small M (decode) keeps every dp4a on a real row
-template <bool Sparse>
-int launch_any(const void* x, const void* w, const void* meta, const void* sw,
-               const void* corr, void* out, int M, int N, int K, int a_signed, int out_bf16,
-               void* stream) {
-  const float* swf = static_cast<const float*>(sw);
-  const float* cf = static_cast<const float*>(corr);
+int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+bool aligned16(const void* ptr) { return ptr == nullptr || (uintptr_t)ptr % 16 == 0; }
+
+// The plan's ints, checked against the shape before anything launches.
+bool plan_ok(const Problem& p, int vec, dim3 grid) {
+  if (p.M < 1 || p.N < 4 || p.N % 4 || p.K < 0 || p.K % 4 || p.ck < kBK || p.ck % kBK)
+    return false;
+  if (vec != 4 && vec != 16) return false;
+  if (vec == 16 && (p.N % 16 || p.K % 16 || !aligned16(p.x) || !aligned16(p.w) ||
+                    !aligned16(p.meta)))
+    return false;
+  return (int)grid.x == cdiv(p.N, kBN) && (int)grid.y == cdiv(p.M, kBM) &&
+         (int)grid.z == (p.K ? cdiv(p.K, p.ck) : 1) && (int)grid.z <= kMaxClusterChunks;
+}
+
+int launch_any(const Problem& p, int a_signed, int out_bf16, int sparse, int vec, int gx, int gy,
+               int gz, void* stream) {
+  const dim3 grid(gx, gy, gz);
+  if (!plan_ok(p, vec, grid)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M <= 1) dispatch<1, Sparse>(x, w, meta, swf, cf, out, M, N, K, a_signed, out_bf16, s);
-  else if (M <= 2) dispatch<2, Sparse>(x, w, meta, swf, cf, out, M, N, K, a_signed, out_bf16, s);
-  else if (M <= 4) dispatch<4, Sparse>(x, w, meta, swf, cf, out, M, N, K, a_signed, out_bf16, s);
-  else dispatch<8, Sparse>(x, w, meta, swf, cf, out, M, N, K, a_signed, out_bf16, s);
-  return static_cast<int>(cudaGetLastError());
+#define W4A8_TYPED(AS, SP)                                                      \
+  return out_bf16 ? launch_typed<AS, SP, __nv_bfloat16>(p, vec, grid, s)        \
+                  : launch_typed<AS, SP, float>(p, vec, grid, s)
+  if (sparse) {
+    if (a_signed) W4A8_TYPED(true, true);
+    W4A8_TYPED(false, true);
+  }
+  if (a_signed) W4A8_TYPED(true, false);
+  W4A8_TYPED(false, false);
+#undef W4A8_TYPED
 }
 
 }  // namespace
 
-// C entry point, bound with ctypes. Requires K % 4 == 0, N % 4 == 0 and
-// 4-byte aligned x and w (the Python wrapper checks). Returns the launch's
-// cudaError_t (0 on success); the kernel runs asynchronously on `stream`.
+// C entry points, bound with ctypes. The plan (load width 4 or 16 bytes,
+// K rows a chunk, the grid: column tiles, row tiles, at most 8 chunks)
+// comes from kernels/w4a8_mm.py's w4a8_plan and is checked here against
+// the shape. Requires K % 4 == 0, N % 4 == 0 and 4-byte aligned x, w and
+// meta. Returns the launch's cudaError_t (0 on success); the kernel runs
+// asynchronously on `stream`.
 extern "C" int w4a8_matmul_launch(const void* x, const void* w, const void* sw,
                                   const void* corr, void* out, int M, int N, int K,
-                                  int a_signed, int out_bf16, void* stream) {
-  return launch_any<false>(x, w, nullptr, sw, corr, out, M, N, K, a_signed, out_bf16, stream);
+                                  int a_signed, int out_bf16, int vec, int ck, int gx, int gy,
+                                  int gz, void* stream) {
+  const Problem p{static_cast<const uint8_t*>(x), static_cast<const int8_t*>(w), nullptr,
+                  static_cast<const float*>(sw), static_cast<const float*>(corr), out, M, N, K,
+                  ck};
+  return launch_any(p, a_signed, out_bf16, 0, vec, gx, gy, gz, stream);
 }
 
 // The 2:4 entry point (kernel B4): w is the (K/4, N) packed codes, meta the
-// (K/4, N) positions; the same requirements, and a 4-byte aligned meta.
+// (K/4, N) positions; the same plan and requirements.
 extern "C" int w4a8_sparse_matmul_launch(const void* x, const void* w, const void* meta,
                                          const void* sw, const void* corr, void* out, int M,
-                                         int N, int K, int a_signed, int out_bf16,
-                                         void* stream) {
-  return launch_any<true>(x, w, meta, sw, corr, out, M, N, K, a_signed, out_bf16, stream);
+                                         int N, int K, int a_signed, int out_bf16, int vec,
+                                         int ck, int gx, int gy, int gz, void* stream) {
+  const Problem p{static_cast<const uint8_t*>(x), static_cast<const int8_t*>(w),
+                  static_cast<const uint8_t*>(meta), static_cast<const float*>(sw),
+                  static_cast<const float*>(corr), out, M, N, K, ck};
+  return launch_any(p, a_signed, out_bf16, 1, vec, gx, gy, gz, stream);
 }

@@ -19,9 +19,15 @@ Datapath, as in the reference:
 (``csrc/w4a8_mm.cu``, replacing the Pallas ``_kernel`` at
 ``repro/kernels/w4a8_mm.py:140``) for CUDA tensors, and runs its plain
 version :func:`w4a8_matmul_plain` for CPU tensors or when a caller asks for
-the reference. Integer sums are exact, so the kernel tiles K however suits
-the card; the ``assert_inner`` debug check still checks every certified
-T-wide tile. ``w4a8_matmul.launches`` counts kernel launches.
+the reference. The kernel runs on the int8 tensor cores at every M;
+:func:`w4a8_plan` (computed once per shape) splits K over up to 8 blocks
+a tile where the tiles alone would leave SMs idle, and those blocks form
+one thread block cluster that sums their tiles through distributed shared
+memory: one launch a call, and nothing from the host but the shape's
+plan, so a launch replays in a CUDA graph. Integer sums are exact, so the
+kernel tiles and splits K however suits the card; the ``assert_inner``
+debug check still checks every certified T-wide tile.
+``w4a8_matmul.launches`` counts kernel launches.
 
 The 2:4 sparse GEMM :func:`w4a8_sparse_matmul` (kernel B4, replacing the
 Pallas ``_sparse_kernel`` at ``repro/kernels/w4a8_mm.py:311``) takes the
@@ -37,6 +43,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from dataclasses import dataclass
 
 import torch
 
@@ -163,10 +170,59 @@ def w4a8_sparse_matmul_plain(x: torch.Tensor, w_packed: torch.Tensor, w_meta: to
     return ((acc - corr.reshape(1, -1)) * sw.reshape(1, -1)).to(out_dtype)
 
 
+#: 64 x 64 output tiles, 128 threads, 128 K rows a pipeline stage; a K
+#: chunk keeps at least MIN_STEPS stages where the call has more than one
+#: row tile (one stage where it has one: the split's sum then moves only
+#: the few live rows), the split aims at BLOCKS_PER_SM blocks an SM, and a
+#: split's chunks of a tile are one thread block cluster: at most
+#: MAX_CHUNKS
+TILE_M, TILE_N, STAGE_K = 64, 64, 128
+MIN_STEPS, BLOCKS_PER_SM, MAX_CHUNKS = 2, 2, 8
+#: the H100's SM count, for plans made without a card
+H100_SMS = 132
+
+
+@dataclass(frozen=True)
+class W4A8Plan:
+    """How one call of B1/B4 runs: its load width in bytes (16 where the
+    layout allows, else 4), K rows a chunk and the grid (column tiles, row
+    tiles, K chunks). A function of the shape alone, so a captured launch
+    replays unchanged."""
+
+    vec: int
+    ck: int
+    grid: tuple[int, int, int]
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+
+@functools.cache
+def w4a8_plan(m: int, n: int, k: int, aligned: bool = True, n_sm: int = H100_SMS) -> W4A8Plan:
+    """The plan of one (M, N, K) call, computed once per shape; ``aligned``
+    says x, w (and meta) are 16-byte aligned. K is split until about
+    BLOCKS_PER_SM blocks an SM, while a chunk keeps its least number of
+    stages (one at decode, where M fits one row tile; else MIN_STEPS)."""
+    vec = 16 if aligned and n % 16 == 0 and k % 16 == 0 else 4
+    tiles = -(-m // TILE_M) * -(-n // TILE_N)
+    steps = -(-k // STAGE_K)
+    min_steps = 1 if m <= TILE_M else MIN_STEPS
+    split = max(1, min(-(-BLOCKS_PER_SM * n_sm // tiles), steps // min_steps, MAX_CHUNKS))
+    ck = STAGE_K * -(-steps // split)
+    return W4A8Plan(vec, ck, (-(-n // TILE_N), -(-m // TILE_M), max(1, -(-k // ck))))
+
+
+@functools.cache
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
 def _launch(name: str, x, weights, sw, corr, out_dtype, rows_per_k: int):
     """Check and launch the B1 (``weights`` = (w_packed,)) or B4 (``(packed,
-    meta)``) entry point on CUDA tensors; raise on what the kernel does not
-    take or on a CUDA error from the launch."""
+    meta)``) entry point on CUDA tensors with the shape's plan; raise on
+    what the kernel does not take or on a CUDA error from the launch.
+    Returns the output and the plan it launched with (None if empty)."""
     m, k = x.shape
     n = weights[0].shape[1]
     if not x.is_cuda:
@@ -194,17 +250,18 @@ def _launch(name: str, x, weights, sw, corr, out_dtype, rows_per_k: int):
     if any(t.data_ptr() % 4 for t in (x, *weights)):
         raise ValueError(f"{name} kernel needs 4-byte aligned codes and weights")
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    if m == 0:
-        return out
+    if m == 0 or n == 0:
+        return out, None
+    plan = w4a8_plan(m, n, k, all(t.data_ptr() % 16 == 0 for t in (x, *weights)),
+                     _sm_count(x.device.index))
     err = getattr(_library(), f"{name}_launch")(
         x.data_ptr(), *(w.data_ptr() for w in weights), sw.data_ptr(), corr.data_ptr(),
-        out.data_ptr(), m, n, k, int(x.dtype == torch.int8),
-        int(out_dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        out.data_ptr(), m, n, k, int(x.dtype == torch.int8), int(out_dtype == torch.bfloat16),
+        plan.vec, plan.ck, *plan.grid, torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    return out
+    return out, plan
 
 
 def w4a8_matmul_kernel(x: torch.Tensor, w_packed: torch.Tensor, sw: torch.Tensor,
@@ -213,7 +270,8 @@ def w4a8_matmul_kernel(x: torch.Tensor, w_packed: torch.Tensor, sw: torch.Tensor
     formed (the arguments of :func:`w4a8_matmul_plain`). Checks device,
     dtype, shape, contiguity and alignment and raises on what the kernel
     does not take; raises if the launch returns a CUDA error."""
-    out = _launch("w4a8_matmul", x, (w_packed,), sw, corr, out_dtype, rows_per_k=2)
+    out, w4a8_matmul.last_plan = _launch("w4a8_matmul", x, (w_packed,), sw, corr, out_dtype,
+                                         rows_per_k=2)
     w4a8_matmul.launches += 1
     return out
 
@@ -223,8 +281,8 @@ def w4a8_sparse_matmul_kernel(x: torch.Tensor, w_packed: torch.Tensor, w_meta: t
                               out_dtype=torch.float32) -> torch.Tensor:
     """Launch kernel B4 on CUDA tensors (the arguments of
     :func:`w4a8_sparse_matmul_plain`), with the checks of B1's launcher."""
-    out = _launch("w4a8_sparse_matmul", x, (w_packed, w_meta), sw, corr, out_dtype,
-                  rows_per_k=4)
+    out, w4a8_sparse_matmul.last_plan = _launch("w4a8_sparse_matmul", x, (w_packed, w_meta),
+                                                sw, corr, out_dtype, rows_per_k=4)
     w4a8_sparse_matmul.launches += 1
     return out
 
@@ -237,10 +295,10 @@ def _library() -> ctypes.CDLL:
     lib = load_library("w4a8_mm")
     # pointers and the stream as c_void_p: a bare int would be cut to 32 bits
     lib.w4a8_matmul_launch.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     lib.w4a8_matmul_launch.restype = ctypes.c_int
     lib.w4a8_sparse_matmul_launch.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     lib.w4a8_sparse_matmul_launch.restype = ctypes.c_int
     return lib
 
@@ -285,14 +343,16 @@ def w4a8_matmul(
     return w4a8_matmul_kernel(x, w_packed, sw.contiguous(), corr.contiguous(), out_dtype)
 
 
-#: kernel launches since the last reset (the main-path proof of chip_smoke)
+#: kernel launches since the last reset (the main-path proof of chip_smoke),
+#: and the plan of the last launch
 w4a8_matmul.launches = 0
+w4a8_matmul.last_plan = None
 
 
 def w4a8_decode_matmul(x, w_packed, w_scale, col_sums, act_scale, act_zp, **kw):
     """Decode-shaped entry (M = batch): ``col_sums`` is required, so no
-    full-weight unpack runs on the serving path. The CUDA kernel takes
-    every M through one code path (rows beyond M are masked in-kernel)."""
+    full-weight unpack runs on the serving path. The CUDA kernel takes any
+    M; :func:`w4a8_plan` splits K for small ones."""
     if col_sums is None:
         raise ValueError("w4a8_decode_matmul needs the pack-time col_sums")
     return w4a8_matmul(x, w_packed, w_scale, act_scale, act_zp,
@@ -345,8 +405,9 @@ def w4a8_sparse_matmul(
                                      out_dtype)
 
 
-#: kernel B4 launches since the last reset
+#: kernel B4 launches since the last reset, and the plan of the last launch
 w4a8_sparse_matmul.launches = 0
+w4a8_sparse_matmul.last_plan = None
 
 
 def w4a8_sparse_decode_matmul(x, w_packed, w_meta, w_scale, col_sums, act_scale, act_zp, **kw):

@@ -6,7 +6,9 @@ must be bit-exact. The GEMM output is held to rtol 1e-6 in f32 and
 compared bit for bit in bf16: both sides run the same f32 epilogue
 ``(acc - corr) * sw`` on the same exact integer accumulator, so the
 outputs are expected to be bit-equal. The reference runs its Pallas kernel
-in interpret mode, as ``tests/test_kernels.py`` does.
+in interpret mode, as ``tests/test_kernels.py`` does. Every test here runs
+on the CPU; the CUDA kernel's own tests are in the JAX-free
+``tests/test_torch_w4a8_kernel.py``, which the card's machine can run.
 """
 
 import jax.numpy as jnp
@@ -37,14 +39,6 @@ from repro_torch.kernels.w4a8_mm import (
 
 _ACT = {"u8": (np.uint8, jnp.uint8, 0, 256), "s8": (np.int8, jnp.int8, -128, 128)}
 _OUT = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
-
-
-@pytest.fixture
-def cuda_device():
-    """The card, for tests of the CUDA kernel itself (it has no CPU mode)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU interpret mode")
-    return torch.device("cuda")
 
 
 def _t(a):
@@ -239,17 +233,3 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build.shutil, "which", lambda name: None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load_library("w4a8_mm")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("act", ["u8", "s8"])
-@pytest.mark.parametrize("m,k,n", [(4, 960, 960), (256, 2560, 960), (3, 64, 100)])
-def test_cuda_kernel_bit_equal_to_plain(m, k, n, act, rng, cuda_device):
-    q, x, scale = _operands(rng, m, k, n, act)
-    args = (_t(x).to(cuda_device), pack_int4(_t(q)).to(cuda_device),
-            _t(scale).to(cuda_device), 0.02, 131.0)
-    for out in (torch.float32, torch.bfloat16):
-        y = w4a8_matmul(*args, out_dtype=out)
-        r = w4a8_matmul(*args, out_dtype=out, reference=True)
-        torch.cuda.synchronize()
-        assert torch.equal(y, r)
