@@ -19,7 +19,9 @@ result unless every phase passed):
    (path, grid, K chunks), its time, the plain version's, the
    ``torch._int_mm`` yardstick's and the byte/operation bound, per M the
    sums over one layer's 7 sites beside the previous kernel's, and the
-   wrapper's host time a call with its plan cached and computed anew;
+   wrapper's host time a call with its plan cached and computed anew, and
+   B6's (``norm_and_quantize``) beside it: both before any profiler trace,
+   since earlier traces in a process raise a call's host time;
 3. the slice: smollm-360m at full width (32 layers, d_model 960, bf16,
    seeded random init), RTN-packed, greedy ``GenerationEngine.generate`` of
    batch 4 x prompt 64 + 16 new tokens. The kernel's launch counter must
@@ -90,9 +92,12 @@ result unless every phase passed):
    shared 128-token prefix and one fully cached prompt, warm streams
    against a cold engine's (identical or tie-limited), the cached admit
    adding 0 to every kernel counter. It prints decode-step time, tokens/s,
-   admit time, peak memory and a profiler breakdown of one decode chunk,
-   whose w4a8 kernels, counted by name, must equal the launch counter's
-   224 a step.
+   admit time, peak memory and a profiler breakdown of 8 decode steps (a
+   trace each; a step whose trace lost device kernel records is run but
+   not counted), whose w4a8 kernels, counted by name, must equal the
+   launch counter's 224 a step. Every count by name is taken on a trace
+   that holds a device record for each launch it recorded (phase 3 and
+   phase 8 profile a call again until one does).
 
 8. the 2:4 kernels: B4 (``w4a8_sparse_matmul``) at phase 2's shapes,
    uint8 and int8 codes, bit-equal to its plain version and to B1 on the
@@ -102,11 +107,19 @@ result unless every phase passed):
    int8 x int8 (or the library's refusal); B5 with a 2:4 mask at one
    layer's shapes (tie-limited agreement, exact pos/neg, zeros where the
    mask is 0, U consistent with its own codes, the sparse certificate)
-   timed masked and unmasked; B6
-   (``quant_rmsnorm``) driven once through ``ops.norm_and_quantize`` at
-   (256, 960), (512, 1024) and (1024, 4096), then held to its plain version
-   in f32 and bf16 (exact, or one code on under 1% of elements) and timed
-   beside ``F.rms_norm``;
+   timed masked and unmasked; B6 (``quant_rmsnorm``) driven once through
+   ``ops.norm_and_quantize`` at RMSNORM_DRIVEN's shapes (the launch
+   counter, and the profiler's one device kernel a call, by name, with
+   Python-number and device-scalar quantizers), then the sweep: M in {4,
+   256, 4096} x D in {960, 3072, 8192, 16384} and (512, 1024), (1024,
+   4096), f32 and bf16, and rows staged through shared memory ((4, 32768)
+   and (256, 65536) f32, and (256, 16384) f32 at a 4-byte offset), each
+   bit-equal to ``quant_rmsnorm_model`` and
+   within one code of its plain version on under 1% of elements, timed in
+   3 rounds by events beside an empty kernel on the same grid, by the
+   profiler, beside ``F.rms_norm`` alone, the plain version and the byte
+   bound, and its three targets printed met or missed (B6's wrapper host
+   time a call is taken in phase 2, before any profiler trace);
 9. the 2:4 slice: the float32 smollm-360m calibrated with
    ``PTQConfig(sparsity="2:4")`` (exactly 224 masked B5 launches, 224 sites
    certified at sparsity 2:4, each site's register floor beside phase 5's
@@ -131,6 +144,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -198,6 +212,19 @@ PAGED_TABLE = 512
 #: commit aa35be4, NVIDIA H100 80GB HBM3, 700.00 W)
 PAGED_FIRST_MS = {("float", 4, 80): 0.06840, ("float", 4, 2048): 1.13171,
                   ("int8", 4, 80): 0.07446, ("int8", 4, 2048): 1.24144}
+#: phase 8, B6: (M, D) from a decode batch (4) through a prefill of 4 x 64
+#: tokens (256) to a large prefill (4096), at smollm-360m's d_model (960),
+#: phi4-mini's (3072), the registry's 8192 and llama3-405b's (16384), plus
+#: the shapes of earlier runs; each in f32 and bf16, timed in
+#: RMSNORM_ROUNDS rounds
+RMSNORM_SWEEP = [(m, d) for d in (960, 3072, 8192, 16384) for m in (4, 256, 4096)] + [
+    (512, 1024), (1024, 4096)]
+#: phase 8, B6's staged tier (rows past the registers): (M, D, element
+#: offset of x in its buffer), f32 only (bf16 rows stay in registers up to
+#: 32768); the offset view is unaligned, so staged past 8192
+RMSNORM_STAGED = [(4, 32768, 0), (256, 65536, 0), (256, 16384, 1)]
+RMSNORM_DRIVEN = [(256, 960), (512, 1024), (1024, 4096), (4, 16384)]
+RMSNORM_ROUNDS = 3
 #: phase 7: the paged engine's configuration
 PAGED_BLOCK, PAGED_BLOCKS, PAGED_SLOTS, PAGED_CHUNK = 64, 64, 4, 8
 TRACE_REQUESTS, PREFIX_LEN = 12, 128
@@ -312,6 +339,56 @@ def time_ms(torch, fn, reps: int = 30, flush=None) -> float:
 def w4a8_seen(kernels) -> int:
     """The profiler's count of B1/B4 kernels, by the name ``w4a8_kernel``."""
     return sum(e.count for e in kernels if "w4a8_kernel" in e.key)
+
+
+#: kernel launch records of the CUDA runtime and driver APIs in a trace
+LAUNCH_RECORD = re.compile(r"cu(da)?LaunchKernel")
+#: short device sleeps that open every trace before the traced work
+TRACE_WARMUP = 16
+
+
+def traced(torch, fn):
+    """``fn`` under torch.profiler (CPU and CUDA activities): TRACE_WARMUP
+    short device sleeps (``spin_kernel``) and a synchronize first, then
+    ``fn`` and a synchronize. Returns (profiler, fn's result, complete):
+    complete says every kernel launch that ``fn`` recorded on the host has
+    a device record. With torch 2.11 and driver 580.159.03 on an H100 the
+    profiler can lose the device records of a trace's first kernels (more
+    of them after earlier traces in the process) and now and then others;
+    it keeps the host's launch records, so a count by name is exact only on
+    a complete trace."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(TRACE_WARMUP):
+            torch.cuda._sleep(20_000)
+        torch.cuda.synchronize()
+        out = fn()
+        torch.cuda.synchronize()
+    cpu = torch.autograd.DeviceType.CPU
+    events = prof.profiler.kineto_results.events()
+    launches = sorted((e.start_ns(), e.correlation_id()) for e in events
+                      if e.device_type() == cpu and LAUNCH_RECORD.match(e.name()))
+    recorded = {e.correlation_id() for e in events if e.device_type() != cpu}
+    return prof, out, all(c in recorded for _, c in launches[TRACE_WARMUP:])
+
+
+def traced_kernels(torch, events):
+    """The device records of a trace's events (``prof.events()`` or
+    ``key_averages()``): kernels and copies, without the warm-up sleeps or
+    annotations."""
+    return [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation and "spin_kernel" not in e.key]
+
+
+def profile_complete(torch, fn, attempts: int = 4):
+    """``traced(fn)`` until its trace is complete, at most ``attempts``
+    times; ``fn`` must repeat the same work each time. Returns (profiler,
+    fn's result)."""
+    for _ in range(attempts):
+        prof, out, complete = traced(torch, fn)
+        if complete:
+            return prof, out
+    check(False, f"the profiler lost device kernel records in {attempts} traces of one call")
 
 
 def reset_peak(torch) -> None:
@@ -565,18 +642,17 @@ def phase_slice(torch):
         b = dq[..., :cfg.vocab].float().flatten()
         corr = torch.corrcoef(torch.stack([a, b]))[0, 1].item()
         check(corr > 0.99, f"kernel vs dequant prefill logits correlation {corr}")
-        reset_counts()
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+        def counted_step():
+            reset_counts()
             T.decode_step(model, step_tok, caches, PROMPT)
-            torch.cuda.synchronize()
-        step_launches = read_counts()["w4a8_matmul"]
+            return read_counts()["w4a8_matmul"]
+
+        prof, step_launches = profile_complete(torch, counted_step)
         events = prof.key_averages()
         print(events.table(sort_by="self_cuda_time_total", row_limit=12))
         # device kernels only (the CPU ops' device columns repeat them); one
         # stream, so their sum is the time the card was busy
-        kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-                   and not e.is_user_annotation]
+        kernels = traced_kernels(torch, events)
         busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
         w4a8_ms = sum(e.self_device_time_total for e in kernels
                       if "w4a8_kernel" in e.key) / 1e3
@@ -1405,47 +1481,66 @@ def phase_paged_slice(torch):
           f"{cmp_c['agree']} of {cmp_c['total']} tokens agree with a cold engine (partings "
           f"{cmp_c['partings']}, tie band {cmp_c['band']:.4f})")
 
-    # one decode chunk under the profiler
+    # decode steps under the profiler, a trace each (a trace of a whole
+    # 8-step chunk, about 45000 kernels, mostly loses device records): the
+    # profiled engine runs each chunk one step at a time, and the first
+    # PAGED_CHUNK steps with complete traces are counted
     prof_eng = engine()
     orig_chunk = prof_eng._chunk
-    chunk = {}
+    steps, lost = [], []
 
     def profiled(k):
-        if chunk:
-            return orig_chunk(k)
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        before = read_counts()["w4a8_matmul"]
-        with torch.profiler.profile(activities=acts) as prof:
-            t = time.perf_counter()
-            buf = orig_chunk(k)
-            chunk["wall_ms"] = 1e3 * (time.perf_counter() - t)
-        chunk["k"], chunk["prof"] = k, prof
-        chunk["launches"] = read_counts()["w4a8_matmul"] - before
+        bufs = []
+        for _ in range(k):
+            if len(steps) == PAGED_CHUNK:
+                bufs.append(orig_chunk(1))
+                continue
+            before = read_counts()["w4a8_matmul"]
+            t = []
+
+            def step():
+                t.append(time.perf_counter())
+                bufs.append(orig_chunk(1))  # ends in a host read of its tokens
+                t.append(time.perf_counter())
+
+            prof, _, complete = traced(torch, step)
+            (steps if complete else lost).append(
+                {"wall_ms": 1e3 * (t[1] - t[0]), "prof": prof,
+                 "launches": read_counts()["w4a8_matmul"] - before})
+        buf = bufs[0].copy()
+        for t, b in enumerate(bufs):
+            buf[:, t] = b[:, 0]
         return buf
 
     prof_eng._chunk = profiled
-    prof_eng.generate(prompts, PAGED_CHUNK + 1)
-    events = chunk["prof"].key_averages()
-    print(events.table(sort_by="self_cuda_time_total", row_limit=12))
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.is_user_annotation]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    b2 = sum(e.self_device_time_total for e in kernels if "paged_attn_float" in e.key) / 1e3
-    b2_calls = sum(e.count for e in kernels if "paged_attn_float" in e.key)
-    b1 = sum(e.self_device_time_total for e in kernels if "w4a8_kernel" in e.key) / 1e3
-    check(b2 > 0 and b1 > 0, "the profiler saw no B2 or B1 kernel in a decode chunk")
-    seen = w4a8_seen(kernels)
-    check(seen == chunk["launches"] == 7 * cfg.n_layers * chunk["k"],
-          f"the profiler saw {seen} w4a8 kernels in a decode chunk of {chunk['k']} steps, the "
-          f"launch counter {chunk['launches']}")
-    print(f"[profile] one decode chunk of {chunk['k']} steps, {PAGED_SLOTS} slots: "
-          f"{chunk['wall_ms']:.3f} ms on the host clock, device busy {busy:.3f} ms "
-          f"({100 * busy / chunk['wall_ms']:.1f}%), B2 {b2:.3f} ms in {b2_calls} launches "
-          f"({1e3 * b2 / max(b2_calls, 1):.3f} us a launch), B1 {b1:.3f} ms in "
-          f"{seen} launches by name (launch counter {chunk['launches']})")
+    prof_eng.generate(prompts, 3 * PAGED_CHUNK + 1)
+    check(len(steps) == PAGED_CHUNK, f"{len(steps)} of {len(steps) + len(lost)} profiled decode "
+                                     f"steps had complete traces, {PAGED_CHUNK} needed")
+    print(steps[0]["prof"].key_averages().table(sort_by="self_cuda_time_total", row_limit=12))
+    wall = sum(st["wall_ms"] for st in steps)
+    launches = sum(st["launches"] for st in steps)
+    busy = b2 = b1 = 0.0
+    b2_calls = seen = 0
+    for st in steps:
+        kernels = traced_kernels(torch, st["prof"].key_averages())
+        busy += sum(e.self_device_time_total for e in kernels) / 1e3
+        b2 += sum(e.self_device_time_total for e in kernels if "paged_attn_float" in e.key) / 1e3
+        b2_calls += sum(e.count for e in kernels if "paged_attn_float" in e.key)
+        b1 += sum(e.self_device_time_total for e in kernels if "w4a8_kernel" in e.key) / 1e3
+        seen += w4a8_seen(kernels)
+    check(b2 > 0 and b1 > 0, "the profiler saw no B2 or B1 kernel in the profiled decode steps")
+    check(seen == launches == 7 * cfg.n_layers * PAGED_CHUNK,
+          f"the profiler saw {seen} w4a8 kernels in {PAGED_CHUNK} decode steps, the launch "
+          f"counter {launches}")
+    print(f"[profile] {PAGED_CHUNK} decode steps, {PAGED_SLOTS} slots, a trace each ({len(lost)} "
+          f"more steps' traces lost device records and are not counted): {wall:.3f} ms on the "
+          f"host clock, device busy {busy:.3f} ms ({100 * busy / wall:.1f}%), B2 {b2:.3f} ms in "
+          f"{b2_calls} launches ({1e3 * b2 / max(b2_calls, 1):.3f} us a launch), B1 {b1:.3f} ms "
+          f"in {seen} launches by name (launch counter {launches})")
     return {"a": cmp_a, "runs": runs, "c": cmp_c,
-            "profile": {"chunk_wall_ms": chunk["wall_ms"], "busy_ms": busy, "b2_ms": b2,
-                        "b2_launches": b2_calls, "b1_ms": b1, "steps": chunk["k"]}}
+            "profile": {"steps_wall_ms": wall, "busy_ms": busy, "b2_ms": b2,
+                        "b2_launches": b2_calls, "b1_ms": b1, "steps": PAGED_CHUNK,
+                        "steps_lost": len(lost)}}
 
 
 # ---------------------------------------------------------------------------
@@ -1667,52 +1762,191 @@ def phase_sparse_kernels(torch, gpfq_rows):
               f"{by_shape[(k, c)]['ms']:.4f} ms)  plain {plain_ms:.1f} ms  bound {bms:.4f} ms "
               f"({by})")
 
-    # B6 through ops.norm_and_quantize, its entry point: the counts of one
-    # driven run, then the kernel against its plain version
-    shapes = [(256, 960), (512, 1024), (1024, 4096)]
+    return {"b4": (b4_rows, b4_err), "b5": (b5_rows, b5_err)}
+
+
+def rmsnorm_profile_us(torch, fn, flush, name: str, calls: int = 5) -> float:
+    """Median device time (us) of the kernels whose name holds ``name``, one
+    a call of ``fn`` over ``calls`` calls each after an L2 flush, from a
+    complete torch.profiler trace."""
+    def run():
+        for _ in range(calls):
+            flush.zero_()
+            fn()
+
+    prof, _ = profile_complete(torch, run)
+    durs = [e.time_range.end - e.time_range.start for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+    check(len(durs) == calls, f"the profiler saw {len(durs)} {name} kernels in {calls} calls")
+    return statistics.median(durs)
+
+
+def phase_rmsnorm(torch):
+    """Phase 8's B6 part: the counts of one driven run of
+    ``ops.norm_and_quantize`` (and the profiler's one kernel a call), then
+    the sweep: per shape and type the kernel bit-equal to its model and
+    within one code of its plain version, timed in RMSNORM_ROUNDS rounds by
+    events beside an empty kernel on the same grid, by the profiler, and
+    beside ``F.rms_norm``, the plain version and the byte bound."""
+    from repro_torch.kernels import quant_rmsnorm as B6
+    from repro_torch.kernels.ops import norm_and_quantize
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    kw = dict(eps=1e-6, qmax=255.0)
     inputs = {}
-    for m, d in shapes:
+    for m, d in RMSNORM_SWEEP:
         x = torch.randn((m, d), generator=gen, device=dev) * 2
         g = torch.randn((d,), generator=gen, device=dev) * 0.1 + 1.0
         inputs[(m, d)] = (x, g)
+
+    # ops.norm_and_quantize, its entry point: the counts of one driven run,
+    # then one kernel a call by name, with Python-number and device-scalar
+    # quantizers
+    driven = [inputs[s] for s in RMSNORM_DRIVEN]
     torch.cuda.synchronize()
     reset_counts()
-    for x, g in inputs.values():
-        norm_and_quantize(x, g, 0.02, 128, block_m=256)
+    for x, g in driven:
+        norm_and_quantize(x, g, 0.02, 128, block_m=x.shape[0])
     torch.cuda.synchronize()
-    b6_launches = read_counts()["quant_rmsnorm"]
-    check(b6_launches == len(shapes), f"{b6_launches} quant_rmsnorm launches through "
-                                      f"norm_and_quantize, expected {len(shapes)}")
-    b6_rows, b6_err = [], 0
-    for (m, d), (x, g) in inputs.items():
-        for dtype in (torch.float32, torch.bfloat16):
+    launches = read_counts()["quant_rmsnorm"]
+    check(launches == len(driven), f"{launches} quant_rmsnorm launches through "
+                                   f"norm_and_quantize, expected {len(driven)}")
+    s_dev = torch.tensor(0.02, device=dev)
+    z_dev = torch.tensor(128.0, device=dev)
+    def both():
+        for x, g in driven:
+            norm_and_quantize(x, g, 0.02, 128, block_m=x.shape[0])
+            norm_and_quantize(x, g, s_dev, z_dev, block_m=x.shape[0])
+
+    prof, _ = profile_complete(torch, both)
+    kernels = traced_kernels(torch, prof.events())
+    named = sum("quant_rmsnorm_" in e.name for e in kernels)
+    check(named == len(kernels) == 2 * len(driven),
+          f"norm_and_quantize: the profiler saw {len(kernels)} kernels, {named} of them B6, "
+          f"in {2 * len(driven)} calls")
+    print(f"[b6] norm_and_quantize at {RMSNORM_DRIVEN}: {launches} launches counted; the "
+          f"profiler saw {named} device kernels in {2 * len(driven)} calls, all B6 (Python "
+          f"numbers and device scalars)")
+
+    cases = [(m, d, 0, dtype) for m, d in RMSNORM_SWEEP
+             for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(m, d, off, torch.float32) for m, d, off in RMSNORM_STAGED]
+    rows, max_err = [], 0
+    for m, d, offset, dtype in cases:
+        if offset:  # a view at an offset into a larger buffer
+            buf = torch.randn((m * d + offset,), generator=gen, device=dev) * 2
+            xd = buf[offset:].view(m, d)
+            g = torch.randn((d,), generator=gen, device=dev) * 0.1 + 1.0
+        elif (m, d) in inputs:
+            x, g = inputs[(m, d)]
             xd = x.to(dtype).contiguous()
-            qp = B6.quantizer_pair(0.02, 128, dev)
-            kw = dict(eps=1e-6, qmax=255.0)
-            y = B6.quant_rmsnorm_kernel(xd, g, qp, **kw)
-            r = B6.quant_rmsnorm_plain(xd, g, qp, **kw)
-            torch.cuda.synchronize()
-            diff = (y.to(torch.int32) - r.to(torch.int32)).abs()
-            off = float((diff > 0).float().mean())
-            b6_err = max(b6_err, int(diff.max()))
-            check(int(diff.max()) <= 1 and off < 0.01,
-                  f"B6 != plain at ({m}, {d}) {dtype}: max {int(diff.max())} code(s), "
-                  f"{off:.4f} of elements off")
-            bms, by = rmsnorm_bound_ms(m, d, xd.element_size())
-            row = {"M": m, "D": d, "dtype": str(dtype).split(".")[-1], "codes_off": off,
-                   "ms": time_ms(torch, lambda: B6.quant_rmsnorm_kernel(xd, g, qp, **kw),
-                                 flush=flush),
-                   "plain_ms": time_ms(torch, lambda: B6.quant_rmsnorm_plain(xd, g, qp, **kw),
-                                       flush=flush),
-                   "rms_norm_ms": time_ms(torch, lambda: torch.nn.functional.rms_norm(
-                       xd, (d,), g.to(dtype), 1e-6), flush=flush),
-                   "library_ms": None, "bound_ms": bms, "bound_by": by}
-            b6_rows.append(row)
-            print(f"[b6] ({m}, {d}) {row['dtype']}: within one code of plain on {off:.5f} of "
-                  f"elements; kernel {row['ms']:.5f} ms  plain {row['plain_ms']:.5f} ms  "
-                  f"F.rms_norm alone {row['rms_norm_ms']:.5f} ms  bound {bms:.5f} ms ({by})")
-    return {"b4": (b4_rows, b4_err), "b5": (b5_rows, b5_err),
-            "b6": (b6_rows, b6_err, b6_launches)}
+        else:
+            xd = torch.randn((m, d), generator=gen, device=dev).to(dtype) * 2
+            g = torch.randn((d,), generator=gen, device=dev) * 0.1 + 1.0
+        gd = g.to(dtype)
+        qp = B6.quantizer_pair(0.02, 128, dev)
+        y = B6.quant_rmsnorm_kernel(xd, g, 0.02, 128, **kw)
+        plan = B6.quant_rmsnorm.last_plan
+        model = B6.quant_rmsnorm_model(xd, g, qp, plan, **kw)
+        r = B6.quant_rmsnorm_plain(xd, g, qp, **kw)
+        torch.cuda.synchronize()
+        name = (f"({m}, {d}) {str(dtype).split('.')[-1]}"
+                + (f" at offset {offset}" if offset else ""))
+        check(torch.equal(y, model), f"B6 != its model at {name}: "
+                                     f"{int((y != model).sum())} codes differ")
+        diff = (y.to(torch.int32) - r.to(torch.int32)).abs()
+        off = float((diff > 0).float().mean())
+        max_err = max(max_err, int(diff.max()))
+        check(int(diff.max()) <= 1 and off < 0.01,
+              f"B6 != plain at {name}: max {int(diff.max())} code(s), {off:.4f} of "
+              f"elements off")
+        bms, by = rmsnorm_bound_ms(m, d, xd.element_size())
+
+        def kern():
+            return B6.quant_rmsnorm_kernel(xd, g, 0.02, 128, **kw)
+
+        def floor():
+            return B6.quant_rmsnorm_floor(xd, g)
+
+        ms, floor_ms = [], []
+        for _ in range(RMSNORM_ROUNDS):
+            ms.append(time_ms(torch, kern, flush=flush))
+            floor_ms.append(time_ms(torch, floor, flush=flush))
+        row = {"M": m, "D": d, "dtype": str(dtype).split(".")[-1], "offset": offset,
+               "codes_off": off,
+               "plan": f"vec {plan.vec}, {plan.threads} threads a row, {plan.per_thread} "
+                       f"slots, block {plan.block}"
+                       + (f", staged ({plan.held} vectors held)" if plan.staged else ""),
+               "ms": statistics.median(ms), "ms_rounds": ms,
+               "floor_ms": statistics.median(floor_ms), "floor_ms_rounds": floor_ms,
+               "kernel_us": rmsnorm_profile_us(torch, kern, flush, "quant_rmsnorm_"),
+               "floor_kernel_us": rmsnorm_profile_us(torch, floor, flush, "empty_probe"),
+               "plain_ms": time_ms(torch, lambda: B6.quant_rmsnorm_plain(xd, g, qp, **kw),
+                                   reps=10, flush=flush),
+               "rms_norm_ms": time_ms(torch, lambda: torch.nn.functional.rms_norm(
+                   xd, (d,), gd, 1e-6), flush=flush),
+               "library_ms": None, "bound_ms": bms, "bound_by": by}
+        row["bound_share"] = bms / (1e-3 * row["kernel_us"])
+        rows.append(row)
+        print(f"[b6] {name}: bit-equal to its model, within one code of plain on {off:.5f} "
+              f"of elements; {row['plan']}; kernel {row['ms']:.5f} ms ({min(ms):.5f}-"
+              f"{max(ms):.5f} over {RMSNORM_ROUNDS} rounds), {row['kernel_us']:.3f} us by the "
+              f"profiler ({100 * row['bound_share']:.1f}% of the bound); empty kernel on its "
+              f"grid {row['floor_ms']:.5f} ms, {row['floor_kernel_us']:.3f} us; F.rms_norm "
+              f"alone {row['rms_norm_ms']:.5f} ms; plain {row['plain_ms']:.5f} ms; bound "
+              f"{bms:.5f} ms ({by})")
+    rmsnorm_targets(rows)
+    return rows, max_err, launches
+
+
+def rmsnorm_host_us(torch, gen, rounds: int = 6, calls: int = 2000) -> float:
+    """Host time of one ``norm_and_quantize`` call at (4, 960) f32 with
+    Python-number quantizers, median us a call over ``rounds`` runs of
+    ``calls`` calls: the card runs each kernel in a few us, faster than
+    the host enqueues them, so a run's wall time is the host's. Taken
+    before any profiler trace: traces earlier in a process raise it."""
+    from repro_torch.kernels.ops import norm_and_quantize
+
+    x = torch.randn((BATCH, 960), generator=gen, device="cuda")
+    g = torch.randn((960,), generator=gen, device="cuda")
+
+    def fn():
+        norm_and_quantize(x, g, 0.02, 128, block_m=BATCH)
+
+    fn()
+    times = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        times.append(1e6 * (time.perf_counter() - t) / calls)
+    host = statistics.median(times)
+    print(f"[b6] wrapper host time a call (norm_and_quantize at ({BATCH}, 960) f32, Python-number "
+          f"quantizers, median of {rounds} rounds of {calls}): {host:.3f} us")
+    return host
+
+
+def rmsnorm_targets(rows) -> None:
+    """Print B6's targets, met or missed: profiler time at least 70% of the
+    byte bound where the bound is at least 15 us; events faster than
+    F.rms_norm alone where it is at least 2 us; events within 1 us of the
+    empty kernel at (4, 960) and (256, 960)."""
+    def say(what, sel, ok):
+        hit = [r for r in rows if sel(r)]
+        bad = [f"({r['M']}, {r['D']}) {r['dtype']}" for r in hit if not ok(r)]
+        print(f"[b6-target] {what}: {'met' if not bad else 'missed at ' + ', '.join(bad)} "
+              f"({len(hit) - len(bad)} of {len(hit)} shapes)")
+    say("kernel time >= 70% of the byte bound where the bound >= 15 us",
+        lambda r: r["bound_ms"] >= 0.015, lambda r: r["bound_share"] >= 0.7)
+    say("events faster than F.rms_norm alone where the bound >= 2 us",
+        lambda r: r["bound_ms"] >= 0.002, lambda r: r["ms"] < r["rms_norm_ms"])
+    say("events within 1 us of the empty kernel at (4, 960) and (256, 960)",
+        lambda r: (r["M"], r["D"]) in ((4, 960), (256, 960)),
+        lambda r: r["ms"] - r["floor_ms"] <= 0.001)
 
 
 # ---------------------------------------------------------------------------
@@ -1972,10 +2206,11 @@ def sparse_kernel_record(rows, max_err, launches):
     }
 
 
-def rmsnorm_record(rows, max_err, launches):
+def rmsnorm_record(rows, max_err, launches, host):
     """One record for quant_rmsnorm (B6): the (256, 960) float32 call (one
-    smollm-360m prefill of 4 x 64 tokens); every shape and type beside."""
-    main = rows[0]
+    smollm-360m prefill of 4 x 64 tokens); every shape and type of the
+    sweep beside, and the wrapper's host time a call."""
+    main = next(r for r in rows if (r["M"], r["D"], r["dtype"]) == (256, 960, "float32"))
     return {
         "name": "quant_rmsnorm",
         "route": "cuda",
@@ -1990,11 +2225,13 @@ def rmsnorm_record(rows, max_err, launches):
         "bound_by": main["bound_by"],
         "library_ms": None,
         "rms_norm_ms": main["rms_norm_ms"],
-        "timed_as": f"one call at ({main['M']}, {main['D']}) {main['dtype']}, cold L2, through "
-                    f"ops.norm_and_quantize's kernel; no single PyTorch call computes it "
-                    f"(rms_norm_ms: F.rms_norm alone, for scale); launches: one run of "
-                    f"norm_and_quantize at the 3 shapes, the only entry point that reaches it",
+        "timed_as": f"one call at ({main['M']}, {main['D']}) {main['dtype']}, cold L2, median "
+                    f"of {RMSNORM_ROUNDS} rounds, through ops.norm_and_quantize's kernel; no "
+                    f"single PyTorch call computes it (rms_norm_ms: F.rms_norm alone, for "
+                    f"scale); launches: one run of norm_and_quantize at "
+                    f"{len(RMSNORM_DRIVEN)} shapes, the only entry point that reaches it",
         "shapes": rows,
+        "wrapper_host_us": host,
     }
 
 
@@ -2040,12 +2277,14 @@ def main() -> int:
 
     phase_card(torch)
     rows, max_err, host = phase_kernel(torch)
+    b6_host = rmsnorm_host_us(torch, torch.Generator(device="cuda").manual_seed(0))
     launches = phase_slice(torch)
     gpfq_rows, gpfq_err = phase_gpfq(torch)
     calib = phase_calibration(torch)
     paged_rows, paged_err = phase_paged_kernels(torch)
     paged = phase_paged_slice(torch)
     sparse_k = phase_sparse_kernels(torch, gpfq_rows)
+    b6 = phase_rmsnorm(torch)
     sparse = phase_sparse_slice(torch, calib, paged)
     print(json.dumps({"kernels": [
         kernel_record(rows, max_err, launches, host),
@@ -2056,7 +2295,7 @@ def main() -> int:
         sparse_kernel_record(*sparse_k["b4"], sparse["serve_launches"]),
         gpfq_record(gpfq_rows, gpfq_err, calib["launches"], *sparse_k["b5"],
                     sparse["calib_launches"]),
-        rmsnorm_record(*sparse_k["b6"])]}))
+        rmsnorm_record(*b6, b6_host)]}))
     # one card: every phase runs on cuda:0
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

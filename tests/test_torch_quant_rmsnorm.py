@@ -2,7 +2,8 @@
 ``repro_torch.kernels.ops.norm_and_quantize`` and
 ``repro_torch.kernels.ref.quant_rmsnorm_ref`` against the reference's
 ``norm_and_quantize`` (Pallas, interpret mode) and ``quant_rmsnorm_ref``, at
-the shapes of ``tests/test_kernels.py:138``, on the same numpy inputs.
+the shapes of ``tests/test_kernels.py:138`` and at the registry's widest
+row (llama3-405b's d_model 16384), on the same numpy inputs.
 
 Tolerance: the reference test's own bound, the codes exact or within one
 code on under 1% of the elements. The kernel multiplies by 1/act_scale
@@ -28,7 +29,8 @@ def _within_one_code(a, b):
     assert diff.max() <= 1 and (diff > 0).mean() < 0.01, (diff.max(), (diff > 0).mean())
 
 
-@pytest.mark.parametrize("m,d,bm", [(128, 64, 64), (256, 128, 128), (64, 32, 64)])
+@pytest.mark.parametrize("m,d,bm", [(128, 64, 64), (256, 128, 128), (64, 32, 64),
+                                    (8, 16384, 8)])
 def test_norm_and_quantize_matches_reference(m, d, bm, rng):
     x = (rng.normal(size=(m, d)) * 2).astype(np.float32)
     g = (rng.normal(size=(d,)) * 0.1 + 1.0).astype(np.float32)
@@ -66,4 +68,4 @@ def test_quantizer_constants_and_refusals(rng):
     with pytest.raises(AssertionError):  # the reference refuses the same call
         j_norm_and_quantize(jnp.asarray(x.numpy()), jnp.ones(32), 0.02, 128, interpret=True)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        B6.quant_rmsnorm_kernel(x, g, qp, eps=1e-6, qmax=255.0)
+        B6.quant_rmsnorm_kernel(x, g, 0.02, 128, eps=1e-6, qmax=255.0)

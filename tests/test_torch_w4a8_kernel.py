@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.core.sparsity import mask_2to4
 from repro_torch.kernels import w4a8_mm as W
+from test_torch_trace import complete_trace, traced_kernels
 
 #: (K, N) of the 7 packed sites of one smollm-360m layer
 SMOLLM_SITES = [(960, 960), (960, 320), (960, 2560), (2560, 960)]
@@ -517,8 +518,6 @@ def test_cuda_kernel_never_synchronizes(m, rng, cuda_device):
 def test_cuda_kernel_one_launch_a_call(rng, cuda_device):
     """The profiler sees exactly one kernel a call, by name, at decode and
     prefill M and with and without a K split."""
-    from torch.profiler import ProfilerActivity, profile
-
     cases = [(4, 960, 320), (4, 2560, 960), (256, 960, 2560), (256, 2560, 960)]
     ops = [_operands(rng, m, k, n, False, cuda_device) for m, k, n in cases]
     args = []
@@ -528,11 +527,12 @@ def test_cuda_kernel_one_launch_a_call(rng, cuda_device):
         W.w4a8_matmul_kernel(o["x"], o["dense"], sw, corr)
         W.w4a8_sparse_matmul_kernel(o["x"], o["packed"], o["meta"], sw, corr)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def calls():
         for o, sw, corr in args:
             W.w4a8_matmul_kernel(o["x"], o["dense"], sw, corr)
             W.w4a8_sparse_matmul_kernel(o["x"], o["packed"], o["meta"], sw, corr)
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    events = traced_kernels(complete_trace(calls).key_averages())
     assert sum(e.count for e in events if "w4a8_kernel" in e.key) == 2 * len(cases)
     assert sum(e.count for e in events) == 2 * len(cases), [e.key for e in events]
