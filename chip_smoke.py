@@ -24,11 +24,22 @@ result unless every phase passed):
    since earlier traces in a process raise a call's host time;
 3. the slice: smollm-360m at full width (32 layers, d_model 960, bf16,
    seeded random init), RTN-packed, greedy ``GenerationEngine.generate`` of
-   batch 4 x prompt 64 + 16 new tokens. The kernel's launch counter must
-   rise by 7 sites x 32 layers x 16 forwards = 3584 over that run (224 of
-   them in the prefill, at M = 256), and the same generate on the
-   ``reference`` backend must give identical tokens. The profiled decode
-   step's w4a8 kernels, counted by name, must equal the launch counter's 224.
+   batch 4 x prompt 64 + 16 new tokens: an eager prefill, then 15 replays
+   of the bucket's decode step, captured once as a CUDA graph by the
+   engine's first call. The kernel's launch counter (which adds, per
+   replay, what the capture recorded) must rise by 7 sites x 32 layers x
+   16 forwards = 3584 over that run (224 of them in the prefill, at M =
+   256); its tokens must equal the eager ``generate_host_loop``'s and the
+   ``reference`` backend's; one generate's decode runs under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync between the
+   prefill and the final read). The profiled eager decode step's and the
+   profiled replay's w4a8 kernels, counted by name, must each equal the
+   launch counter's 224 (a replay's trace counts only when it holds a
+   device record for every node of the graph). It prints the captured
+   generate and the eager host loop timed in turns, a replayed and an
+   eager decode step in turns (median and spread of 6 runs each), the
+   capture time, the memory the bucket holds and peak memory with and
+   without the graph, and the card's busy share of a replayed step.
 
 4. the GPFQ panel solver (``gpfq_solve``, kernel B5) against its plain
    version on the card at the (K, C) shapes of one smollm-360m layer —
@@ -60,8 +71,9 @@ result unless every phase passed):
    share and its sum per layer) — then the
    exported v2 artifact, written with ``save_pytree`` and loaded back,
    served greedy (batch 4 x prompt 64 + 16 new, B1 with float32 output and
-   the calibrated static activation quantizers): exactly 3584 B1 launches
-   and tokens identical to the ``reference`` backend;
+   the calibrated static activation quantizers) through the captured
+   decode step: exactly 3584 B1 launches and tokens identical to the
+   ``reference`` backend and to the eager host loop;
 6. the paged decode-attention kernels (B2 ``paged_decode_attention`` on
    float pages, B3 on int8 pages) against their plain versions on the card
    over the reference sweep's shapes (hd 16, 7 and 11, bs 8/16/128, ragged,
@@ -83,21 +95,29 @@ result unless every phase passed):
    yardstick; the port never calls it) and the first kernels' time;
 7. the paged slice: smollm-360m at full width, bf16, RTN-packed, through
    ``PagedEngine`` (block 64, 64 pages, 4 slots, chunks of 8, attention
-   ``auto``): (a) 4 x prompt 64 + 16 new against ``GenerationEngine``,
-   tokens identical or tie-limited; (b) 12 requests of seeded lengths
+   ``auto``), every decode chunk replaying the engine's one captured step:
+   (a) 4 x prompt 64 + 16 new against ``GenerationEngine``, tokens
+   identical or tie-limited, and identical to the eager chunk's (the
+   logits of the tie-limited comparisons are recorded on the eager chunk,
+   which reads them to the host); (b) 12 requests of seeded lengths
    (prompts 8-300, 4-32 new) admitted mid-flight into 4 slots, float then
-   int8 KV (with the B3 watermark check): B2/B3 launches exactly 32 per
-   decode step, B1 launches 224 per forward, every page back on the free
-   list, equal allocator digests; (c) the prefix cache: six requests over a
-   shared 128-token prefix and one fully cached prompt, warm streams
-   against a cold engine's (identical or tie-limited), the cached admit
-   adding 0 to every kernel counter. It prints decode-step time, tokens/s,
-   admit time, peak memory and a profiler breakdown of 8 decode steps (a
-   trace each; a step whose trace lost device kernel records is run but
-   not counted), whose w4a8 kernels, counted by name, must equal the
-   launch counter's 224 a step. Every count by name is taken on a trace
-   that holds a device record for each launch it recorded (phase 3 and
-   phase 8 profile a call again until one does).
+   int8 KV (with the B3 watermark check), each engine warmed by one short
+   request that captures its step: B2/B3 launches exactly 32 per decode
+   step, B1 launches 224 per forward, every page back on the free list,
+   equal allocator digests, and streams, digest and watermarks equal to
+   the same trace through the eager chunk; then a decode chunk over 4 live
+   slots replayed and eager in turns (6 each), float and int8; (c) the
+   prefix cache: six requests over a shared 128-token prefix and one fully
+   cached prompt, warm streams against a cold engine's (identical or
+   tie-limited; both equal to the eager chunk's), the cached admit adding
+   0 to every kernel counter. It prints decode-step time, tokens/s, admit
+   time, capture time, peak memory and a profiler breakdown of 8 replayed
+   decode steps (a trace each; a step whose trace lost device kernel
+   records is run but not counted), whose w4a8 kernels, counted by name,
+   must equal the launch counter's 224 a step. Every count by name is
+   taken on a trace that holds a device record for each launch it
+   recorded, and for each graph node of each replay (phase 3 and phase 8
+   profile a call again until one does).
 
 8. the 2:4 kernels: B4 (``w4a8_sparse_matmul``) at phase 2's shapes,
    uint8 and int8 codes, bit-equal to its plain version and to B1 on the
@@ -124,16 +144,19 @@ result unless every phase passed):
    ``PTQConfig(sparsity="2:4")`` (exactly 224 masked B5 launches, 224 sites
    certified at sparsity 2:4, each site's register floor beside phase 5's
    dense one), its artifact saved, loaded and served greedy (batch 4 x
-   prompt 64 + 16 new): exactly 3584 B4 launches and 0 B1, tokens identical
-   to the ``reference`` backend; then the bf16 model RTN-packed with
-   ``DatapathSpec(sparsity="2:4")`` through ``PagedEngine`` over phase 7's
-   12-request trace: B4 launches 224 per forward, 0 B1, every page back on
-   the free list. It prints decode-step time, tokens/s, peak memory and
+   prompt 64 + 16 new) through the captured step: exactly 3584 B4 launches
+   and 0 B1, tokens identical to the ``reference`` backend and the eager
+   host loop; then the bf16 model RTN-packed with
+   ``DatapathSpec(sparsity="2:4")`` through ``PagedEngine`` (its step
+   captured by a warm-up request) over phase 7's 12-request trace: B4
+   launches 224 per forward, 0 B1, every page back on the free list. It
+   prints decode-step time, tokens/s, peak memory and
    ``packed_weight_bytes`` dense vs 2:4.
 
 Before driving a path, every launch counter is set to 0, and the counts are
 read just after it. Phase 3 ends with a ``torch.profiler`` breakdown of one
-decode step (the device's busy share and the kernel's part of it). The line
+eager and one replayed decode step (the device's busy share and the
+kernel's part of it). The line
 before the last is a JSON object describing each kernel; the last line is
 the device JSON ``{"ok": true, "device": {...}}``.
 """
@@ -341,51 +364,48 @@ def w4a8_seen(kernels) -> int:
     return sum(e.count for e in kernels if "w4a8_kernel" in e.key)
 
 
-#: kernel launch records of the CUDA runtime and driver APIs in a trace
-LAUNCH_RECORD = re.compile(r"cu(da)?LaunchKernel")
-#: short device sleeps that open every trace before the traced work
-TRACE_WARMUP = 16
+def traced(torch, fn, graph_ops=None):
+    """``fn`` under torch.profiler (CPU and CUDA activities): WARMUP short
+    device sleeps (``spin_kernel``) and a synchronize first, then ``fn`` and
+    a synchronize. Returns (profiler, fn's result, complete): complete is
+    ``repro_torch.trace.launches_recorded``, which says every kernel launch
+    that ``fn`` recorded on the host has a device record, and every CUDA
+    graph replay (one ``cudaGraphLaunch`` host record) has ``graph_ops``
+    device records under its correlation id, one per kernel, copy and fill
+    node of the captured graph (a replay with no ``graph_ops`` given is never
+    complete). With torch 2.11 and driver 580.159.03 on an H100 the profiler
+    can lose the device records of a trace's first kernels (more of them
+    after earlier traces in the process) and now and then others; it keeps
+    the host's launch records, so a count by name is exact only on a
+    complete trace."""
+    from repro_torch.trace import WARMUP, launches_recorded
 
-
-def traced(torch, fn):
-    """``fn`` under torch.profiler (CPU and CUDA activities): TRACE_WARMUP
-    short device sleeps (``spin_kernel``) and a synchronize first, then
-    ``fn`` and a synchronize. Returns (profiler, fn's result, complete):
-    complete says every kernel launch that ``fn`` recorded on the host has
-    a device record. With torch 2.11 and driver 580.159.03 on an H100 the
-    profiler can lose the device records of a trace's first kernels (more
-    of them after earlier traces in the process) and now and then others;
-    it keeps the host's launch records, so a count by name is exact only on
-    a complete trace."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(TRACE_WARMUP):
+        for _ in range(WARMUP):
             torch.cuda._sleep(20_000)
         torch.cuda.synchronize()
         out = fn()
         torch.cuda.synchronize()
-    cpu = torch.autograd.DeviceType.CPU
-    events = prof.profiler.kineto_results.events()
-    launches = sorted((e.start_ns(), e.correlation_id()) for e in events
-                      if e.device_type() == cpu and LAUNCH_RECORD.match(e.name()))
-    recorded = {e.correlation_id() for e in events if e.device_type() != cpu}
-    return prof, out, all(c in recorded for _, c in launches[TRACE_WARMUP:])
+    complete = launches_recorded(prof.profiler.kineto_results.events(), graph_ops=graph_ops)
+    return prof, out, complete
 
 
 def traced_kernels(torch, events):
     """The device records of a trace's events (``prof.events()`` or
     ``key_averages()``): kernels and copies, without the warm-up sleeps or
-    annotations."""
-    return [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.is_user_annotation and "spin_kernel" not in e.key]
+    annotations (``repro_torch.trace.traced_kernels``)."""
+    from repro_torch import trace
+
+    return trace.traced_kernels(events)
 
 
-def profile_complete(torch, fn, attempts: int = 4):
-    """``traced(fn)`` until its trace is complete, at most ``attempts``
-    times; ``fn`` must repeat the same work each time. Returns (profiler,
-    fn's result)."""
+def profile_complete(torch, fn, attempts: int = 4, graph_ops=None):
+    """``traced(fn, graph_ops)`` until its trace is complete, at most
+    ``attempts`` times; ``fn`` must repeat the same work each time. Returns
+    (profiler, fn's result)."""
     for _ in range(attempts):
-        prof, out, complete = traced(torch, fn)
+        prof, out, complete = traced(torch, fn, graph_ops)
         if complete:
             return prof, out
     check(False, f"the profiler lost device kernel records in {attempts} traces of one call")
@@ -413,6 +433,54 @@ def wall_ms(torch, fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
     return statistics.median(times)
+
+
+def spread_ms(times) -> dict:
+    """Median, min, max and spread (max - min) of host-clock times, ms."""
+    return {"median": statistics.median(times), "min": min(times), "max": max(times),
+            "spread": max(times) - min(times), "runs": len(times)}
+
+
+def fmt_spread(s: dict) -> str:
+    return (f"{s['median']:.3f} ms (min {s['min']:.3f}, max {s['max']:.3f}, spread "
+            f"{s['spread']:.3f}, {s['runs']} runs)")
+
+
+def in_turns(torch, fns: dict, runs: int, scale: float = 1.0) -> dict:
+    """Host-clock time of each of ``fns`` (name -> callable), ``runs``
+    times each, taken in turns within one process (a, b, b, a, ...), each
+    run ending in a synchronize; divided by ``scale``. Returns name ->
+    :func:`spread_ms`."""
+    names = list(fns)
+    times = {n: [] for n in names}
+    for r in range(runs):
+        for n in (names if r % 2 == 0 else names[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[n]()
+            torch.cuda.synchronize()
+            times[n].append(1e3 * (time.perf_counter() - t0) / scale)
+    return {n: spread_ms(t) for n, t in times.items()}
+
+
+def sync_checked_generate(torch, engine, prompts):
+    """``engine.generate`` with its decode (every step between the prefill
+    and the final read of the tokens) under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host sync there raises."""
+    decode = engine._decode
+
+    def guarded(bucket, n):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            decode(bucket, n)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    engine._decode = guarded
+    try:
+        return engine.generate(prompts, MAX_NEW)
+    finally:
+        del engine._decode  # the class's method again
 
 
 def decode_step_ms(torch, model, prompts, out) -> float:
@@ -596,13 +664,26 @@ def phase_slice(torch):
     from repro_torch.models.layers import use_packed_backend
     from repro_torch.quant.serve_packed import pack_decode_params, packed_weight_bytes
     from repro_torch.serving import GenerationEngine, SamplerConfig
+    from repro_torch.trace import replay_spans_ns
 
     cfg = get_config("smollm-360m")
     model = pack_decode_params(T.init_model(cfg, 0, device="cuda"))
     prompts = TokenBatcher(DataConfig(vocab=cfg.vocab, seq_len=PROMPT,
                                       global_batch=BATCH, seed=0)).batch(0)["tokens"]
     engine = GenerationEngine(model, cfg, SamplerConfig(temperature=0.0), device="cuda")
-    engine.generate(prompts, MAX_NEW)  # warm-up (allocator, cuBLAS handles)
+    # what the bucket holds: its buffers, the capture stream's cuBLAS
+    # workspace and the graph's private pool (which empty_cache keeps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    held0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    engine.generate(prompts, MAX_NEW)  # builds the bucket and captures its step
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = (torch.cuda.memory_allocated() - held0[0], torch.cuda.memory_reserved() - held0[1])
+    (bucket,) = engine._buckets.values()
+    program = bucket.program
+    check(program.graph is not None and engine.gen_traces == 1,
+          "the first generate did not capture its bucket's step")
     reset_peak(torch)
 
     reset_counts()
@@ -616,11 +697,24 @@ def phase_slice(torch):
     peak = torch.cuda.max_memory_allocated()
     expected = 7 * cfg.n_layers * MAX_NEW
     check(launches == expected, f"{launches} w4a8 launches, expected {expected}")
+    check(program.rise[0] == 7 * cfg.n_layers and engine.gen_traces == 1,
+          f"a replay adds {program.rise[0]} w4a8 launches, expected {7 * cfg.n_layers}")
     check(out.shape == (BATCH, PROMPT + MAX_NEW), f"output shape {out.shape}")
     check(bool(((out >= 0) & (out < cfg.vocab)).all()), "token out of the vocabulary")
+    reset_peak(torch)
+    host = engine.generate_host_loop(prompts, MAX_NEW)
+    peak_eager = torch.cuda.max_memory_allocated()
+    check((out == host).all(), "the captured generate and the eager host loop disagree")
     ref_out = GenerationEngine(model, cfg, SamplerConfig(temperature=0.0), device="cuda",
                                backend="reference").generate(prompts, MAX_NEW)
     check((out == ref_out).all(), "kernel and reference backends disagree on tokens")
+    synced = sync_checked_generate(torch, engine, prompts)
+    check((synced == out).all(), "the generate under sync-debug differs")
+
+    # the captured generate against the eager host loop, in turns
+    gen_t = in_turns(torch, {"graph": lambda: engine.generate(prompts, MAX_NEW),
+                             "host_loop": lambda: engine.generate_host_loop(prompts, MAX_NEW)},
+                     runs=6)
 
     # per-phase times, and the packed path against the dequant one
     tokens = torch.as_tensor(prompts, device="cuda")
@@ -633,8 +727,13 @@ def phase_slice(torch):
         step_tok = torch.as_tensor(out[:, PROMPT:PROMPT + 1], device="cuda")
         prefill_ms = wall_ms(torch, lambda: T.prefill(model, {"tokens": tokens},
                                                       PROMPT + MAX_NEW), reps=5)
-        decode_ms = wall_ms(torch, lambda: T.decode_step(model, step_tok, caches, PROMPT),
-                            reps=10)
+        # one eager decode step (at one position) and one replay of the
+        # captured step (each at the next position), in turns
+        engine._start(bucket, tokens)
+        step_t = in_turns(torch, {
+            "eager": lambda: T.decode_step(model, step_tok, caches, PROMPT),
+            "replay": lambda: program.run(1)}, runs=6)
+        decode_ms = step_t["eager"]["median"]
         check(bool(torch.isfinite(logits.float()).all()), "non-finite prefill logits")
         with use_packed_backend("dequant"):
             dq, _ = T.prefill(model, {"tokens": tokens}, PROMPT + MAX_NEW)
@@ -661,10 +760,42 @@ def phase_slice(torch):
         check(seen == step_launches == 7 * cfg.n_layers,
               f"the profiler saw {seen} w4a8 kernels in a decode step, the launch counter "
               f"{step_launches}, expected {7 * cfg.n_layers}")
-        print(f"[profile] one decode step: device busy {busy_ms:.3f} ms "
+        print(f"[profile] one eager decode step: device busy {busy_ms:.3f} ms "
               f"({100 * busy_ms / decode_ms:.1f}% of the {decode_ms:.3f} ms step), "
               f"w4a8 kernels {w4a8_ms:.3f} ms; by name {seen}, launch counter "
               f"{step_launches}")
+
+        # one replay of the captured step under the profiler: complete when
+        # the replay holds a device record for every node of the graph
+        engine._start(bucket, tokens)
+
+        def counted_replay():
+            # the replay's own wall: launch to the end of its synchronize,
+            # from an idle card (traced synchronizes before it)
+            reset_counts()
+            t0 = time.perf_counter()
+            program.run(1)
+            torch.cuda.synchronize()
+            return read_counts()["w4a8_matmul"], 1e3 * (time.perf_counter() - t0)
+
+        prof_r, (replay_launches, replay_wall) = profile_complete(
+            torch, counted_replay, graph_ops=program.device_ops)
+        kernels_r = traced_kernels(torch, prof_r.key_averages())
+        busy_r = sum(e.self_device_time_total for e in kernels_r) / 1e3
+        (span_r,) = replay_spans_ns(prof_r.profiler.kineto_results.events())
+        span_r /= 1e6
+        w4a8_r = sum(e.self_device_time_total for e in kernels_r if "w4a8_kernel" in e.key) / 1e3
+        seen_r = w4a8_seen(kernels_r)
+        check(seen_r == replay_launches == 7 * cfg.n_layers,
+              f"the profiler saw {seen_r} w4a8 kernels in a replayed decode step, the launch "
+              f"counter {replay_launches}, expected {7 * cfg.n_layers}")
+        print(f"[profile] one replayed decode step ({program.device_ops} device operations in "
+              f"the graph, every one recorded), all from this trace: device busy "
+              f"{busy_r:.3f} ms = {100 * busy_r / replay_wall:.1f}% of the replay's own "
+              f"{replay_wall:.3f} ms wall (launch to synchronize) and "
+              f"{100 * busy_r / span_r:.1f}% of its {span_r:.3f} ms device span (first "
+              f"kernel's start to last one's end); w4a8 kernels {w4a8_r:.3f} ms; by name "
+              f"{seen_r}, launch counter {replay_launches}")
 
     head_bytes = cfg.vocab_padded * cfg.d_model * 2
     step_bytes = packed_weight_bytes(cfg)["packed_code_bytes"] + head_bytes
@@ -672,10 +803,26 @@ def phase_slice(torch):
           f"bf16), batch {BATCH} x prompt {PROMPT} + {MAX_NEW} new, greedy")
     print(f"[slice] w4a8 launches in one generate: {launches} (= 7 x {cfg.n_layers} x "
           f"{MAX_NEW}: {prefill_launches} in the prefill at M={BATCH * PROMPT}, "
-          f"{launches - prefill_launches} at M={BATCH}); tokens identical to the reference "
-          f"backend")
+          f"{launches - prefill_launches} at M={BATCH} in {MAX_NEW - 1} replays of the "
+          f"captured step, {program.rise[0]} a replay); tokens identical to the eager host "
+          f"loop and to the reference backend; the decode of a generate ran under "
+          f"set_sync_debug_mode('error')")
     print(f"[slice] generate wall {wall:.4f} s, {BATCH * MAX_NEW / wall:.1f} tok/s; "
-          f"prefill {prefill_ms:.3f} ms, decode step {decode_ms:.3f} ms (host clock)")
+          f"prefill {prefill_ms:.3f} ms, decode step {decode_ms:.3f} ms eager (host clock)")
+    print(f"[graph] fixed-slot generate, in turns: captured {fmt_spread(gen_t['graph'])} "
+          f"= {1e3 * BATCH * MAX_NEW / gen_t['graph']['median']:.1f} tok/s; eager host loop "
+          f"{fmt_spread(gen_t['host_loop'])} = "
+          f"{1e3 * BATCH * MAX_NEW / gen_t['host_loop']['median']:.1f} tok/s")
+    print(f"[graph] fixed-slot decode step, in turns: replay {fmt_spread(step_t['replay'])}; "
+          f"eager {fmt_spread(step_t['eager'])}")
+    print(f"[graph] fixed-slot capture {1e3 * program.capture_s:.3f} ms (warm-up step, "
+          f"capture, node walk, instantiation; the walk that counts the graph's kernels by "
+          f"name {1e3 * program.walk_s:.3f} ms) for {program.device_ops} device operations; "
+          f"the bucket "
+          f"holds {held[0] / 2**20:.1f} MiB allocated, {held[1] / 2**20:.1f} MiB reserved "
+          f"(its graph's pool included); peak memory allocated: captured generate "
+          f"{peak / 2**20:.1f} MiB, "
+          f"eager host loop {peak_eager / 2**20:.1f} MiB")
     print(f"[slice] decode-step byte bound: {step_bytes / 1e6:.1f} MB (packed codes + bf16 "
           f"head) = {1e3 * step_bytes / HBM_BYTES_PER_S:.4f} ms at 3.35 TB/s")
     print(f"[slice] peak memory allocated {peak / 2**20:.1f} MiB; kernel-vs-dequant "
@@ -976,13 +1123,16 @@ def phase_calibration(torch):
     ref_out = GenerationEngine(served, cfg, SamplerConfig(temperature=0.0), device="cuda",
                                backend="reference").generate(prompts, MAX_NEW)
     check((out == ref_out).all(), "kernel and reference backends disagree on the artifact")
+    check((out == engine.generate_host_loop(prompts, MAX_NEW)).all(),
+          "the captured generate and the eager host loop disagree on the artifact")
     check(bool(((out >= 0) & (out < cfg.vocab)).all()), "token out of the vocabulary")
     step_ms = decode_step_ms(torch, served, prompts, out)
     print(f"[calib] artifact: {len(artifact)} leaves, {meta['datapath']}; served greedy batch "
           f"{BATCH} x prompt {PROMPT} + {MAX_NEW} new (float32, static activation "
-          f"quantizers): {serve_counts['w4a8_matmul']} w4a8 launches, tokens identical to the "
-          f"reference backend, {BATCH * MAX_NEW / gen_s:.1f} tok/s (wall {gen_s:.4f} s), "
-          f"decode step {step_ms:.3f} ms (host clock), peak memory {peak / 2**20:.1f} MiB")
+          f"quantizers): {serve_counts['w4a8_matmul']} w4a8 launches through the captured "
+          f"step, tokens identical to the reference backend and the eager host loop, "
+          f"{BATCH * MAX_NEW / gen_s:.1f} tok/s (wall {gen_s:.4f} s), eager decode step "
+          f"{step_ms:.3f} ms (host clock), peak memory {peak / 2**20:.1f} MiB")
     floors = {name: min_feasible_p_bits(ql.cert) for name, ql in qm.quantized_linears()}
     return {"launches": counts["gpfq_solve"], "wall_s": wall, "instrumented_wall_s": wall_i,
             "b5_s": b5_s, **spent,
@@ -1221,15 +1371,21 @@ def phase_paged_kernels(torch):
 # Phase 7: the paged slice on smollm-360m
 # ---------------------------------------------------------------------------
 class LogitRecorder:
-    """Records every row the paged engine samples, keyed (uid, step)."""
+    """Records every row ``engine`` samples, keyed (uid, step). The
+    recording reads each step's logits to the host, which a captured step
+    cannot do, so the engine's decode chunks run the same step eagerly
+    while it records (streams equal to the replays', which the callers
+    check)."""
 
-    def __init__(self):
+    def __init__(self, engine):
+        self.engine = engine
         self.rows = {}
 
     def __enter__(self):
         from repro_torch.serving import paged_engine as PE
 
         self._orig = PE.sample_rows
+        chunk = self.engine._chunk
 
         def spy(logits, temperature, seed, uids, steps):
             host = logits.float().cpu()
@@ -1238,12 +1394,14 @@ class LogitRecorder:
             return self._orig(logits, temperature, seed, uids, steps)
 
         PE.sample_rows = spy
+        self.engine._chunk = lambda k: chunk(k, eager=True)
         return self
 
     def __exit__(self, *exc):
         from repro_torch.serving import paged_engine as PE
 
         PE.sample_rows = self._orig
+        del self.engine._chunk  # the class's method again
 
 
 def tie_limited(streams, vocab: int) -> dict:
@@ -1335,6 +1493,39 @@ def trace_specs(cfg):
     return specs, rng
 
 
+def warm_paged(engine, prompt) -> None:
+    """One short request through ``engine``: its first decode chunk
+    captures the step, so later timings hold replays only."""
+    from repro_torch.serving import Request
+
+    engine.serve([Request(uid=10_000, prompt=prompt[:8], max_new=2)])
+    check(engine._program.graph is not None and engine.chunk_traces == 1,
+          "the paged warm-up did not capture the decode step")
+
+
+def paged_step_turns(torch, engine, prompts, runs: int = 6) -> dict:
+    """Per-step host-clock time of a decode chunk of PAGED_CHUNK steps over
+    PAGED_SLOTS live slots (prompts of PROMPT tokens), replayed and run
+    eagerly in turns on one engine; each chunk ends in its host read."""
+    import numpy as np
+    from repro_torch.models.layers import use_packed_backend
+    from repro_torch.serving import Request
+
+    sched = engine._make_scheduler()
+    for b in range(PAGED_SLOTS):
+        sched.submit(Request(uid=20_000 + b, prompt=np.asarray(prompts[b % len(prompts)]),
+                             max_new=2 * runs * PAGED_CHUNK + 1))
+    with torch.inference_mode(), use_packed_backend(engine.backend):
+        adm = sched.try_admit()
+        while adm is not None:
+            engine._do_admit(adm)
+            adm = sched.try_admit()
+        check(len(sched.active) == PAGED_SLOTS, "the timing slots were not all admitted")
+        return in_turns(torch, {"replay": lambda: engine._chunk(PAGED_CHUNK),
+                                "eager": lambda: engine._chunk(PAGED_CHUNK, eager=True)},
+                        runs=runs, scale=PAGED_CHUNK)
+
+
 def phase_paged_slice(torch):
     import numpy as np
     import torch.profiler
@@ -1370,20 +1561,23 @@ def phase_paged_slice(torch):
     reset_counts()
     t0 = time.perf_counter()
     eng_a = engine()
-    out = eng_a.generate(prompts, MAX_NEW)
+    out = eng_a.generate(prompts, MAX_NEW)  # its first chunk captures the step
     wall_a = time.perf_counter() - t0
     counts = read_counts()
     check(counts["paged_decode_attention"] == cfg.n_layers * eng_a.decode_steps,
           f"B2 launches {counts} for {eng_a.decode_steps} decode steps")
     check(counts["w4a8_matmul"] == sites * (eng_a.decode_steps + eng_a.admits),
           f"B1 launches {counts}")
+    check(eng_a.chunk_traces == 1 and eng_a._program.replays == eng_a.decode_steps - 1,
+          f"{eng_a._program.replays} replays for {eng_a.decode_steps} decode steps")
     fixed = GenerationEngine(model, cfg, greedy, device="cuda").generate(prompts, MAX_NEW)
     fixed_toks, fixed_logits = fixed_slot_run(torch, model, prompts, MAX_NEW)
     check((fixed_toks == fixed[:, PROMPT:]).all(), "the recorded fixed-slot run differs "
                                                    "from GenerationEngine.generate")
-    with LogitRecorder() as rec:
-        again = engine().generate(prompts, MAX_NEW)
-    check((again == out).all(), "two paged runs differ")
+    eng_r = engine()
+    with LogitRecorder(eng_r) as rec:
+        again = eng_r.generate(prompts, MAX_NEW)
+    check((again == out).all(), "the eager chunk and the replayed one differ")
     cmp_a = tie_limited([(out[b, PROMPT:], fixed_toks[b],
                           [rec.rows[(b, t)] for t in range(MAX_NEW)],
                           [fixed_logits[t][b] for t in range(MAX_NEW)])
@@ -1391,9 +1585,13 @@ def phase_paged_slice(torch):
     print(f"[paged-slice] (a) {BATCH} x prompt {PROMPT} + {MAX_NEW} new: {cmp_a['agree']} of "
           f"{cmp_a['total']} tokens agree with GenerationEngine (partings {cmp_a['partings']}, "
           f"tie band {cmp_a['band']:.4f}); B2 launches {counts['paged_decode_attention']} = "
-          f"{cfg.n_layers} x {eng_a.decode_steps} steps; {BATCH * MAX_NEW / wall_a:.1f} tok/s")
+          f"{cfg.n_layers} x {eng_a.decode_steps} steps ({eng_a._program.replays} replays of "
+          f"the captured step); tokens identical to the eager chunk's; "
+          f"{BATCH * MAX_NEW / wall_a:.1f} tok/s with the capture")
 
-    # (b) mid-flight admission, float then int8 KV
+    # (b) mid-flight admission, float then int8 KV, through the captured
+    # step (each engine warmed by one short request, which captures it),
+    # and the same trace through the eager chunk
     specs, rng = trace_specs(cfg)
 
     def trace():
@@ -1402,16 +1600,21 @@ def phase_paged_slice(torch):
     runs = {}
     for kv in ("act", "int8"):
         eng = engine(kv)
+        warm_paged(eng, specs[0][1])
+        before = {"steps": eng.decode_steps, "admits": eng.admits, "chunks": eng.chunks,
+                  "suffix": eng.suffix_admits}
         reset_peak(torch)
         reset_counts()
         res, wall, spent = serve_timed(torch, eng, trace())
         counts = read_counts()
         peak = torch.cuda.max_memory_allocated()
+        steps = eng.decode_steps - before["steps"]
+        admits = eng.admits - before["admits"]
         key = "paged_decode_attention" if kv == "act" else "paged_decode_attention_int8"
         other = "paged_decode_attention_int8" if kv == "act" else "paged_decode_attention"
-        check(counts[key] == cfg.n_layers * eng.decode_steps and counts[other] == 0,
-              f"{kv}: attention launches {counts} for {eng.decode_steps} decode steps")
-        forwards = eng.decode_steps + eng.admits + eng.suffix_admits
+        check(counts[key] == cfg.n_layers * steps and counts[other] == 0,
+              f"{kv}: attention launches {counts} for {steps} decode steps")
+        forwards = steps + admits + eng.suffix_admits - before["suffix"]
         check(counts["w4a8_matmul"] == sites * forwards, f"{kv}: B1 launches {counts} for "
                                                          f"{forwards} forwards")
         for u, p, n in specs:
@@ -1420,19 +1623,35 @@ def phase_paged_slice(torch):
         check(pool.free_top == 0 and not pool.page_rc.any()
               and int(eng.cache["free_top"]) == 0 and not eng.cache["page_refcounts"].any(),
               f"{kv}: pages not all back on the free list")
+        eager = engine(kv)
+        warm_paged(eager, specs[0][1])
+        chunk = eager._chunk
+        eager._chunk = lambda k, _c=chunk: _c(k, eager=True)
+        eager_res = eager.serve(trace())
+        check(eager.pool_state.digest() == pool.digest(), f"{kv}: the eager chunk's allocator "
+                                                          f"digest differs from the replays'")
+        check(all((eager_res[u] == res[u]).all() for u, _, _ in specs),
+              f"{kv}: the eager chunk's streams differ from the replays'")
+        check(getattr(eager, "watermark_values", None) == getattr(eng, "watermark_values", None),
+              f"{kv}: the eager chunk's B3 watermarks differ from the replays'")
         n_new = sum(n for _, _, n in specs)
         runs[kv] = {"res": res, "digest": pool.digest(), "counts": counts, "wall": wall,
-                    "steps": eng.decode_steps, "admits": eng.admits, "spent": spent,
+                    "steps": steps, "admits": admits, "spent": spent,
                     "peak": peak, "tok_s": n_new / wall,
-                    "step_ms": 1e3 * spent["chunk"] / eng.decode_steps,
-                    "admit_ms": 1e3 * spent["admit"] / eng.admits,
+                    "step_ms": 1e3 * spent["chunk"] / steps,
+                    "admit_ms": 1e3 * spent["admit"] / admits,
+                    "capture_ms": 1e3 * eng._program.capture_s,
+                    "walk_ms": 1e3 * eng._program.walk_s,
+                    "device_ops": eng._program.device_ops,
                     "pool_mib": kv_pool_bytes(cfg, PAGED_BLOCKS, PAGED_BLOCK, kv) / 2**20,
                     "watermarks": getattr(eng, "watermark_values", None)}
-        print(f"[paged-slice] (b) {kv} KV: {TRACE_REQUESTS} requests, {eng.decode_steps} decode "
-              f"steps in {eng.chunks} chunks, {eng.admits} admits; launches {counts}; "
-              f"decode step {runs[kv]['step_ms']:.3f} ms, admit {runs[kv]['admit_ms']:.3f} ms "
-              f"(host clock), {runs[kv]['tok_s']:.1f} tok/s, wall {wall:.3f} s; pool "
-              f"{runs[kv]['pool_mib']:.2f} MiB; peak memory {peak / 2**20:.1f} MiB")
+        print(f"[paged-slice] (b) {kv} KV: {TRACE_REQUESTS} requests, {steps} decode steps in "
+              f"{eng.chunks - before['chunks']} chunks, replays of the captured step, {admits} "
+              f"admits; launches {counts}; decode step {runs[kv]['step_ms']:.3f} ms, admit "
+              f"{runs[kv]['admit_ms']:.3f} ms (host clock), {runs[kv]['tok_s']:.1f} tok/s, wall "
+              f"{wall:.3f} s; pool {runs[kv]['pool_mib']:.2f} MiB; peak memory "
+              f"{peak / 2**20:.1f} MiB; streams, digest and watermarks equal to the eager "
+              f"chunk's")
     check(runs["act"]["digest"] == runs["int8"]["digest"], "float and int8 allocator digests differ")
     spec = engine("int8").attn_spec
     qk, pv = runs["int8"]["watermarks"]
@@ -1446,12 +1665,34 @@ def phase_paged_slice(torch):
           f"({spec.describe()}); int8 agrees with float on {same} of {total} tokens "
           f"({same / total:.4f})")
 
-    # (c) the prefix cache: warm streams against a cold engine's
+    # the decode step replayed and eager, in turns, over PAGED_SLOTS live slots
+    for kv in ("act", "int8"):
+        eng = engine(kv)
+        warm_paged(eng, specs[0][1])
+        reset_peak(torch)
+        turns = paged_step_turns(torch, eng, prompts)
+        runs[kv]["turns"] = turns
+        runs[kv]["turns_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+        print(f"[graph] paged {kv} KV decode step ({PAGED_SLOTS} slots of {PROMPT}+ tokens, "
+              f"chunks of {PAGED_CHUNK}), in turns: replay {fmt_spread(turns['replay'])} = "
+              f"{1e3 * PAGED_SLOTS / turns['replay']['median']:.1f} tok/s; eager "
+              f"{fmt_spread(turns['eager'])} = "
+              f"{1e3 * PAGED_SLOTS / turns['eager']['median']:.1f} tok/s; capture "
+              f"{runs[kv]['capture_ms']:.3f} ms (node walk {runs[kv]['walk_ms']:.3f} ms) for "
+              f"{runs[kv]['device_ops']} device "
+              f"operations; peak memory {runs[kv]['turns_peak_mib']:.1f} MiB")
+
+    # (c) the prefix cache: warm streams against a cold engine's, both
+    # through the captured step; the logits of the tie-limited comparison
+    # come from the eager chunk, whose streams must equal the replays'
     prefix = rng.integers(0, cfg.vocab, size=PREFIX_LEN)
     pspecs = [(100 + i, np.concatenate([prefix, rng.integers(0, cfg.vocab,
                                                               size=int(rng.integers(1, 41)))]),
                8) for i in range(6)] + [(106, prefix.copy(), 8)]
-    preqs = [Request(uid=u, prompt=p, max_new=n) for u, p, n in pspecs]
+
+    def preqs():
+        return [Request(uid=u, prompt=p, max_new=n) for u, p, n in pspecs]
+
     warm_eng = engine(prefix_cache=True)
     cached_counts = []
     orig = warm_eng._admit_cached
@@ -1463,10 +1704,17 @@ def phase_paged_slice(torch):
         cached_counts.append({k: v - before[k] for k, v in read_counts().items()})
 
     warm_eng._admit_cached = admit_cached
-    with LogitRecorder() as warm_rec:
-        warm = warm_eng.serve(preqs)
-    with LogitRecorder() as cold_rec:
-        cold = engine().serve(preqs)
+    warm = warm_eng.serve(preqs())
+    cold = engine().serve(preqs())
+    rec_warm = engine(prefix_cache=True)
+    with LogitRecorder(rec_warm) as warm_rec:
+        warm_e = rec_warm.serve(preqs())
+    rec_cold = engine()
+    with LogitRecorder(rec_cold) as cold_rec:
+        cold_e = rec_cold.serve(preqs())
+    check(all((warm[u] == warm_e[u]).all() and (cold[u] == cold_e[u]).all()
+              for u, _, _ in pspecs), "prefix cache: the eager chunk's streams differ from "
+                                      "the replays'")
     check(len(cached_counts) == 1 and not any(cached_counts[0].values()),
           f"cached admit launches {cached_counts}")
     check(warm_eng.suffix_admits == 5 and warm_eng.cached_admits == 1,
@@ -1479,12 +1727,14 @@ def phase_paged_slice(torch):
           f"{warm_eng.cached_admits} cached admits (the cached one launched nothing: "
           f"{cached_counts[0]}); hit rate {warm_eng.prefix_cache.stats()['hit_rate']:.3f}; "
           f"{cmp_c['agree']} of {cmp_c['total']} tokens agree with a cold engine (partings "
-          f"{cmp_c['partings']}, tie band {cmp_c['band']:.4f})")
+          f"{cmp_c['partings']}, tie band {cmp_c['band']:.4f}); streams through the captured "
+          f"step equal the eager chunk's")
 
-    # decode steps under the profiler, a trace each (a trace of a whole
-    # 8-step chunk, about 45000 kernels, mostly loses device records): the
-    # profiled engine runs each chunk one step at a time, and the first
-    # PAGED_CHUNK steps with complete traces are counted
+    # replayed decode steps under the profiler, a trace each (a trace of a
+    # whole 8-step chunk, about 45000 kernels, mostly loses device records):
+    # the profiled engine runs each chunk one step at a time, its first step
+    # (the capture) untraced, and the first PAGED_CHUNK steps whose traces
+    # hold every node of the graph are counted
     prof_eng = engine()
     orig_chunk = prof_eng._chunk
     steps, lost = [], []
@@ -1492,7 +1742,8 @@ def phase_paged_slice(torch):
     def profiled(k):
         bufs = []
         for _ in range(k):
-            if len(steps) == PAGED_CHUNK:
+            program = prof_eng._program
+            if len(steps) == PAGED_CHUNK or program is None or program.graph is None:
                 bufs.append(orig_chunk(1))
                 continue
             before = read_counts()["w4a8_matmul"]
@@ -1503,7 +1754,7 @@ def phase_paged_slice(torch):
                 bufs.append(orig_chunk(1))  # ends in a host read of its tokens
                 t.append(time.perf_counter())
 
-            prof, _, complete = traced(torch, step)
+            prof, _, complete = traced(torch, step, graph_ops=program.device_ops)
             (steps if complete else lost).append(
                 {"wall_ms": 1e3 * (t[1] - t[0]), "prof": prof,
                  "launches": read_counts()["w4a8_matmul"] - before})
@@ -1513,7 +1764,7 @@ def phase_paged_slice(torch):
         return buf
 
     prof_eng._chunk = profiled
-    prof_eng.generate(prompts, 3 * PAGED_CHUNK + 1)
+    prof_eng.generate(prompts, 3 * PAGED_CHUNK + 2)
     check(len(steps) == PAGED_CHUNK, f"{len(steps)} of {len(steps) + len(lost)} profiled decode "
                                      f"steps had complete traces, {PAGED_CHUNK} needed")
     print(steps[0]["prof"].key_averages().table(sort_by="self_cuda_time_total", row_limit=12))
@@ -1530,13 +1781,16 @@ def phase_paged_slice(torch):
         seen += w4a8_seen(kernels)
     check(b2 > 0 and b1 > 0, "the profiler saw no B2 or B1 kernel in the profiled decode steps")
     check(seen == launches == 7 * cfg.n_layers * PAGED_CHUNK,
-          f"the profiler saw {seen} w4a8 kernels in {PAGED_CHUNK} decode steps, the launch "
-          f"counter {launches}")
-    print(f"[profile] {PAGED_CHUNK} decode steps, {PAGED_SLOTS} slots, a trace each ({len(lost)} "
-          f"more steps' traces lost device records and are not counted): {wall:.3f} ms on the "
-          f"host clock, device busy {busy:.3f} ms ({100 * busy / wall:.1f}%), B2 {b2:.3f} ms in "
-          f"{b2_calls} launches ({1e3 * b2 / max(b2_calls, 1):.3f} us a launch), B1 {b1:.3f} ms "
-          f"in {seen} launches by name (launch counter {launches})")
+          f"the profiler saw {seen} w4a8 kernels in {PAGED_CHUNK} replayed decode steps, the "
+          f"launch counter {launches}")
+    check(b2_calls == cfg.n_layers * PAGED_CHUNK,
+          f"the profiler saw {b2_calls} B2 kernels in {PAGED_CHUNK} replayed decode steps")
+    print(f"[profile] {PAGED_CHUNK} replayed decode steps, {PAGED_SLOTS} slots, a trace each "
+          f"({len(lost)} more steps' traces lost device records and are not counted): "
+          f"{wall:.3f} ms on the host clock, device busy {busy:.3f} ms "
+          f"({100 * busy / wall:.1f}%), B2 {b2:.3f} ms in {b2_calls} launches "
+          f"({1e3 * b2 / max(b2_calls, 1):.3f} us a launch), B1 {b1:.3f} ms in {seen} launches "
+          f"by name (launch counter {launches})")
     return {"a": cmp_a, "runs": runs, "c": cmp_c,
             "profile": {"steps_wall_ms": wall, "busy_ms": busy, "b2_ms": b2,
                         "b2_launches": b2_calls, "b1_ms": b1, "steps": PAGED_CHUNK,
@@ -2039,6 +2293,8 @@ def phase_sparse_slice(torch, dense_calib, paged):
     ref_out = GenerationEngine(served, cfg, greedy, device="cuda",
                                backend="reference").generate(prompts, MAX_NEW)
     check((out == ref_out).all(), "kernel and reference backends disagree on the 2:4 artifact")
+    check((out == engine.generate_host_loop(prompts, MAX_NEW)).all(),
+          "the captured generate and the eager host loop disagree on the 2:4 artifact")
     check(bool(((out >= 0) & (out < cfg.vocab)).all()), "token out of the vocabulary")
     step_ms = decode_step_ms(torch, served, prompts, out)
     fixed = {"gen_s": gen_s, "tok_s": BATCH * MAX_NEW / gen_s, "step_ms": step_ms,
@@ -2046,10 +2302,11 @@ def phase_sparse_slice(torch, dense_calib, paged):
     print(f"[sparse-serve] artifact: {len(artifact)} leaves, {meta['datapath']}; served greedy "
           f"batch {BATCH} x prompt {PROMPT} + {MAX_NEW} new (float32, static activation "
           f"quantizers): {serve_counts['w4a8_sparse_matmul']} B4 launches (= 7 x "
-          f"{cfg.n_layers} x {MAX_NEW}), {serve_counts['w4a8_matmul']} B1; tokens identical to "
-          f"the reference backend; {fixed['tok_s']:.1f} tok/s (wall {gen_s:.4f} s), decode "
-          f"step {step_ms:.3f} ms (host clock), peak memory {fixed['peak_mib']:.1f} MiB; "
-          f"dense artifact (phase 5): {dense_calib['serve']['tok_s']:.1f} tok/s, decode step "
+          f"{cfg.n_layers} x {MAX_NEW}) through the captured step, "
+          f"{serve_counts['w4a8_matmul']} B1; tokens identical to the reference backend and "
+          f"the eager host loop; {fixed['tok_s']:.1f} tok/s (wall {gen_s:.4f} s), eager "
+          f"decode step {step_ms:.3f} ms (host clock), peak memory {fixed['peak_mib']:.1f} MiB; "
+          f"dense artifact (phase 5): {dense_calib['serve']['tok_s']:.1f} tok/s, eager decode step "
           f"{dense_calib['serve']['step_ms']:.3f} ms, peak {dense_calib['serve']['peak_mib']:.1f}"
           f" MiB")
     del model, served, engine, qm
@@ -2064,17 +2321,20 @@ def phase_sparse_slice(torch, dense_calib, paged):
         block_size=PAGED_BLOCK, num_blocks=PAGED_BLOCKS, max_concurrency=PAGED_SLOTS,
         chunk_max=PAGED_CHUNK, attn_impl="auto"), greedy, device="cuda")
     specs, _ = trace_specs(cfg)
+    warm_paged(eng, specs[0][1])  # captures the decode step
+    steps0, admits0 = eng.decode_steps, eng.admits
     reset_peak(torch)
     reset_counts()
     res, wall_t, spent = serve_timed(torch, eng, [Request(uid=u, prompt=p, max_new=n)
                                                   for u, p, n in specs])
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    forwards = eng.decode_steps + eng.admits + eng.suffix_admits
+    steps, admits = eng.decode_steps - steps0, eng.admits - admits0
+    forwards = steps + admits + eng.suffix_admits
     check(counts["w4a8_sparse_matmul"] == sites * forwards and counts["w4a8_matmul"] == 0,
           f"paged 2:4 trace: launches {counts} for {forwards} forwards")
-    check(counts["paged_decode_attention"] == cfg.n_layers * eng.decode_steps,
-          f"paged 2:4 trace: B2 launches {counts} for {eng.decode_steps} decode steps")
+    check(counts["paged_decode_attention"] == cfg.n_layers * steps,
+          f"paged 2:4 trace: B2 launches {counts} for {steps} decode steps")
     for u, p, n in specs:
         check(res[u].size == p.size + n, f"2:4 trace: request {u} incomplete")
     pool = eng.pool_state
@@ -2083,11 +2343,12 @@ def phase_sparse_slice(torch, dense_calib, paged):
           "2:4 trace: pages not all back on the free list")
     n_new = sum(n for _, _, n in specs)
     dense_run = paged["runs"]["act"]
-    trace = {"decode_steps": eng.decode_steps, "forwards": forwards,
+    trace = {"decode_steps": steps, "forwards": forwards,
              "launches": counts["w4a8_sparse_matmul"], "wall_s": wall_t,
-             "tok_s": n_new / wall_t, "step_ms": 1e3 * spent["chunk"] / eng.decode_steps,
-             "admit_ms": 1e3 * spent["admit"] / eng.admits, "peak_mib": peak / 2**20}
-    print(f"[sparse-paged] RTN 2:4 bf16 through PagedEngine, {TRACE_REQUESTS} requests: "
+             "tok_s": n_new / wall_t, "step_ms": 1e3 * spent["chunk"] / steps,
+             "admit_ms": 1e3 * spent["admit"] / admits, "peak_mib": peak / 2**20}
+    print(f"[sparse-paged] RTN 2:4 bf16 through PagedEngine, {TRACE_REQUESTS} requests, "
+          f"decode steps replayed from one capture: "
           f"{counts['w4a8_sparse_matmul']} B4 launches = {sites} x {forwards} forwards, "
           f"{counts['w4a8_matmul']} B1; every page back on the free list; decode step "
           f"{trace['step_ms']:.3f} ms, admit {trace['admit_ms']:.3f} ms (host clock), "

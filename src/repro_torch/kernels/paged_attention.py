@@ -49,8 +49,9 @@ BLOCKS_PER_SM = 3
 def _div(x: torch.Tensor, c: float) -> torch.Tensor:
     """``x / c`` as a true division on every device: CUDA turns division by
     a host scalar into a multiply by its reciprocal, which the kernels and
-    the reference do not."""
-    return x / torch.tensor(c, dtype=x.dtype, device=x.device)
+    the reference do not. The divisor is filled in on the device (no
+    host-to-device copy, so a CUDA graph may capture the division)."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
 
 
 def _softcap(scores, cap):
@@ -261,15 +262,21 @@ class _SyncBuffers:
     to 0. ``flags`` (B3, 64-bit): per split and head the split's published
     maximum (nonzero once published), which the row's last block resets to 0
     as well. No launch depends on a value from the host, so a launch may be
-    captured in a CUDA graph and replayed."""
+    captured in a CUDA graph and replayed. Launches on one stream run one
+    after another, in a graph as outside one, so they share the buffers.
+    Outgrown buffers are kept (``retired``): a graph captured earlier still
+    points at them."""
 
     def __init__(self):
         self.counters = self.flags = None
+        self.retired = []
 
     def next(self, device, n_counters: int, n_flags: int):
         if self.counters is None or self.counters.numel() < n_counters:
+            self.retired.append(self.counters)
             self.counters = torch.zeros(max(n_counters, 1024), dtype=torch.int32, device=device)
         if self.flags is None or self.flags.numel() < n_flags:
+            self.retired.append(self.flags)
             self.flags = torch.zeros(max(n_flags, 1024), dtype=torch.int64, device=device)
         return self.counters, self.flags
 

@@ -139,7 +139,11 @@ def check_inner(x: torch.Tensor, w_packed: torch.Tensor, block_k: int,
     wrapper takes it) must satisfy |partial| <= 2^(P_I-1)-1; with ``meta``
     the weights are 2:4-compressed and the tiles are those of the expanded
     codes. Returns the watermark; raises OverflowError otherwise. Reads one
-    scalar to host."""
+    scalar to host, so a captured CUDA graph cannot hold it: under capture
+    it raises instead."""
+    if x.is_cuda and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("assert_inner reads a scalar to the host and cannot run in a "
+                           "captured CUDA graph: serve without it, or check the site eagerly")
     from .ref import tile_partials
 
     bk = _fit_block(x.shape[1], block_k)

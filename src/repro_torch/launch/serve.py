@@ -11,10 +11,16 @@ artifact written by the JAX package's ``repro.launch.quantize --out``.
 CUDA kernel on the card), ``reference`` (its exact-integer plain version)
 or ``dequant``. ``--device`` defaults to ``cuda``.
 
+``generate`` runs the prefill and then replays the bucket's decode step,
+captured once as a CUDA graph (the same static-buffer step runs eagerly
+on the CPU); ``--host-loop`` runs the eager per-token reference loop
+instead.
+
 ``--paged`` serves through the paged continuous-batching engine
 (``--block-size``, ``--max-concurrency``, ``--num-blocks`` or
 ``--kv-hbm-mb``, ``--kv-dtype act|int8``, ``--prefix-cache``), whose decode
-attention runs the paged attention kernels (B2 float pages, B3 int8)::
+chunks replay the engine's one captured step and whose decode attention
+runs the paged attention kernels (B2 float pages, B3 int8)::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
         --smoke --packed --paged --block-size 8 --kv-dtype int8 --device cpu
@@ -71,7 +77,7 @@ def main(argv=None):
     ap.add_argument("--packed-backend", type=str, default="kernel",
                     choices=("kernel", "reference", "dequant"))
     ap.add_argument("--host-loop", action="store_true",
-                    help="per-token host loop instead of the device loop")
+                    help="eager per-token host loop instead of the captured decode step")
     ap.add_argument("--device", type=str, default="cuda")
     ap.add_argument("--paged", action="store_true",
                     help="paged-KV continuous-batching engine")

@@ -405,8 +405,8 @@ def _append_kv_page_quant(pages, scales, page, off, x, kv_bits: int = 8):
     qmax = 2 ** (kv_bits - 1) - 1
     bs = pages.shape[1]
     old = torch.where((off == 0)[:, None], torch.zeros_like(scales[page]), scales[page])
-    tok = torch.amax(torch.abs(x.to(torch.float32)), dim=-1) / torch.tensor(
-        float(qmax), device=x.device)  # (B, nkv); a true division on CUDA too
+    tok = torch.amax(torch.abs(x.to(torch.float32)), dim=-1) / torch.full(
+        (), float(qmax), device=x.device)  # (B, nkv); a true division on CUDA too
     new = torch.clamp(torch.maximum(old, tok), min=1e-8)
     codes = torch.round(pages[page].to(torch.float32) * (old / new)[:, None, :, None])
     tok_codes = torch.round(x.to(torch.float32) / new[..., None])  # (B, nkv, hd)
@@ -474,15 +474,28 @@ def paged_attention_decode(p: Attention, x, cfg: ModelConfig, pool: dict, block_
     return y, pool
 
 
-def attention_decode(p: Attention, x, cfg: ModelConfig, cache_k, cache_v, index: int):
-    """Single-token decode against (B, S_max, nkv, hd) caches. ``index`` is
-    the current position. The new K/V are written into the caches in place
-    (the reference returns updated copies); returns (y, cache_k, cache_v)."""
+def decode_position(index, device) -> torch.Tensor:
+    """The decode position as a 0-d int32 tensor on ``device``: a tensor is
+    taken as it is (the captured decode step passes its device position),
+    a Python int is filled in on the device (no host-to-device copy)."""
+    if torch.is_tensor(index):
+        return index
+    return torch.full((), index, dtype=torch.int32, device=device)
+
+
+def attention_decode(p: Attention, x, cfg: ModelConfig, cache_k, cache_v, index):
+    """Single-token decode against (B, S_max, nkv, hd) caches. ``index``,
+    the current position, is a 0-d int32 tensor on the caches' device (the
+    reference's traced index) or a Python int: RoPE, the cache write and
+    the mask read it on the device, so one captured step serves every
+    position. The new K/V are written into the caches in place (the
+    reference returns updated copies); returns (y, cache_k, cache_v)."""
     B, S1, _ = x.shape  # S1 == 1
-    positions = torch.full((B, S1), index, dtype=torch.int32, device=x.device)
-    q, k, v = _qkv(p, x, cfg, positions)
-    cache_k[:, index:index + 1] = k.to(cache_k.dtype)
-    cache_v[:, index:index + 1] = v.to(cache_v.dtype)
+    index = decode_position(index, x.device)
+    q, k, v = _qkv(p, x, cfg, index.reshape(1, 1).expand(B, S1))
+    at = index.reshape(1).long()
+    cache_k.index_copy_(1, at, k.to(cache_k.dtype))
+    cache_v.index_copy_(1, at, v.to(cache_v.dtype))
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     g = nh // nkv
     qg = q.reshape(B, nkv, g, hd)

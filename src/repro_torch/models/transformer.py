@@ -26,6 +26,7 @@ from .layers import (
     Norm,
     attention,
     attention_decode,
+    decode_position,
     embed,
     lm_logits,
     mlp,
@@ -199,8 +200,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda"):
 
 
 def prefill(model: Transformer, batch: dict, max_len: int, prefix_kv=None,
-            pos_offset: int = 0):
+            pos_offset: int = 0, caches=None):
     """Run the prompt; returns (logits, caches ready for decode at index S).
+
+    ``caches``, when given, are :func:`init_cache`-shaped caches of at
+    least ``max_len`` positions that the prompt's KV is written into (a
+    captured decode step's static caches); positions past S keep what they
+    held, and decode masks them until it writes them.
 
     ``prefix_kv`` enables suffix prefill against a cached prompt prefix:
     a per-layer list whose attention entries are ``{"k", "v"}`` of (B, L,
@@ -211,7 +217,8 @@ def prefill(model: Transformer, batch: dict, max_len: int, prefix_kv=None,
     cfg = model.cfg
     x, positions = _embed_inputs(model, batch["tokens"], pos_offset)
     B, S, _ = x.shape
-    caches = init_cache(cfg, B, max_len, device=x.device)
+    if caches is None:
+        caches = init_cache(cfg, B, max_len, device=x.device)
     for i, (block, cache) in enumerate(zip(model.layers, caches)):
         if block.mixer is not None:
             pkv = None if prefix_kv is None else (prefix_kv[i]["k"], prefix_kv[i]["v"])
@@ -226,11 +233,14 @@ def prefill(model: Transformer, batch: dict, max_len: int, prefix_kv=None,
     return lm_logits(model.embedding, x, cfg), caches
 
 
-def decode_step(model: Transformer, tokens, caches, index: int):
+def decode_step(model: Transformer, tokens, caches, index):
     """One decode step. tokens: (B, 1); ``index`` the position being
-    written. Updates ``caches`` in place; returns (logits (B, 1, V), caches)."""
+    written, a 0-d int32 tensor on the model's device (read there alone:
+    one captured step serves every position) or a Python int. Updates
+    ``caches`` in place; returns (logits (B, 1, V), caches)."""
     cfg = model.cfg
     x = embed(model.embedding, tokens.long(), cfg)
+    index = decode_position(index, x.device)
     for block, cache in zip(model.layers, caches):
         if block.mixer is not None:
             h = norm(block.norm1, x, cfg.norm)

@@ -22,9 +22,15 @@ reference's jitted programs take the cache donated and return a new one):
   model at all; the last cached page is copied into a private page
   (copy-on-write, codes and scales) and the first token is deferred to the
   next decode chunk, which samples it with the same stream;
-* **decode chunk**: a Python loop of ``k`` decode steps, every live slot at
-  its own length, sampling on the device into a (slots, chunk_max) token
-  buffer that the host reads once per chunk;
+* **decode chunk**: ``k`` decode steps, every live slot at its own length,
+  sampling on the device into a static (slots, chunk_max) token buffer at
+  a device column, which the host reads once per chunk. The step is
+  captured once per engine as a CUDA graph
+  (:class:`~repro_torch.serving.graphs.StepProgram`) and replayed ``k``
+  times: one capture serves every ``k``, as the reference's dynamic trip
+  count serves every chunk length with one trace (``chunk_traces``). On
+  the CPU the same step runs eagerly; ``_chunk(k, eager=True)`` runs it
+  eagerly on the card too (the reference loop, kept for timing);
 * **release**: clear the slot's active bit.
 
 The page allocator lives on the host (:class:`PoolState`, in lockstep with
@@ -67,11 +73,10 @@ from repro_torch.quant.spec import (
     validate_attn_datapath,
     validate_datapath,
 )
-from repro_torch.serving.engine import SamplerConfig
+from repro_torch.serving.engine import SamplerConfig, sample_rows
+from repro_torch.serving.graphs import StepProgram
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.scheduler import PoolState, Request, Scheduler, SchedulerPolicy
-
-_MASK32 = 0xFFFFFFFF
 
 
 @dataclass(frozen=True)
@@ -97,37 +102,6 @@ class PagedConfig:
     kv_dtype: str = "act"
     prefix_cache: bool = False
     sched: SchedulerPolicy = SchedulerPolicy()
-
-
-def _fmix32(h: torch.Tensor) -> torch.Tensor:
-    """A 32-bit avalanche mix on int64 tensors holding uint32 values; the
-    multipliers stay below 2^31, so no product leaves int64."""
-    h = h ^ (h >> 16)
-    h = (h * 0x7FEB352D) & _MASK32
-    h = h ^ (h >> 15)
-    h = (h * 0x6C8E9CF5) & _MASK32
-    return h ^ (h >> 16)
-
-
-def _uniforms(seed: int, uids: torch.Tensor, steps: torch.Tensor, n: int) -> torch.Tensor:
-    """(B, n) float32 uniforms in (0, 1), a function of (seed, uid, step,
-    column) alone: a request's draws do not depend on its batch."""
-    h = _fmix32(torch.full_like(uids, seed & _MASK32, dtype=torch.int64) ^ 0x3C6EF372)
-    h = _fmix32(h ^ (uids.to(torch.int64) & _MASK32))
-    h = _fmix32(h ^ (steps.to(torch.int64) & _MASK32))
-    cols = torch.arange(n, dtype=torch.int64, device=uids.device)
-    bits = _fmix32(h[:, None] ^ ((cols * 0x2545F491) & _MASK32)[None, :]) >> 8
-    return ((bits.to(torch.float64) + 0.5) / 2.0**24).to(torch.float32)
-
-
-def sample_rows(logits, temperature: float, seed: int, uids, steps) -> torch.Tensor:
-    """Per-row sampling, request-deterministic: greedy argmax, or a
-    Gumbel-max draw from softmax(logits / T) with the noise of
-    :func:`_uniforms`. Returns (B,) int32 on the logits' device."""
-    if temperature <= 0.0:
-        return torch.argmax(logits, dim=-1).to(torch.int32)
-    gumbel = -torch.log(-torch.log(_uniforms(seed, uids, steps, logits.shape[-1])))
-    return torch.argmax(logits.to(torch.float32) / temperature + gumbel, dim=-1).to(torch.int32)
 
 
 class PagedEngine:
@@ -202,6 +176,15 @@ class PagedEngine:
         self.admits = self.suffix_admits = self.cached_admits = 0
         self.chunks = self.releases = self.decode_steps = 0
         self._uid_gen = 0
+        #: the decode step's static token buffer and its device column; the
+        #: step reads and writes the cache leaves in place, and nothing
+        #: rebinds a leaf, so the captured step always sees the live cache
+        self._buf = torch.zeros((paged.max_concurrency, paged.chunk_max), dtype=torch.int32,
+                                device=self.device)
+        self._col = torch.zeros((), dtype=torch.int64, device=self.device)
+        #: decode-step captures (step builds on the CPU): one per engine
+        self.chunk_traces = 0
+        self._program = None
 
     # ------------------------------------------------------------------
     # Programs
@@ -316,25 +299,37 @@ class PagedEngine:
         self._install(adm.slot, adm.row, s0=req.prompt.size - 1, uid=req.uid, steps=0,
                       last_tok=int(req.prompt[-1]))
 
-    def _chunk(self, k: int) -> np.ndarray:
-        """``k`` decode steps; returns the (slots, chunk_max) token buffer,
-        read to the host once."""
-        self.chunks += 1
+    def _decode_step(self) -> None:
+        """One decode step on the cache and the static buffers alone."""
         cache, samp = self.cache, self.sampler
-        buf = torch.zeros((self.paged.max_concurrency, self.paged.chunk_max),
-                          dtype=torch.int32, device=self.device)
-        for t in range(k):
-            logits, _ = decode_step_paged(
-                self.model, cache["last_tok"][:, None], cache, attn_impl=self.paged.attn_impl,
-                attn_spec=self.attn_spec, watermarks=self.watermarks)
-            nxt = sample_rows(logits[:, -1], samp.temperature, samp.seed, cache["uids"],
-                              cache["steps"])
-            active = cache["active"]
-            cache["last_tok"].copy_(torch.where(active, nxt, cache["last_tok"]))
-            cache["steps"].add_(active.to(torch.int32))
-            buf[:, t] = nxt
+        logits, _ = decode_step_paged(
+            self.model, cache["last_tok"][:, None], cache, attn_impl=self.paged.attn_impl,
+            attn_spec=self.attn_spec, watermarks=self.watermarks)
+        nxt = sample_rows(logits[:, -1], samp.temperature, samp.seed, cache["uids"],
+                          cache["steps"])
+        active = cache["active"]
+        cache["last_tok"].copy_(torch.where(active, nxt, cache["last_tok"]))
+        cache["steps"].add_(active.to(torch.int32))
+        self._buf.index_copy_(1, self._col.reshape(1), nxt[:, None])
+        self._col.add_(1)
+
+    def _chunk(self, k: int, *, eager: bool = False) -> np.ndarray:
+        """``k`` decode steps, replays of the captured step (``eager``: the
+        step run eagerly); returns the (slots, chunk_max) token buffer, read
+        to the host once."""
+        self.chunks += 1
+        if self._program is None:
+            self.chunk_traces += 1
+            self._program = StepProgram(self._decode_step, self.device)
+        self._buf.zero_()
+        self._col.zero_()
+        if eager:
+            for _ in range(k):
+                self._decode_step()
+        else:
+            self._program.run(k)
         self.decode_steps += k
-        return buf.cpu().numpy()
+        return self._buf.to("cpu", copy=True).numpy()  # the next chunk zeroes _buf
 
     def _release(self, slot: int) -> None:
         self.releases += 1

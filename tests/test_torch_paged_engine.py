@@ -175,6 +175,7 @@ def test_mid_flight_admission_and_stall(setup):
         _assert_same(_serve_checked(eng, _reqs(Request, specs)), want)
         assert eng.pool_state.digest() == jeng.pool_state.digest()
         assert eng.pool_state.free_top == 0 and int(eng.cache["free_top"]) == 0
+        assert eng.chunk_traces == 1 < eng.chunks  # one decode-step program
         for uid, prompt, n in specs:  # each alone in the fixed-slot engine
             alone = GenerationEngine(model, sampler=GREEDY, device="cpu").generate(
                 np.asarray(prompt, np.int32)[None], n)[0]
