@@ -11,8 +11,9 @@ result unless every phase passed):
 1. the card (``nvidia-smi`` name and power limit) and the build of every
    CUDA kernel from ``src/repro_torch/kernels/csrc`` with ``nvcc``;
 2. the W4A8 kernel (``w4a8_matmul``) against its plain version on the card
-   at the main path's shapes — M in {1, 4, 8, 64, 256, 300} (decode to
-   the paged engine's largest prompt) x (K, N) in {(960, 960),
+   at the main path's shapes — M in {1, 4, 8, 64, 256, 300, 512} (decode to
+   the paged engine's largest prompt, and 512, phase 10's batched
+   admit) x (K, N) in {(960, 960),
    (960, 320), (960, 2560), (2560, 960)}, uint8 and int8 activation codes,
    bf16 output, plus a ragged M=3, N=100 case — all bit-equal; the P_I
    certificate check on an l1-budgeted weight; per shape the kernel's plan
@@ -151,7 +152,27 @@ result unless every phase passed):
    captured by a warm-up request) over phase 7's 12-request trace: B4
    launches 224 per forward, 0 B1, every page back on the free list. It
    prints decode-step time, tokens/s, peak memory and
-   ``packed_weight_bytes`` dense vs 2:4.
+   ``packed_weight_bytes`` dense vs 2:4;
+10. the throughput slice: phase 7's model and pool through
+   ``PagedEngine``'s throughput loop, each engine's step captured by a
+   warm-up request. (a) ``SchedulerPolicy(admit_window=4, batch_max=4,
+   prefill_chunk=128)``, float then int8 KV, over 4 cold prompts of 65-128
+   tokens (one batched group, M = 512) followed by phase 7's 12-request
+   trace: B2/B3 launches exactly 32 per decode step, B1 224 per forward
+   (decode steps, B = 1 admits, batched groups and prefill chunks), at least
+   one batched group, one stub and one prefill chunk, one capture, B3
+   watermarks within P_qk/P_pv, every page back on the free list, and
+   streams tie-limited against the FIFO engine on the same trace (logits
+   recorded through the replays, ``ReplayRecorder``); it prints the admit
+   side split into batched groups, B = 1 admits, stubs and prefill chunks,
+   the decode step, tok/s, wall and peak memory beside the FIFO engine's on
+   the same trace and phase 7's figures. (b) ``SchedulerPolicy(
+   admit_window=2, batch_max=4, watermark=(1, 4))`` on float KV in a
+   12-page pool over phase 7's prompts with 4x their new tokens, its
+   logits recorded on the measured run: at least one grow and one
+   preemption, the same launch and pool gates, streams tie-limited against
+   FIFO. The kernels line adds each of B1, B2 and B3's
+   launches in (a) float, (a) int8 and (b) as ``throughput_launches``.
 
 Before driving a path, every launch counter is set to 0, and the counts are
 read just after it. Phase 3 ends with a ``torch.profiler`` breakdown of one
@@ -188,9 +209,10 @@ LAYER_SITES = [(960, 960), (960, 320), (960, 320), (960, 960),
                (960, 2560), (960, 2560), (2560, 960)]
 BATCH, PROMPT, MAX_NEW = 4, 64, 16
 #: phases 2 and 8: M at one layer's shapes, from decode (1-8: K split over
-#: a cluster of blocks) to the paged engine's largest prompt (it admits
-#: prompts of 8-300 tokens one at a time)
-W4A8_M = (1, 4, 8, 64, 256, 300)
+#: a cluster of blocks) to the paged engine's largest prompt (the FIFO loop
+#: admits prompts of 8-300 tokens one at a time) and its largest batched
+#: admit (phase 10: 4 prompts of 2 pages of 64 tokens)
+W4A8_M = (1, 4, 8, 64, 256, 300, 512)
 #: the previous B1/B4 (one block per 64-column tile, dp4a on the CUDA
 #: cores) summed over one layer's 7 sites, ms, cold L2: chip_smoke.py phases
 #: 2 and 8 at commit 9ae5607, NVIDIA H100 80GB HBM3, 700.00 W; for the
@@ -1404,6 +1426,74 @@ class LogitRecorder:
         del self.engine._chunk  # the class's method again
 
 
+class ReplayRecorder:
+    """Records, keyed (uid, step), every row ``engine`` samples while its
+    decode chunks replay the captured step: entered on a fresh engine,
+    before its step is captured, it adds to the step two device copies, of
+    the logits and of each slot's (uid, step, active), into static buffers
+    at the chunk's device column, read once after each chunk; an active
+    row's record stands, an idle one's is dropped. Rows sampled outside the
+    step (first tokens of admits and final prefill chunks) are read where
+    they are sampled. A later record of a key replaces an earlier one, so a
+    preempted request keeps the logits of the run that finished it."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.rows = {}
+
+    def __enter__(self):
+        import torch
+        from repro_torch.serving import paged_engine as PE
+
+        e = self.engine
+        check(e._program is None, "ReplayRecorder needs an engine whose step is not captured")
+        n, cmax = e.paged.max_concurrency, e.paged.chunk_max
+        vp = e.model.cfg.vocab_padded
+        self.logits = torch.zeros((cmax, n, vp), dtype=torch.float32, device=e.device)
+        self.keys = torch.zeros((cmax, n, 3), dtype=torch.int32, device=e.device)
+        self._orig, in_step = PE.sample_rows, [False]
+
+        def spy(logits, temperature, seed, uids, steps):
+            if in_step[0]:  # inside the captured step: device copies only
+                col = e._col.reshape(1)
+                self.logits.index_copy_(0, col, logits.float()[None])
+                keys = torch.stack([uids, steps, e.cache["active"].to(torch.int32)], dim=1)
+                self.keys.index_copy_(0, col, keys[None])
+            else:
+                host = logits.float().cpu()
+                for i, key in enumerate(zip(uids.tolist(), steps.tolist())):
+                    self.rows[key] = host[i]
+            return self._orig(logits, temperature, seed, uids, steps)
+
+        step, chunk = e._decode_step, e._chunk
+
+        def recorded_step():
+            in_step[0] = True
+            try:
+                step()
+            finally:
+                in_step[0] = False
+
+        def recorded_chunk(k, **kw):
+            buf = chunk(k, **kw)
+            logits = self.logits[:k].to("cpu", copy=True)
+            keys = self.keys[:k].to("cpu", copy=True)
+            for t in range(k):
+                for i, (uid, st, active) in enumerate(keys[t].tolist()):
+                    if active:
+                        self.rows[(uid, st)] = logits[t, i]
+            return buf
+
+        PE.sample_rows = spy
+        e._decode_step, e._chunk = recorded_step, recorded_chunk
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.serving import paged_engine as PE
+
+        PE.sample_rows = self._orig  # the engine keeps its recording graph
+
+
 def tie_limited(streams, vocab: int) -> dict:
     """Compare pairs of greedy streams that should be equal: ``streams`` is
     a list of (new tokens a, new tokens b, logits of a by step, logits of b
@@ -1456,29 +1546,44 @@ def fixed_slot_run(torch, model, prompts, max_new):
     return torch.stack(toks, dim=1).cpu().numpy(), steps
 
 
+#: the paged engine's programs, by method, and the kind serve_timed files
+#: each one's time under
+PROGRAM_KINDS = {"_admit": "admit", "_admit_suffix": "admit", "_admit_cached": "admit",
+                 "_admit_batch": "batch", "_admit_stub": "stub", "_prefill_chunk": "prefill",
+                 "_grow": "grow", "_chunk": "chunk"}
+
+
 def serve_timed(torch, engine, reqs):
-    """``engine.serve`` with the host clock read after every program (each
-    ends in a host read: the device is done): admit and decode-chunk times."""
-    spent = {"admit": 0.0, "chunk": 0.0}
-    last = {"t": None, "admits": 0, "chunks": 0}
+    """``engine.serve`` with each program timed on the host clock, from its
+    call to a synchronize after it (an admit and a decode chunk end in a
+    host read anyway): seconds by kind (B = 1 admits of every variant,
+    batched groups, stubs, prefill chunks, grows, decode chunks), and the
+    serve's wall time."""
+    spent = dict.fromkeys(PROGRAM_KINDS.values(), 0.0)
+    kept = {name: engine.__dict__.get(name) for name in PROGRAM_KINDS}
 
-    def programs(e):
-        return e.admits + e.suffix_admits + e.cached_admits, e.chunks
+    def timed(fn, kind):
+        def run(*args, **kw):
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            spent[kind] += time.perf_counter() - t
+            return out
+        return run
 
-    def probe(e, sched):
-        now = time.perf_counter()
-        admits, chunks = programs(e)
-        if admits != last["admits"]:
-            spent["admit"] += now - last["t"]
-        elif chunks != last["chunks"]:
-            spent["chunk"] += now - last["t"]
-        last.update(t=now, admits=admits, chunks=chunks)
-
+    for name, kind in PROGRAM_KINDS.items():
+        setattr(engine, name, timed(getattr(engine, name), kind))
     torch.cuda.synchronize()
-    last["admits"], last["chunks"] = programs(engine)
-    t0 = last["t"] = time.perf_counter()
-    out = engine.serve(reqs, _probe=probe)
-    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        out = engine.serve(reqs)
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in kept.items():
+            if fn is None:
+                delattr(engine, name)
+            else:
+                setattr(engine, name, fn)
     return out, time.perf_counter() - t0, spent
 
 
@@ -1791,10 +1896,185 @@ def phase_paged_slice(torch):
           f"({100 * busy / wall:.1f}%), B2 {b2:.3f} ms in {b2_calls} launches "
           f"({1e3 * b2 / max(b2_calls, 1):.3f} us a launch), B1 {b1:.3f} ms in {seen} launches "
           f"by name (launch counter {launches})")
-    return {"a": cmp_a, "runs": runs, "c": cmp_c,
+    return {"a": cmp_a, "runs": runs, "c": cmp_c, "model": model,
             "profile": {"steps_wall_ms": wall, "busy_ms": busy, "b2_ms": b2,
                         "b2_launches": b2_calls, "b1_ms": b1, "steps": PAGED_CHUNK,
                         "steps_lost": len(lost)}}
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the throughput scheduler loop
+# ---------------------------------------------------------------------------
+#: phase 10 (a): the policy, and the burst of cold prompts (65-128 tokens,
+#: two pages each) put before phase 7's trace, which the first admission
+#: pass takes as one batched group of M = 4 x 2 x 64 = 512 (phase 7's trace
+#: alone forms none: under chunks of 128 its cold admits are separated by
+#: chunked stubs)
+THROUGHPUT_POLICY = dict(admit_window=4, batch_max=4, prefill_chunk=128)
+BURST = 4
+#: phase 10 (b): the policy and pool of the preemption run, over phase 7's
+#: prompts with PREEMPT_NEW_SCALE x their new tokens (with 4-32 new tokens,
+#: 64-token pages and a 1-page reserve, no pool size preempts: a request
+#: crosses at most one page boundary)
+PREEMPT_POLICY = dict(admit_window=2, batch_max=4, watermark=(1, 4))
+PREEMPT_BLOCKS, PREEMPT_NEW_SCALE = 12, 4
+
+
+def program_counts(e) -> dict:
+    return {"steps": e.decode_steps, "admits": e.admits, "suffix": e.suffix_admits,
+            "cached": e.cached_admits, "batch": e.batch_admits, "stubs": e.stub_admits,
+            "chunks": e.prefill_chunks, "grows": e.grows, "preemptions": e.preemptions,
+            "decode_chunks": e.chunks}
+
+
+def driven(torch, cfg, engine, reqs, kv) -> dict:
+    """Serve ``reqs`` on ``engine`` (its step captured) with the launch
+    counters set to 0 just before and read just after; checks the exact
+    B1 and B2/B3 counts, every request complete and every page back on the
+    free list, host and device. Returns the run's figures."""
+    before = program_counts(engine)
+    reset_peak(torch)
+    reset_counts()
+    res, wall, spent = serve_timed(torch, engine, reqs)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    ran = {k: v - before[k] for k, v in program_counts(engine).items()}
+    key = "paged_decode_attention" if kv == "act" else "paged_decode_attention_int8"
+    other = "paged_decode_attention_int8" if kv == "act" else "paged_decode_attention"
+    check(counts[key] == cfg.n_layers * ran["steps"] and counts[other] == 0,
+          f"{kv}: attention launches {counts} for {ran['steps']} decode steps")
+    forwards = ran["steps"] + ran["admits"] + ran["suffix"] + ran["batch"] + ran["chunks"]
+    check(counts["w4a8_matmul"] == 7 * cfg.n_layers * forwards,
+          f"{kv}: B1 launches {counts} for {forwards} forwards ({ran})")
+    check(engine.chunk_traces == 1, f"{engine.chunk_traces} captures of the decode step")
+    for r in reqs:
+        check(res[r.uid].size == r.prompt.size + r.max_new, f"{kv}: request {r.uid} incomplete")
+    pool, cache = engine.pool_state, engine.cache
+    check(pool.free_top == 0 and not pool.page_rc.any()
+          and sorted(pool.free_list.tolist()) == list(range(pool.free_list.size))
+          and int(cache["free_top"]) == 0 and not cache["page_refcounts"].any()
+          and cache["free_list"].cpu().tolist() == pool.free_list.tolist(),
+          f"{kv}: pages not all back on the free list")
+    n_new = sum(r.max_new for r in reqs)
+    admit_s = sum(spent[k] for k in ("admit", "batch", "stub", "prefill"))
+    return {"res": res, "counts": counts, "ran": ran, "wall": wall, "spent": spent,
+            "admit_ms_per_request": 1e3 * admit_s / len(reqs),
+            "peak_mib": peak / 2**20, "tok_s": n_new / wall, "digest": pool.digest(),
+            "step_ms": 1e3 * spent["chunk"] / max(ran["steps"], 1),
+            "watermarks": getattr(engine, "watermark_values", None)}
+
+
+def recorded(engine, reqs, warm_prompt):
+    """``reqs`` through a fresh ``engine`` warmed by one short request,
+    every row's logits recorded through the replays."""
+    with ReplayRecorder(engine) as rec:
+        warm_paged(engine, warm_prompt)
+        res = engine.serve(reqs)
+    return res, rec.rows
+
+
+def tie_vs(specs, a, rec_a, b, rec_b, vocab):
+    return tie_limited([(a[u][p.size:], b[u][p.size:], [rec_a[(u, t)] for t in range(n)],
+                         [rec_b[(u, t)] for t in range(n)]) for u, p, n in specs], vocab)
+
+
+def fmt_admits(run) -> str:
+    sp, ran = run["spent"], run["ran"]
+    return (f"admit side {run['admit_ms_per_request']:.3f} ms a request: {ran['batch']} "
+            f"batched groups {1e3 * sp['batch']:.1f} ms, "
+            f"{ran['admits'] + ran['suffix']} B = 1 admits {1e3 * sp['admit']:.1f} ms, "
+            f"{ran['stubs']} stubs {1e3 * sp['stub']:.1f} ms, {ran['chunks']} prefill chunks "
+            f"{1e3 * sp['prefill']:.1f} ms")
+
+
+def phase_throughput_slice(torch, paged):
+    from repro_torch.configs import get_config
+    from repro_torch.serving import (
+        PagedConfig,
+        PagedEngine,
+        Request,
+        SamplerConfig,
+        SchedulerPolicy,
+    )
+
+    cfg = get_config("smollm-360m")
+    model = paged["model"]
+    greedy = SamplerConfig(temperature=0.0)
+
+    def engine(kv="act", num_blocks=PAGED_BLOCKS, **policy):
+        return PagedEngine(model, cfg, PagedConfig(
+            block_size=PAGED_BLOCK, num_blocks=num_blocks, max_concurrency=PAGED_SLOTS,
+            chunk_max=PAGED_CHUNK, attn_impl="auto", kv_dtype=kv,
+            sched=SchedulerPolicy(**policy)), greedy, device="cuda",
+            **({"assert_bounds": True} if kv == "int8" else {}))
+
+    specs, rng = trace_specs(cfg)
+    burst = [(200 + i, rng.integers(0, cfg.vocab, size=int(rng.integers(65, 129))),
+              int(rng.integers(4, 33))) for i in range(BURST)]
+    specs_a = burst + specs
+    warm = specs[0][1]
+
+    def reqs(sp):
+        return [Request(uid=u, prompt=p, max_new=n) for u, p, n in sp]
+
+    # (a) batched and chunked admission against FIFO on the same trace,
+    # float then int8 KV; every engine warmed by one short request
+    out = {}
+    for kv in ("act", "int8"):
+        eng = engine(kv, **THROUGHPUT_POLICY)
+        warm_paged(eng, warm)
+        thr = driven(torch, cfg, eng, reqs(specs_a), kv)
+        ran = thr["ran"]
+        check(ran["batch"] >= 1 and ran["stubs"] >= 1 and ran["chunks"] >= 1,
+              f"{kv}: the throughput programs did not all run: {ran}")
+        fifo_eng = engine(kv)
+        warm_paged(fifo_eng, warm)
+        fifo = driven(torch, cfg, fifo_eng, reqs(specs_a), kv)
+        thr_r, thr_rows = recorded(engine(kv, **THROUGHPUT_POLICY), reqs(specs_a), warm)
+        fifo_r, fifo_rows = recorded(engine(kv), reqs(specs_a), warm)
+        check(all((thr_r[u] == thr["res"][u]).all() and (fifo_r[u] == fifo["res"][u]).all()
+                  for u, _, _ in specs_a), f"{kv}: the recorded runs' streams differ")
+        cmp = tie_vs(specs_a, thr["res"], thr_rows, fifo["res"], fifo_rows, cfg.vocab)
+        if kv == "int8":
+            spec = eng.attn_spec
+            qk, pv = thr["watermarks"]
+            check(qk <= 2 ** (spec.p_qk - 1) - 1 and pv <= 2 ** (spec.p_pv - 1) - 1,
+                  f"B3 watermarks {qk}, {pv} against {spec.describe()}")
+        out[kv] = {"thr": thr, "fifo": fifo, "cmp": cmp}
+        ph7 = paged["runs"][kv]
+        print(f"[throughput] (a) {kv} KV, policy {THROUGHPUT_POLICY}, {len(specs_a)} requests "
+              f"({BURST} cold prompts of {[p.size for _, p, _ in burst]} tokens, then phase 7's "
+              f"{TRACE_REQUESTS}): {ran}; launches {thr['counts']}; {cmp['agree']} of "
+              f"{cmp['total']} tokens agree with FIFO (partings {cmp['partings']}, tie band "
+              f"{cmp['band']:.4f}); throughput: {fmt_admits(thr)}; decode step "
+              f"{thr['step_ms']:.3f} ms; {thr['tok_s']:.1f} tok/s, "
+              f"wall {thr['wall']:.3f} s, peak {thr['peak_mib']:.1f} MiB | FIFO, same trace: "
+              f"{fmt_admits(fifo)}; decode step {fifo['step_ms']:.3f} ms; {fifo['tok_s']:.1f} "
+              f"tok/s, wall {fifo['wall']:.3f} s, peak {fifo['peak_mib']:.1f} MiB | phase 7 "
+              f"FIFO ({TRACE_REQUESTS} requests): admit {ph7['admit_ms']:.3f} ms, step "
+              f"{ph7['step_ms']:.3f} ms, {ph7['tok_s']:.1f} tok/s, wall {ph7['wall']:.3f} s"
+              + (f"; B3 watermarks {thr['watermarks']}" if kv == "int8" else ""))
+
+    # (b) watermark growth and preemption, float KV
+    specs_b = [(u, p, PREEMPT_NEW_SCALE * n) for u, p, n in specs]
+    # (the measured run records its logits: recording adds two device copies
+    # a step and one host read a chunk)
+    eng = engine("act", PREEMPT_BLOCKS, **PREEMPT_POLICY)
+    with ReplayRecorder(eng) as rec:
+        warm_paged(eng, warm)
+        pre = driven(torch, cfg, eng, reqs(specs_b), "act")
+    check(pre["ran"]["preemptions"] >= 1 and pre["ran"]["grows"] >= 1,
+          f"no preemption in a {PREEMPT_BLOCKS}-page pool: {pre['ran']}")
+    fifo_r, fifo_rows = recorded(engine("act"), reqs(specs_b), warm)
+    cmp_b = tie_vs(specs_b, pre["res"], rec.rows, fifo_r, fifo_rows, cfg.vocab)
+    out["b"] = {"run": pre, "cmp": cmp_b}
+    print(f"[throughput] (b) float KV, policy {PREEMPT_POLICY}, {PREEMPT_BLOCKS}-page pool, "
+          f"phase 7's prompts with {PREEMPT_NEW_SCALE}x their new tokens: {pre['ran']}; "
+          f"launches {pre['counts']}; {cmp_b['agree']} of {cmp_b['total']} tokens agree with "
+          f"FIFO (partings {cmp_b['partings']}, tie band {cmp_b['band']:.4f}); every page free "
+          f"(digest {pre['digest']}); decode step {pre['step_ms']:.3f} ms, {pre['tok_s']:.1f} "
+          f"tok/s, wall {pre['wall']:.3f} s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2547,7 +2827,8 @@ def main() -> int:
     sparse_k = phase_sparse_kernels(torch, gpfq_rows)
     b6 = phase_rmsnorm(torch)
     sparse = phase_sparse_slice(torch, calib, paged)
-    print(json.dumps({"kernels": [
+    throughput = phase_throughput_slice(torch, paged)
+    records = [
         kernel_record(rows, max_err, launches, host),
         paged_record("paged_decode_attention", paged_rows["float"], paged_err["float"],
                      paged["runs"]["act"]["counts"]["paged_decode_attention"], 189),
@@ -2556,7 +2837,14 @@ def main() -> int:
         sparse_kernel_record(*sparse_k["b4"], sparse["serve_launches"]),
         gpfq_record(gpfq_rows, gpfq_err, calib["launches"], *sparse_k["b5"],
                     sparse["calib_launches"]),
-        rmsnorm_record(*b6, b6_host)]}))
+        rmsnorm_record(*b6, b6_host)]
+    # phase 10's launches on the throughput loop: (a) float, (a) int8, (b)
+    for rec, counter in zip(records[:3], ("w4a8_matmul", "paged_decode_attention",
+                                          "paged_decode_attention_int8")):
+        rec["throughput_launches"] = [throughput[k]["thr"]["counts"][counter]
+                                      for k in ("act", "int8")] + [
+            throughput["b"]["run"]["counts"][counter]]
+    print(json.dumps({"kernels": records}))
     # one card: every phase runs on cuda:0
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

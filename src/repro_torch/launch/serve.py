@@ -25,8 +25,17 @@ runs the paged attention kernels (B2 float pages, B3 int8)::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
         --smoke --packed --paged --block-size 8 --kv-dtype int8 --device cpu
 
-The throughput-scheduler flags, ``--plan``, ``--mesh``, ``--observe`` and
-``--ckpt-dir`` are accepted and refused, each naming the slice that brings it.
+``--admit-window``, ``--admit-batch``, ``--prefill-chunk`` and
+``--watermark LOW HIGH`` set the paged engine's scheduler policy (any
+non-default one runs the throughput loop: batched admission, chunked
+prefill, watermark growth and preemption)::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
+        --smoke --packed --paged --admit-batch 2 --prefill-chunk 16 \
+        --block-size 8 --device cpu
+
+``--plan``, ``--mesh``, ``--observe`` and ``--ckpt-dir`` are accepted and
+refused, each naming the slice that brings it.
 """
 
 from __future__ import annotations
@@ -46,15 +55,17 @@ from repro_torch.quant.serve_packed import (
     packed_params_from_artifact,
 )
 from repro_torch.quant.spec import tree_datapath_fingerprint
-from repro_torch.serving import GenerationEngine, PagedConfig, PagedEngine, SamplerConfig
+from repro_torch.serving import (
+    GenerationEngine,
+    PagedConfig,
+    PagedEngine,
+    SamplerConfig,
+    SchedulerPolicy,
+)
 from repro_torch.serving.scheduler import blocks_for_budget, kv_pool_bytes
 
 #: flags of the reference launcher that belong to slices not ported yet
 _UNPORTED = {
-    "--admit-window": "the throughput scheduler loop",
-    "--admit-batch": "the throughput scheduler loop",
-    "--prefill-chunk": "the throughput scheduler loop",
-    "--watermark": "the throughput scheduler loop",
     "--plan": "mixed-precision plans (static KV scales, observers and search)",
     "--mesh": "multi-device serving", "--observe": "serving observers",
     "--ckpt-dir": "checkpoint restore of trained params",
@@ -96,6 +107,20 @@ def main(argv=None):
                          "--num-blocks")
     ap.add_argument("--prefix-cache", action="store_true",
                     help="share full prompt blocks across requests (--paged)")
+    ap.add_argument("--admit-window", type=int, default=1,
+                    help="queued requests one admission pass may examine (--paged)")
+    ap.add_argument("--admit-batch", type=int, default=1,
+                    help="max cold arrivals co-admitted through one padded "
+                         "multi-row prefill (--paged)")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="prefill long prompts in page-aligned chunks of at most "
+                         "this many tokens, between decode chunks (--paged; a "
+                         "multiple of --block-size)")
+    ap.add_argument("--watermark", type=int, nargs=2, default=None,
+                    metavar=("LOW", "HIGH"),
+                    help="free-page watermarks (--paged): admit against a LOW-page "
+                         "reserve, grow pages on demand and preempt on exhaustion; "
+                         "after a preemption fresh arrivals wait for HIGH free pages")
     for flag, what in _UNPORTED.items():
         ap.add_argument(flag, nargs="*", default=None,
                         help=f"not yet ported ({what})")
@@ -126,6 +151,10 @@ def main(argv=None):
                            or args.prefix_cache):
         raise SystemExit("--kv-dtype/--kv-hbm-mb/--prefix-cache apply to the "
                          "paged engine only (add --paged)")
+    if not args.paged and (args.admit_window != 1 or args.admit_batch != 1
+                           or args.prefill_chunk is not None or args.watermark is not None):
+        raise SystemExit("--admit-window/--admit-batch/--prefill-chunk/--watermark apply "
+                         "to the paged engine only (add --paged)")
     if args.paged:
         if args.host_loop:
             raise SystemExit("--host-loop applies to the fixed-slot engine only")
@@ -149,7 +178,8 @@ def main(argv=None):
 
 def _paged_engine(args, model, cfg, sampler, device) -> PagedEngine:
     """The paged engine the flags describe; prints the reference's
-    ``[serve] paged engine: ...`` line (pool MB, attention datapath)."""
+    ``[serve] paged engine: ...`` line (pool MB, policy, attention
+    datapath)."""
     pages_per_seq = -(-(args.prompt_len + args.max_new - 1) // args.block_size)
     if args.kv_hbm_mb is not None and args.num_blocks is not None:
         raise SystemExit("--num-blocks and --kv-hbm-mb both size the page pool — "
@@ -163,11 +193,18 @@ def _paged_engine(args, model, cfg, sampler, device) -> PagedEngine:
     else:
         num_blocks = args.num_blocks or args.max_concurrency * pages_per_seq
     try:
+        policy = SchedulerPolicy(
+            admit_window=args.admit_window, batch_max=args.admit_batch,
+            prefill_chunk=args.prefill_chunk,
+            watermark=tuple(args.watermark) if args.watermark else None)
+    except ValueError as e:
+        raise SystemExit(f"scheduler policy: {e}") from None
+    try:
         engine = PagedEngine(
             model, cfg,
             PagedConfig(block_size=args.block_size, num_blocks=num_blocks,
                         max_concurrency=args.max_concurrency, kv_dtype=args.kv_dtype,
-                        prefix_cache=args.prefix_cache),
+                        prefix_cache=args.prefix_cache, sched=policy),
             sampler, device=device, backend=args.packed_backend)
     except ValueError as e:
         raise SystemExit(f"paged engine: {e}") from None
@@ -175,9 +212,12 @@ def _paged_engine(args, model, cfg, sampler, device) -> PagedEngine:
     attn_dp = (f" attn_datapath=[{engine.attn_spec.describe()}]"
                if engine.attn_spec else "")
     pc = " prefix_cache=on" if args.prefix_cache else ""
+    pol = ("" if policy.is_legacy else
+           f" policy=(window={policy.admit_window} batch={policy.batch_max} "
+           f"chunk={policy.prefill_chunk} watermark={policy.watermark})")
     print(f"[serve] paged engine: block_size={args.block_size} num_blocks={num_blocks} "
           f"slots={args.max_concurrency} kv_dtype={args.kv_dtype} "
-          f"pool={pool_mb:.2f}MB{pc}{attn_dp}")
+          f"pool={pool_mb:.2f}MB{pc}{pol}{attn_dp}")
     return engine
 
 

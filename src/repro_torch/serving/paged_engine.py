@@ -31,7 +31,26 @@ reference's jitted programs take the cache donated and return a new one):
   count serves every chunk length with one trace (``chunk_traces``). On
   the CPU the same step runs eagerly; ``_chunk(k, eager=True)`` runs it
   eagerly on the card too (the reference loop, kept for timing);
-* **release**: clear the slot's active bit.
+* **release**: clear the slot's active bit (a release with no slot, the
+  prefix cache's evictions, only copies the allocator).
+
+Any non-default :class:`SchedulerPolicy` runs the reference's throughput
+loop (:meth:`PagedEngine._serve_throughput`) and its programs, eager as
+the admits:
+
+* **batched admit**: co-admit ``n`` cold prompts in one padded
+  ``(n, P * block_size)`` prefill, ``P`` the longest prompt in pages; K/V
+  past each row's prompt is zeroed before the page scatter (pad tokens
+  are id 0, whose K/V would raise an int8 page's scale), and each row
+  samples its first token at its own last prompt position (one host read
+  for the group);
+* **stub admit**: claim a slot and its page row for a chunked prefill,
+  no model, the slot inactive;
+* **prefill chunk**: one page-aligned chunk of a stub's prompt against the
+  KV of its earlier pages (gathered, dequantized for int8 pools); the
+  final chunk samples the first token and makes the slot live;
+* **grow**: rewrite a decoding slot's block-table row with the pages
+  watermark growth added.
 
 The page allocator lives on the host (:class:`PoolState`, in lockstep with
 the scheduler and the prefix cache, which hand physical pages around); the
@@ -43,10 +62,9 @@ Sampling is per-request deterministic: a row's step-t draw is a Gumbel-max
 over a counter hash of (seed, uid, t), so co-batching cannot change a
 sampled stream. Greedy decode takes the argmax, as the fixed-slot engine.
 
-Left for later slices, raising ``NotImplementedError``: any non-default
-:class:`SchedulerPolicy` (the throughput loop: windowed and batched
-admission, chunked prefill, watermark preemption), static KV page scales
-from a mixed-precision plan (``kv_scales``), ``mesh`` and ``observe``.
+Left for later slices, raising ``NotImplementedError``: static KV page
+scales from a mixed-precision plan (``kv_scales``), ``mesh`` and
+``observe``.
 """
 
 from __future__ import annotations
@@ -91,7 +109,9 @@ class PagedConfig:
     (kernel B2). ``attn_impl`` is ``auto``, ``reference`` or ``kernel``
     (:func:`~repro_torch.models.layers.resolve_paged_attn_impl`).
     ``prefix_cache`` shares full prompt blocks across requests.
-    ``sched`` must be the default FIFO policy in this port so far."""
+    ``sched`` is the admission policy: the default runs the FIFO loop, any
+    other the throughput loop (windowed and batched admission, chunked
+    prefill, watermark growth and preemption)."""
 
     block_size: int = 64
     num_blocks: int = 256
@@ -102,6 +122,35 @@ class PagedConfig:
     kv_dtype: str = "act"
     prefix_cache: bool = False
     sched: SchedulerPolicy = SchedulerPolicy()
+
+
+def _check_policy(cfg, paged: PagedConfig) -> None:
+    """The reference's policy gates: the prefix cache and batched or
+    chunked admission need an attention-only, MoE-free pattern (recurrent
+    mixers keep dense per-slot state and step it through pad tokens, and
+    co-batched rows compete for expert capacity); chunks scatter whole
+    pages; the high watermark must be reachable."""
+    recurrent = sorted({s.mixer for s in cfg.pattern if s.mixer not in ("attn", "none")})
+    if paged.prefix_cache and recurrent:
+        raise ValueError(f"prefix_cache=True needs an attention-only pattern: {recurrent} "
+                         f"mixers keep dense per-slot state that is not paged and cannot be "
+                         f"shared across requests")
+    pol = paged.sched
+    if pol.batch_max > 1 or pol.prefill_chunk is not None:
+        has_moe = any(s.ffn == "moe" for s in cfg.pattern)
+        if recurrent or has_moe:
+            what = "batched admission" if pol.batch_max > 1 else "chunked prefill"
+            raise ValueError(
+                f"{what} needs an attention-only, MoE-free pattern (recurrent mixers "
+                f"{recurrent or 'none'}, moe ffn {has_moe}): padded multi-row / chunked "
+                f"prefill would change routing or stepwise state and break greedy "
+                f"bit-identity with the FIFO engine")
+    if pol.prefill_chunk is not None and pol.prefill_chunk % paged.block_size != 0:
+        raise ValueError(f"prefill_chunk {pol.prefill_chunk} must be a multiple of block_size "
+                         f"{paged.block_size} (chunks scatter whole pages)")
+    if pol.watermark is not None and pol.watermark[1] > paged.num_blocks:
+        raise ValueError(f"watermark high {pol.watermark[1]} > num_blocks {paged.num_blocks} "
+                         f"— admission could never resume")
 
 
 class PagedEngine:
@@ -128,11 +177,6 @@ class PagedEngine:
         if mesh is not None:
             raise NotImplementedError("mesh-native serving arrives with the multi-device "
                                       "slice of the port")
-        if not paged.sched.is_legacy:
-            raise NotImplementedError(
-                "non-default SchedulerPolicy (windowed/batched admission, chunked "
-                "prefill, watermark preemption) runs the throughput loop, which "
-                "arrives with the throughput-scheduler slice of the port")
         if backend not in _PACKED_BACKENDS:
             raise ValueError(f"packed backend {backend!r} not in {_PACKED_BACKENDS}")
         if paged.kv_dtype not in ("act", "int8"):
@@ -154,6 +198,7 @@ class PagedEngine:
             max_concurrency=paged.max_concurrency, max_pages_per_seq=max_pages,
             chunk_max=paged.chunk_max, attn_impl=paged.attn_impl,
             kv_dtype=paged.kv_dtype, prefix_cache=paged.prefix_cache, sched=paged.sched)
+        _check_policy(cfg, paged)
         self.prefix_cache = (PrefixCache(paged.num_blocks, paged.block_size)
                              if paged.prefix_cache else None)
         #: the host page allocator; persists across serve() calls (cached
@@ -175,6 +220,9 @@ class PagedEngine:
         #: program runs since construction
         self.admits = self.suffix_admits = self.cached_admits = 0
         self.chunks = self.releases = self.decode_steps = 0
+        self.batch_admits = self.stub_admits = self.prefill_chunks = self.grows = 0
+        #: requests preempted (released and requeued) since construction
+        self.preemptions = 0
         self._uid_gen = 0
         #: the decode step's static token buffer and its device column; the
         #: step reads and writes the cache leaves in place, and nothing
@@ -199,14 +247,19 @@ class PagedEngine:
         cache["free_top"].fill_(pool.free_top)
         cache["page_refcounts"].copy_(self._dev(pool.page_rc))
 
-    def _install(self, slot: int, row, *, s0: int, uid: int, steps: int, last_tok) -> None:
-        """Install a slot's block-table row and its per-slot leaves."""
-        cache = self.cache
+    def _set_row(self, slot: int, row) -> None:
+        """Write a slot's block-table row in place, sentinel-padded."""
         table = np.full(self.paged.max_pages_per_seq, self.paged.num_blocks, np.int32)
         table[:len(row)] = row
-        cache["block_table"][slot] = self._dev(table)
+        self.cache["block_table"][slot] = self._dev(table)
+
+    def _install(self, slot: int, row, *, s0: int, uid: int, steps: int, last_tok,
+                 active: bool = True) -> None:
+        """Install a slot's block-table row and its per-slot leaves."""
+        cache = self.cache
+        self._set_row(slot, row)
         cache["seq_lens"][slot] = s0
-        cache["active"][slot] = True
+        cache["active"][slot] = active
         cache["uids"][slot] = uid
         cache["steps"][slot] = steps
         cache["last_tok"][slot] = last_tok
@@ -230,17 +283,23 @@ class PagedEngine:
             out.append(kv)
         return out
 
-    def _scatter_dense_pages(self, dense, pages) -> None:
-        """Scatter a B=1 prefill's dense KV into ``pages`` (quantize-on-
-        scatter for int8 pools: codes and per-(page, head) scales together;
-        padded tail positions are zeros and cannot raise a page's max)."""
+    def _scatter_dense_pages(self, dense, pages, keep=None) -> None:
+        """Scatter a prefill's dense KV, its rows cut into pages in row
+        order, into ``pages``: every page of a B=1 prefill, or those that
+        ``keep`` indexes (a batched prefill's rows hold different page
+        counts). Int8 pools quantize on scatter, codes and per-(page, head)
+        scales together; padded tail positions are zeros and cannot raise
+        a page's max."""
         idx = self._dev(pages, torch.long)
+        sel = None if keep is None else self._dev(keep, torch.long)
         bs = self.paged.block_size
         for pool, d in zip(self.cache["pools"], dense):
             if not pool:
                 continue
             for name in ("k", "v"):
-                x = d[name].reshape(len(pages), bs, *d[name].shape[2:])
+                x = d[name].reshape(-1, bs, *d[name].shape[2:])
+                if sel is not None:
+                    x = x[sel]
                 if "k_scales" in pool:
                     codes, scales = quantize_kv_pages(x)
                     pool[f"{name}_pages"][idx] = codes
@@ -299,6 +358,79 @@ class PagedEngine:
         self._install(adm.slot, adm.row, s0=req.prompt.size - 1, uid=req.uid, steps=0,
                       last_tok=int(req.prompt[-1]))
 
+    def _admit_batch(self, group) -> np.ndarray:
+        """Co-admit ``n`` cold requests in one padded (n, P * bs) prefill,
+        P the group's longest prompt in pages. K/V at each row's positions
+        ``>= S0`` is zeroed before the scatter, so every page, codes and
+        int8 scales, is the one a B=1 admit writes; each row samples its
+        first token at its own last prompt position with (uid, 0). Returns
+        the group's first tokens (one host read)."""
+        self.batch_admits += 1
+        bs, n = self.paged.block_size, len(group)
+        s0s = np.asarray([a.req.prompt.size for a in group], np.int64)
+        n_pages = -(-s0s // bs)
+        P = int(n_pages.max())
+        tokens = np.zeros((n, P * bs), np.int32)
+        for j, a in enumerate(group):
+            tokens[j, :s0s[j]] = a.req.prompt
+        logits, dense = prefill(self.model, {"tokens": self._dev(tokens)}, P * bs)
+        s0_dev = self._dev(s0s, torch.long)
+        pos = torch.arange(P * bs, device=self.device)
+        pad = (pos[None, :] >= s0_dev[:, None])[..., None, None]  # (n, L, 1, 1)
+        for d in dense:
+            for x in d.values():
+                x.masked_fill_(pad, 0)
+        keep = [j * P + i for j in range(n) for i in range(n_pages[j])]
+        pages = np.concatenate([a.row[:n_pages[j]] for j, a in enumerate(group)])
+        self._scatter_dense_pages(dense, pages, keep)
+        last = logits[torch.arange(n, device=self.device), s0_dev - 1]
+        uids = self._dev([a.req.uid for a in group])
+        toks = sample_rows(last, self.sampler.temperature, self.sampler.seed, uids,
+                           torch.zeros_like(uids))
+        for j, a in enumerate(group):
+            self._install(a.slot, a.row, s0=int(s0s[j]), uid=a.req.uid, steps=1,
+                          last_tok=toks[j])
+        return toks.cpu().numpy()
+
+    def _admit_stub(self, adm) -> None:
+        """Claim a slot and its full page row for a chunked prefill, no
+        model: the slot stays inactive (decode steps write its K/V to the
+        sink page) with ``seq_lens = steps = last_tok = 0``."""
+        self.stub_admits += 1
+        self._install(adm.slot, adm.row, s0=0, uid=adm.req.uid, steps=0, last_tok=0,
+                      active=False)
+
+    def _grow(self, slot: int, row) -> None:
+        """Watermark growth: the slot's row, extended by the host, written
+        in place (the captured step reads the table at its address)."""
+        self.grows += 1
+        self._set_row(slot, row)
+        self._sync_allocator()
+
+    def _prefill_chunk(self, slot: int, sched: Scheduler) -> int | None:
+        """Advance a stub's prefill by one page-aligned chunk: its tokens
+        prefill at ``n_prior * bs`` against the KV of the row's first
+        ``n_prior`` pages and scatter into the next pages. The final chunk
+        samples the first token with (uid, 0) and makes the slot live
+        (``seq_lens = S0``, ``steps = 1``); it returns that token, an
+        earlier chunk None."""
+        self.prefill_chunks += 1
+        tokens, n_prior, final, _ = sched.take_prefill_chunk(slot)
+        st, bs = sched.active[slot], self.paged.block_size
+        n_chunk_pages = -(-tokens.size // bs)
+        logits, dense = prefill(
+            self.model, {"tokens": self._dev(tokens[None])}, n_chunk_pages * bs,
+            prefix_kv=self._gather_prefix_kv(st.row[:n_prior]) if n_prior else None,
+            pos_offset=n_prior * bs)
+        self._scatter_dense_pages(dense, st.row[n_prior:n_prior + n_chunk_pages])
+        if not final:
+            return None
+        req = st.req
+        tok0 = self._first_token(logits, req.uid)
+        # the prefix cache's deferred refcounts are in the host allocator
+        self._install(slot, st.row, s0=req.prompt.size, uid=req.uid, steps=1, last_tok=tok0)
+        return int(tok0)
+
     def _decode_step(self) -> None:
         """One decode step on the cache and the static buffers alone."""
         cache, samp = self.cache, self.sampler
@@ -331,9 +463,12 @@ class PagedEngine:
         self.decode_steps += k
         return self._buf.to("cpu", copy=True).numpy()  # the next chunk zeroes _buf
 
-    def _release(self, slot: int) -> None:
-        self.releases += 1
-        self.cache["active"][slot] = False
+    def _release(self, slot: int | None) -> None:
+        """Clear ``slot``'s active bit and copy the allocator; with no slot
+        (prefix-cache evictions) only the copy runs."""
+        if slot is not None:
+            self.releases += 1
+            self.cache["active"][slot] = False
         self._sync_allocator()
 
     # ------------------------------------------------------------------
@@ -346,8 +481,14 @@ class PagedEngine:
                          pool_state=self.pool_state, policy=paged.sched)
 
     def _do_admit(self, adm) -> int | None:
-        """Run one admission's program. Returns the request's first sampled
-        token, or None for a fully cached prompt (deferred to the chunk)."""
+        """Run one admission's programs (its evictions, then the admit).
+        Returns the request's first sampled token, or None for a fully
+        cached prompt (deferred to the chunk) or a chunked stub."""
+        if adm.evict_pages is not None and adm.evict_pages.size:
+            self._release(None)
+        if adm.chunked:
+            self._admit_stub(adm)
+            return None
         if adm.cow_src is not None:
             self._admit_cached(adm)
             return None
@@ -370,93 +511,130 @@ class PagedEngine:
     @torch.inference_mode()
     def serve(self, requests, *, arrivals=None, metrics=None, _probe=None,
               _late=None) -> dict[int, np.ndarray]:
-        """Run a request list to completion under continuous batching (the
-        reference's FIFO loop). Returns {uid: (S0 + n_generated,) int32},
-        trimmed at the first EOS when the sampler sets one.
+        """Run a request list to completion under continuous batching.
+        Returns {uid: (S0 + n_generated,) int32}, trimmed at the first EOS
+        when the sampler sets one. The default policy runs the reference's
+        FIFO loop, any other its throughput loop; both give the same
+        streams.
 
         ``arrivals`` (seconds, aligned with ``requests``) paces submission
         on the wall clock; ``metrics`` (a
         :class:`~repro_torch.serving.metrics.ServeMetrics`) collects TTFT
         and inter-token times. ``_probe(engine, sched)`` runs after every
-        admit, chunk and release; ``_late(sched, pass_idx)`` once per
-        scheduler pass, and may submit mid-flight arrivals."""
+        admit, chunk and release (the throughput loop probes an admission
+        pass once, after all its programs ran); ``_late(sched, pass_idx)``
+        once per scheduler pass, and may submit mid-flight arrivals."""
+        run = _Run(self, requests, arrivals, metrics, _probe)
         with use_packed_backend(self.backend):
-            results = self._serve_legacy(requests, arrivals, metrics, _probe, _late)
+            if self.paged.sched.is_legacy:
+                self._serve_legacy(run, _late)
+            else:
+                self._serve_throughput(run, _late)
         if self.assert_bounds:
             self.watermark_values = check_bounds(self.watermarks, self.attn_spec)
-        return results
+        return run.results
 
-    def _serve_legacy(self, requests, arrivals, metrics, _probe, _late):
-        sched = self._make_scheduler()
-        pending = self._arrival_feed(requests, arrivals)
-        if pending is None:
-            for r in requests:
-                sched.submit(r)
-                if metrics is not None:
-                    metrics.submitted(r.uid, r.priority, 0.0)
-        eos = self.sampler.eos_id
-        results: dict[int, np.ndarray] = {}
+    def _serve_legacy(self, run: "_Run", _late) -> None:
+        sched = run.sched
         chunk_idx = 0
-        t0 = time.perf_counter()
-
-        def now():
-            return time.perf_counter() - t0
-
-        def submit_due():
-            while pending and pending[0][0] <= now():
-                t, r = pending.popleft()
-                sched.submit(r)
-                if metrics is not None:
-                    metrics.submitted(r.uid, r.priority, t)
-
-        def note(slot, toks):
-            sched.record(slot, toks)
-            if metrics is not None and toks:
-                metrics.tokens(sched.active[slot].req.uid, len(toks), now())
-
-        def finish(slot):
-            st = sched.finish(slot)
-            self._release(slot)
-            results[st.req.uid] = np.concatenate(
-                [st.req.prompt, np.asarray(st.tokens, np.int32)])
-            if _probe is not None:
-                _probe(self, sched)
-
-        while sched.has_work or pending:
-            if pending:
-                submit_due()
-                if not sched.has_work:
-                    time.sleep(max(0.0, pending[0][0] - now()))
-                    continue
+        while run.waiting():
             adm = sched.try_admit()
             while adm is not None:
                 tok0 = self._do_admit(adm)
                 if tok0 is not None:
-                    note(adm.slot, [tok0])
-                if _probe is not None:
-                    _probe(self, sched)
-                if tok0 is not None and (sched.remaining(adm.slot) == 0 or tok0 == eos):
-                    finish(adm.slot)
+                    run.note(adm.slot, [tok0])
+                run.probe()
+                run.maybe_finish(adm.slot)
                 adm = sched.try_admit()
             if sched.active:
                 k = min(self.paged.chunk_max, sched.min_remaining())
                 buf = self._chunk(k)  # the chunk's one host read
-                if _probe is not None:
-                    _probe(self, sched)
+                run.probe()
                 for slot in list(sched.active):
-                    toks = buf[slot, :k].tolist()[: sched.remaining(slot)]
-                    if eos is not None and eos in toks:
-                        toks = toks[: toks.index(eos) + 1]
-                    note(slot, toks)
-                    if sched.remaining(slot) == 0 or (
-                            eos is not None and toks and toks[-1] == eos):
-                        finish(slot)
+                    run.note(slot, run.trim(buf[slot, :k].tolist(), slot))
+                    run.maybe_finish(slot)
             elif sched.queue:  # cannot happen: submit() validates fit
                 raise RuntimeError("queued requests can never be admitted")
             if _late is not None:
                 _late(sched, chunk_idx)
             chunk_idx += 1
-        return results
+
+    def _serve_throughput(self, run: "_Run", _late) -> None:
+        """The reference's throughput loop. One pass: (1) one prefill chunk
+        for each slot already prefilling (older than anything queued, so a
+        burst of admits cannot starve a final chunk); (2) an admission pass
+        (windowed, priority-ordered; a group of one runs its admit, a
+        larger group one batched admit), probed once after all its
+        programs ran, since the host committed the whole pass up front;
+        (3) the first chunk of each slot stubbed in (2); (4) the planned
+        decode chunk: victims preempted and released, cache evictions,
+        growth, then ``plan.k`` replays of the captured step."""
+        sched = run.sched
+        pass_idx = 0
+        while run.waiting():
+            progressed = False
+
+            def take_chunk(slot):
+                tok0 = self._prefill_chunk(slot, sched)
+                run.probe()
+                if tok0 is not None:
+                    run.note(slot, [tok0])
+                    run.maybe_finish(slot)
+
+            chunked_first = sched.prefilling_slots()
+            for slot in chunked_first:
+                progressed = True
+                take_chunk(slot)
+            admitted = []
+            for group in sched.admit_pass():
+                progressed = True
+                if len(group) == 1:
+                    tok0 = self._do_admit(group[0])
+                    if tok0 is not None:
+                        run.note(group[0].slot, [tok0])
+                else:
+                    for adm, tok in zip(group, self._admit_batch(group)):
+                        run.note(adm.slot, [int(tok)])
+                admitted.extend(group)
+            if admitted:
+                run.probe()
+                for adm in admitted:
+                    run.maybe_finish(adm.slot)
+            for slot in sched.prefilling_slots():
+                if slot not in chunked_first:  # one chunk per slot per pass
+                    progressed = True
+                    take_chunk(slot)
+            plan = sched.plan_chunk(self.paged.chunk_max)
+            if plan is not None:
+                for v in plan.victims:
+                    progressed = True  # freed pages: replanned next pass
+                    st = sched.preempt(v)
+                    self.preemptions += 1
+                    self._release(v)
+                    if run.metrics is not None:
+                        run.metrics.preempted(st.req.uid)
+                    run.probe()
+                if plan.evict_nodes:
+                    sched._commit_evict(plan.evict_nodes)
+                    self._release(None)
+                    run.probe()
+                for slot, n_new in plan.grow:
+                    sched.commit_grow(slot, n_new)
+                    self._grow(slot, sched.active[slot].row)
+                    run.probe()
+                if plan.slots:
+                    progressed = True
+                    buf = self._chunk(plan.k)  # the chunk's one host read
+                    sched.advance_decode(plan.k)
+                    run.probe()
+                    for slot in plan.slots:
+                        run.note(slot, run.trim(buf[slot, :plan.k].tolist(), slot))
+                        run.maybe_finish(slot)
+            if not progressed and not sched.active and sched.queue and not run.pending:
+                raise RuntimeError("queued requests can never be admitted")
+            if _late is not None:
+                _late(sched, pass_idx)
+            pass_idx += 1
 
     def generate(self, prompts: np.ndarray, max_new_tokens: int) -> np.ndarray:
         """Fixed-slot-compatible entry: prompts (B, S0) -> (B, S0 + max_new),
@@ -474,6 +652,76 @@ class PagedEngine:
             seq = results[r.uid]
             out[i, :seq.size] = seq
         return out
+
+
+class _Run:
+    """One :meth:`PagedEngine.serve` call's host state, shared by both
+    loops: the scheduler, the arrival feed, the results and the hooks."""
+
+    def __init__(self, engine: PagedEngine, requests, arrivals, metrics, probe):
+        self.engine, self.metrics, self._probe = engine, metrics, probe
+        self.sched = engine._make_scheduler()
+        self.pending = engine._arrival_feed(requests, arrivals)
+        self.eos = engine.sampler.eos_id
+        self.results: dict[int, np.ndarray] = {}
+        if self.pending is None:
+            for r in requests:
+                self.sched.submit(r)
+                if metrics is not None:
+                    metrics.submitted(r.uid, r.priority, 0.0)
+        self.t0 = time.perf_counter()
+
+    def now(self) -> float:
+        return time.perf_counter() - self.t0
+
+    def waiting(self) -> bool:
+        """Submit the arrivals that are due; True while work remains (with
+        nothing to run, sleep until the next arrival)."""
+        sched, pending = self.sched, self.pending
+        while sched.has_work or pending:
+            if not pending:
+                return True
+            while pending and pending[0][0] <= self.now():
+                t, r = pending.popleft()
+                sched.submit(r)
+                if self.metrics is not None:
+                    self.metrics.submitted(r.uid, r.priority, t)
+            if sched.has_work:
+                return True
+            time.sleep(max(0.0, pending[0][0] - self.now()))
+        return False
+
+    def probe(self) -> None:
+        if self._probe is not None:
+            self._probe(self.engine, self.sched)
+
+    def trim(self, toks: list, slot: int) -> list:
+        """A chunk's tokens for ``slot``, cut at its budget and its EOS."""
+        toks = toks[: self.sched.remaining(slot)]
+        if self.eos is not None and self.eos in toks:
+            toks = toks[: toks.index(self.eos) + 1]
+        return toks
+
+    def note(self, slot: int, toks) -> None:
+        self.sched.record(slot, toks)
+        if self.metrics is not None and toks:
+            self.metrics.tokens(self.sched.active[slot].req.uid, len(toks), self.now())
+
+    def finish(self, slot: int) -> None:
+        st = self.sched.finish(slot)
+        self.engine._release(slot)
+        self.results[st.req.uid] = np.concatenate(
+            [st.req.prompt, np.asarray(st.tokens, np.int32)])
+        self.probe()
+
+    def maybe_finish(self, slot: int) -> None:
+        """Finish ``slot`` if its request is done: budget spent or EOS."""
+        st = self.sched.active.get(slot)
+        if st is None or st.prefilling:
+            return
+        if self.sched.remaining(slot) == 0 or (
+                self.eos is not None and st.tokens and st.tokens[-1] == self.eos):
+            self.finish(slot)
 
 
 __all__ = ["PagedConfig", "PagedEngine", "sample_rows"]

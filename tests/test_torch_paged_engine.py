@@ -422,8 +422,10 @@ def test_datapath_requests_and_refusals(setup):
         _paged(model, kv_dtype="fp8")
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         _paged(model, attn_impl="kernel")
-    with pytest.raises(NotImplementedError, match="throughput"):
-        _paged(model, sched=SchedulerPolicy(admit_window=2))
+    with pytest.raises(ValueError, match="multiple of"):
+        _paged(model, sched=SchedulerPolicy(prefill_chunk=12))
+    with pytest.raises(ValueError, match="admission could never resume"):
+        _paged(model, num_blocks=4, sched=SchedulerPolicy(watermark=(1, 8)))
     for kw in (dict(observe=True), dict(kv_scales={}), dict(mesh=object())):
         with pytest.raises(NotImplementedError):
             PagedEngine(model, None, PagedConfig(**BASE), device="cpu", **kw)

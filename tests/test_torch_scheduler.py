@@ -164,3 +164,112 @@ def test_serve_metrics_summary_matches():
             for m in (jm, pm):
                 m.preempted(uid)
     assert pm.summary() == jm.summary()
+
+
+def _same_groups(jg, pg):
+    assert [len(g) for g in jg] == [len(g) for g in pg]
+    for a_group, b_group in zip(jg, pg):
+        for a, b in zip(a_group, b_group):
+            _same_admission(a, b)
+
+
+@pytest.mark.parametrize("prefix", [False, True])
+@pytest.mark.parametrize("seed", range(4))
+def test_throughput_policy_same_decisions_and_digest(seed, prefix):
+    """The throughput loop's host side in lockstep: random policies
+    (window, batch, chunk, watermark) over arrivals that drip in a few a
+    pass, each pass driving ``take_prefill_chunk``, ``admit_pass``,
+    ``plan_chunk``, ``preempt``, ``_commit_evict`` and ``commit_grow`` in
+    the engine's order on the reference and the port: every group, chunk,
+    victim, eviction, growth and the allocator agree after every step, and
+    every request ends with its ``max_new`` tokens."""
+    r = random.Random(seed)
+    bs = 4
+    nb = r.randint(8, 14)
+    pol = dict(admit_window=r.randint(2, 4), batch_max=r.randint(2, 3),
+               prefill_chunk=bs if seed % 2 == 0 else None,
+               watermark=(1, min(4, nb)) if seed < 3 else None)
+    kw = dict(max_concurrency=r.randint(2, 4), num_blocks=nb, block_size=bs,
+              max_pages_per_seq=6)
+    js, ps = (JS.Scheduler(prefix_cache=JPC.PrefixCache(nb, bs) if prefix else None,
+                           policy=JS.SchedulerPolicy(**pol), **kw),
+              S.Scheduler(prefix_cache=PC.PrefixCache(nb, bs) if prefix else None,
+                          policy=S.SchedulerPolicy(**pol), **kw))
+    blocks = [np.asarray(r.choices(range(50), k=bs), np.int32) for _ in range(2)]
+    feed = []
+    for uid in range(10):
+        body = [blocks[i] for i in r.choices(range(2), k=r.choice([0, 1, 2]))]
+        tail = np.asarray(r.choices(range(50), k=r.choice([1, 3, 6])), np.int32)
+        feed.append((uid, np.concatenate(body + [tail]), r.choice([2, 5, 9]),
+                     r.choice([0, 1])))
+    want = {uid: n for uid, _, n, _ in feed}
+    done, preempted = {}, 0
+
+    def finish(slot):
+        a, b = js.finish(slot), ps.finish(slot)
+        assert a.req.uid == b.req.uid and a.tokens == b.tokens
+        done[a.req.uid] = len(a.tokens)
+
+    for _ in range(300):
+        if not (feed or js.has_work):
+            break
+        for _ in range(min(len(feed), r.randint(1, 2))):
+            uid, prompt, max_new, prio = feed.pop(0)
+            for sched, mod in ((js, JS), (ps, S)):
+                sched.submit(mod.Request(uid=uid, prompt=prompt.copy(), max_new=max_new,
+                                         priority=prio))
+        assert js.prefilling_slots() == ps.prefilling_slots()
+        for slot in js.prefilling_slots():
+            a, b = js.take_prefill_chunk(slot), ps.take_prefill_chunk(slot)
+            np.testing.assert_array_equal(a[0], b[0])
+            assert a[1:3] == b[1:3]
+            np.testing.assert_array_equal(a[3], b[3])
+            if a[2]:
+                for sched in (js, ps):
+                    sched.record(slot, [1])
+            _check_state(js, ps)
+        jg, pg = js.admit_pass(), ps.admit_pass()
+        _same_groups(jg, pg)
+        for adm in (a for g in jg for a in g):
+            if not adm.chunked:
+                for sched in (js, ps):
+                    sched.record(adm.slot, [1])
+                if js.remaining(adm.slot) == 0:
+                    finish(adm.slot)
+        _check_state(js, ps)
+        cmax = r.choice([1, 2, 4])
+        jp, pp = js.plan_chunk(cmax), ps.plan_chunk(cmax)
+        if jp is None:
+            assert pp is None
+            continue
+        assert (jp.k, jp.slots, jp.victims, jp.grow) == (pp.k, pp.slots, pp.victims, pp.grow)
+        assert [n.key for n in jp.evict_nodes] == [n.key for n in pp.evict_nodes]
+        for v in jp.victims:
+            a, b = js.preempt(v), ps.preempt(v)
+            assert a.req.uid == b.req.uid
+            preempted += 1
+            _check_state(js, ps)
+        if jp.evict_nodes:
+            np.testing.assert_array_equal(js._commit_evict(jp.evict_nodes),
+                                          ps._commit_evict(pp.evict_nodes))
+            _check_state(js, ps)
+        for slot, n_new in jp.grow:
+            a, b = js.commit_grow(slot, n_new), ps.commit_grow(slot, n_new)
+            np.testing.assert_array_equal(a[0], b[0])
+            assert a[1] == b[1]
+            _check_state(js, ps)
+        if jp.slots:
+            for sched in (js, ps):
+                sched.advance_decode(jp.k)
+            for slot in jp.slots:
+                for sched in (js, ps):
+                    sched.record(slot, [1] * jp.k)
+                if js.remaining(slot) == 0:
+                    finish(slot)
+            _check_state(js, ps)
+    assert not feed and not js.has_work and not ps.has_work, "the loop did not drain"
+    assert done == want
+    assert js.preemptions == ps.preemptions == preempted
+    assert js.pool.digest() == ps.pool.digest()
+    held = 0 if js.prefix_cache is None else len(js.prefix_cache.nodes)
+    assert js.free_pages == ps.free_pages == nb - held

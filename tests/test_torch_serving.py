@@ -230,7 +230,7 @@ def test_serve_launcher_cpu(capsys):
     assert out.shape == (2, 12)
     assert "tok/s" in capsys.readouterr().out
     with pytest.raises(SystemExit, match="not yet ported"):
-        serve.main(["--arch", ARCH, "--paged", "--watermark", "1", "4", "--device", "cpu"])
+        serve.main(["--arch", ARCH, "--paged", "--plan", "plan.json", "--device", "cpu"])
 
 
 def test_kernel_launch_counter_counts_only_launches(setup):
