@@ -172,7 +172,39 @@ result unless every phase passed):
    logits recorded on the measured run: at least one grow and one
    preemption, the same launch and pool gates, streams tie-limited against
    FIFO. The kernels line adds each of B1, B2 and B3's
-   launches in (a) float, (a) int8 and (b) as ``throughput_launches``.
+   launches in (a) float, (a) int8 and (b) as ``throughput_launches``;
+11. the MoE family on granite-moe-3b-a800m (32 layers, d_model 1536, 24/8
+   heads, 40 experts top-8, d_ff_expert 512). First the expert-axis
+   kernels B1e (``w4a8_expert_matmul``) and B4e
+   (``w4a8_sparse_expert_matmul``), one launch for all E experts of a
+   site, bit-equal to their plain versions (E calls of B1's and B4's) at E
+   in {8, 40} x M in {1, 4, 64, 80} rows an expert x (K, N) in {(1536,
+   512), (512, 1536)}, uint8 and int8 codes, one expert's input all zero,
+   and a ragged E=5, M=3, N=60 case; at E = 40 each shape's time beside
+   the plain versions', 40 ``torch._int_mm`` calls on the unpacked codes,
+   one bf16 ``torch.bmm`` on the dequantized stack and the byte bound; B1
+   at granite's dense sites (1536, 1536) and (1536, 512), M = 4 and 256.
+   Then the slice at full width, bf16, seeded random init, RTN-packed:
+   (a) ``GenerationEngine.generate`` of batch 4 x prompt 64 + 16 new,
+   one capture: B1e exactly 96 launches a forward (3 sites x 32 layers)
+   and B1 128 (4 attention sites x 32), a replay adding 96 and 128; greedy
+   streams tie-limited against the eager host loop (the replays' logits
+   recorded by ``FixedRecorder``); generate and decode step captured vs
+   eager in turns, tokens/s, peak memory and ``packed_weight_bytes``;
+   (b) ``PagedEngine``'s FIFO loop over phase 7's 12-request trace, float
+   then int8 KV, its step captured by a warm-up request: B2/B3 32 a step,
+   B1e 96 and B1 128 a forward, every page back on the free list, and the
+   4 prompts of (a) served alone through the paged engine tie-limited
+   against the fixed slot run of each prompt alone (a dispatch group's
+   tokens share expert capacity, so a batched prefill routes otherwise);
+   (c) AXE-GPFQ calibration (default ``PTQConfig``) of a float32 cut to 4
+   of the 32 layers at full width on phase 5's batches: exactly (4 + 3 x
+   40) x 4 = 496 B5 launches, every site certified and every expert of a
+   stack on its own, register floors per site, the artifact served through
+   (a)'s path with tokens identical to the reference backend and the host
+   loop; (d) the same cut RTN-packed at ``DatapathSpec(sparsity="2:4")``:
+   B4e 3 and B4 4 a layer a forward, 0 B1e and 0 B1. The kernels line
+   gains B1e's launches from (a) and B4e's from (d).
 
 Before driving a path, every launch counter is set to 0, and the counts are
 read just after it. Phase 3 ends with a ``torch.profiler`` breakdown of one
@@ -273,6 +305,16 @@ RMSNORM_ROUNDS = 3
 #: phase 7: the paged engine's configuration
 PAGED_BLOCK, PAGED_BLOCKS, PAGED_SLOTS, PAGED_CHUNK = 64, 64, 4, 8
 TRACE_REQUESTS, PREFIX_LEN = 12, 128
+#: phase 11: granite-moe-3b-a800m, its expert sites (K, N) (wg and wu, then
+#: wd), its dense (attention) sites, the kernel cases' expert counts and
+#: rows an expert (1 and 4: decode; 64: a 4 x 64 prefill's capacity; 80: a
+#: paged admit's G x C), and the layers of the calibration cut
+GRANITE = "granite-moe-3b-a800m"
+MOE_EXPERT_KN = [(1536, 512), (512, 1536)]
+MOE_LAYER_SITES = [(1536, 512), (1536, 512), (512, 1536)]  # wg, wu, wd
+GRANITE_DENSE_KN = [(1536, 1536), (1536, 512)]
+MOE_KERNEL_E, MOE_KERNEL_M = (8, 40), (1, 4, 64, 80)
+MOE_CALIB_LAYERS = 4
 #: the largest logit difference between two runs of one model that the
 #: tie-limited comparison accepts as numerical noise (logits here are
 #: about unit variance)
@@ -284,10 +326,17 @@ def reset_counts():
     from repro_torch.kernels.gpfq_solve import gpfq_solve
     from repro_torch.kernels.paged_attention import paged_decode_attention
     from repro_torch.kernels.quant_rmsnorm import quant_rmsnorm
-    from repro_torch.kernels.w4a8_mm import w4a8_matmul, w4a8_sparse_matmul
+    from repro_torch.kernels.w4a8_mm import (
+        w4a8_expert_matmul,
+        w4a8_matmul,
+        w4a8_sparse_expert_matmul,
+        w4a8_sparse_matmul,
+    )
 
     w4a8_matmul.launches = 0
     w4a8_sparse_matmul.launches = 0
+    w4a8_expert_matmul.launches = 0
+    w4a8_sparse_expert_matmul.launches = 0
     gpfq_solve.launches = 0
     gpfq_solve.masked_launches = 0
     gpfq_solve.device_kernels = 0
@@ -300,10 +349,17 @@ def read_counts() -> dict:
     from repro_torch.kernels.gpfq_solve import gpfq_solve
     from repro_torch.kernels.paged_attention import paged_decode_attention
     from repro_torch.kernels.quant_rmsnorm import quant_rmsnorm
-    from repro_torch.kernels.w4a8_mm import w4a8_matmul, w4a8_sparse_matmul
+    from repro_torch.kernels.w4a8_mm import (
+        w4a8_expert_matmul,
+        w4a8_matmul,
+        w4a8_sparse_expert_matmul,
+        w4a8_sparse_matmul,
+    )
 
     return {"w4a8_matmul": w4a8_matmul.launches,
             "w4a8_sparse_matmul": w4a8_sparse_matmul.launches,
+            "w4a8_expert_matmul": w4a8_expert_matmul.launches,
+            "w4a8_sparse_expert_matmul": w4a8_sparse_expert_matmul.launches,
             "gpfq_solve": gpfq_solve.launches,
             "gpfq_solve_masked": gpfq_solve.masked_launches,
             "gpfq_solve_device_kernels": gpfq_solve.device_kernels,
@@ -1927,11 +1983,13 @@ def program_counts(e) -> dict:
             "decode_chunks": e.chunks}
 
 
-def driven(torch, cfg, engine, reqs, kv) -> dict:
+def driven(torch, cfg, engine, reqs, kv, per_forward=None) -> dict:
     """Serve ``reqs`` on ``engine`` (its step captured) with the launch
     counters set to 0 just before and read just after; checks the exact
-    B1 and B2/B3 counts, every request complete and every page back on the
-    free list, host and device. Returns the run's figures."""
+    GEMM counts (``per_forward``: counter -> launches a forward, default
+    smollm-360m's 7 B1 sites a layer) and B2/B3 counts, every request
+    complete and every page back on the free list, host and device.
+    Returns the run's figures."""
     before = program_counts(engine)
     reset_peak(torch)
     reset_counts()
@@ -1944,8 +2002,9 @@ def driven(torch, cfg, engine, reqs, kv) -> dict:
     check(counts[key] == cfg.n_layers * ran["steps"] and counts[other] == 0,
           f"{kv}: attention launches {counts} for {ran['steps']} decode steps")
     forwards = ran["steps"] + ran["admits"] + ran["suffix"] + ran["batch"] + ran["chunks"]
-    check(counts["w4a8_matmul"] == 7 * cfg.n_layers * forwards,
-          f"{kv}: B1 launches {counts} for {forwards} forwards ({ran})")
+    for counter, n in (per_forward or {"w4a8_matmul": 7 * cfg.n_layers}).items():
+        check(counts[counter] == n * forwards,
+              f"{kv}: {counter} launches {counts} for {forwards} forwards ({ran})")
     check(engine.chunk_traces == 1, f"{engine.chunk_traces} captures of the decode step")
     for r in reqs:
         check(res[r.uid].size == r.prompt.size + r.max_new, f"{kv}: request {r.uid} incomplete")
@@ -2646,6 +2705,442 @@ def phase_sparse_slice(torch, dense_calib, paged):
             serve_counts["w4a8_sparse_matmul"], "trace": trace, "bytes": nbytes}
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the MoE family (B1e, B4e; granite-moe-3b-a800m)
+# ---------------------------------------------------------------------------
+def expert_bound_ms(e: int, m: int, k: int, n: int) -> tuple[float, str]:
+    """Least time for one B1e or B4e call: E problems' codes, packed weights
+    (K/2 bytes a column, dense or 2:4) and f32 epilogue vectors read once,
+    their bf16 outputs written once, against their int8 operations at the
+    tensor-core peak."""
+    nbytes = e * (m * k + k * n // 2 + 2 * 4 * n + 2 * m * n)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * e * m * n * k / INT8_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def moe_layer_sum(rows, m: int, key: str) -> float:
+    """``key`` summed over the 3 expert sites of one granite MoE layer at
+    M = m rows an expert (the timed E = 40 rows)."""
+    by_shape = {(r["K"], r["N"]): r for r in rows if "ms" in r and r["M"] == m}
+    return sum(by_shape[kn][key] for kn in MOE_LAYER_SITES)
+
+
+def phase_expert_kernels(torch):
+    """B1e and B4e against their plain versions (E calls of B1's and B4's)
+    over E x M x granite's expert (K, N) x uint8/int8 codes, each with one
+    expert's input all zero, and a ragged case; per (M, K, N) at E = 40 the
+    times of both kernels, the plain versions, E ``torch._int_mm`` calls on
+    the unpacked codes and bf16 ``torch.bmm`` on the dequantized stack; B1
+    at granite's dense sites."""
+    from repro_torch.core.sparsity import mask_2to4
+    from repro_torch.kernels import w4a8_mm as W
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    cases = [(e, m, k, n) for e in MOE_KERNEL_E for m in MOE_KERNEL_M
+             for k, n in MOE_EXPERT_KN] + [(5, 3, 192, 60)]
+    rows, err = [], {"b1e": 0.0, "b4e": 0.0}
+    for e, m, k, n in cases:
+        q = torch.randint(-8, 8, (e, k, n), generator=gen, device=dev).to(torch.int8)
+        qs = q * mask_2to4(q)
+        wp, (sp, meta) = W.pack_int4(q), W.compress_2to4(qs)
+        col, scol = q.sum(1).to(torch.int32), qs.sum(1).to(torch.int32)
+        scale = torch.rand((e, n), generator=gen, device=dev) * 0.05 + 1e-3
+        act_scale = torch.rand(e, generator=gen, device=dev) * 0.05 + 0.01
+        row = {"E": e, "M": m, "K": k, "N": n}
+        for act in ("uint8", "int8"):
+            lo, hi = (0, 256) if act == "uint8" else (-128, 128)
+            x = torch.randint(lo, hi, (e, m, k), generator=gen, device=dev).to(getattr(torch,
+                                                                                      act))
+            x[e // 2] = 0  # an expert that got no token
+            zp = (torch.randint(0, 256, (e,), generator=gen, device=dev).float()
+                  if act == "uint8" else torch.zeros(e, device=dev))
+            for name, fn, ws, cs in (("b1e", W.w4a8_expert_matmul, (wp,), col),
+                                     ("b4e", W.w4a8_sparse_expert_matmul, (sp, meta), scol)):
+                y = fn(x, *ws, scale, cs, act_scale, zp, out_dtype=torch.bfloat16)
+                r = fn(x, *ws, scale, cs, act_scale, zp, out_dtype=torch.bfloat16,
+                       reference=True)
+                torch.cuda.synchronize()
+                err[name] = max(err[name], (y.float() - r.float()).abs().max().item())
+                check(torch.equal(y, r), f"{name} != plain at E={e} M={m} K={k} N={n} {act}")
+            if act != "uint8" or e != max(MOE_KERNEL_E) or (k, n) not in MOE_EXPERT_KN:
+                continue
+            sw, corr = W._expert_epilogue(scale, col, act_scale, zp, e, n)
+            _, scorr = W._expert_epilogue(scale, scol, act_scale, zp, e, n)
+            row["ms"] = time_ms(torch, lambda: W._launch(
+                "w4a8_expert_matmul", x, (wp,), sw, corr, torch.bfloat16, 2), flush=flush)
+            row.update(plan_fields(W.w4a8_plan(m, n, k, True, W._sm_count(0), e)))
+            row["b4e_ms"] = time_ms(torch, lambda: W._launch(
+                "w4a8_sparse_expert_matmul", x, (sp, meta), sw, scorr, torch.bfloat16, 4),
+                flush=flush)
+            row["plain_ms"] = time_ms(torch, lambda: W.w4a8_expert_matmul_plain(
+                x, wp, sw, corr, torch.bfloat16), flush=flush, reps=5)
+            row["b4e_plain_ms"] = time_ms(torch, lambda: W.w4a8_sparse_expert_matmul_plain(
+                x, sp, meta, sw, scorr, torch.bfloat16), flush=flush, reps=5)
+            # yardsticks: E cuBLASLt int8 GEMMs on the unpacked codes (rows
+            # padded to 32, codes shifted by -128), and one bf16 bmm on the
+            # dequantized stack (the dequant backend's product)
+            mp = max(m, 32)
+            xs = torch.zeros((e, mp, k), dtype=torch.int8, device=dev)
+            xs[:, :m] = (x.to(torch.int16) - 128).to(torch.int8)
+            w8 = W.unpack_int4(wp).contiguous()
+            check(torch.equal((torch._int_mm(xs[0], w8[0])[:m] + 128 * col[0]).double(),
+                              x[0].double() @ q[0].double()),
+                  "the _int_mm yardstick disagrees with the exact product")
+            row["int_mm_ms"] = time_ms(torch, lambda: [torch._int_mm(xs[i], w8[i])
+                                                        for i in range(e)], flush=flush)
+            xb = x.to(torch.bfloat16)
+            wb = (w8.to(torch.bfloat16) * scale[:, None, :].to(torch.bfloat16)).contiguous()
+            row["library_ms"] = time_ms(torch, lambda: torch.bmm(xb, wb), flush=flush)
+            row["bound_ms"], row["bound_by"] = expert_bound_ms(e, m, k, n)
+            print(f"[expert] E={e} M={m:3d} K={k:5d} N={n:5d} B1e {row['ms']:.5f} ms  B4e "
+                  f"{row['b4e_ms']:.5f} ms  plain {row['plain_ms']:.5f} / "
+                  f"{row['b4e_plain_ms']:.5f} ms  {e} x _int_mm {row['int_mm_ms']:.5f} ms  "
+                  f"bf16 bmm {row['library_ms']:.5f} ms  bound {row['bound_ms']:.5f} ms "
+                  f"({row['bound_by']})  {row['plan']}")
+        rows.append(row)
+    print(f"[expert] B1e and B4e bit-equal to their plain versions (E calls of B1 / B4) on "
+          f"{len(cases)} shapes x uint8/int8 codes, one all-zero expert each")
+    for m in MOE_KERNEL_M:
+        sums = {key: moe_layer_sum(rows, m, key)
+                for key in ("ms", "b4e_ms", "plain_ms", "int_mm_ms", "library_ms", "bound_ms")}
+        print(f"[expert] M={m:3d} one granite MoE layer's 3 expert sites (E=40): B1e "
+              f"{sums['ms']:.5f} ms  B4e {sums['b4e_ms']:.5f} ms  plain {sums['plain_ms']:.5f} ms"
+              f"  40 x _int_mm {sums['int_mm_ms']:.5f} ms  bf16 bmm {sums['library_ms']:.5f} ms"
+              f"  bound {sums['bound_ms']:.5f} ms")
+    # B1 at granite's dense (attention) sites
+    for m in (BATCH, BATCH * PROMPT):
+        for k, n in GRANITE_DENSE_KN:
+            q = torch.randint(-8, 8, (k, n), generator=gen, device=dev)
+            x = torch.randint(0, 256, (m, k), generator=gen, device=dev).to(torch.uint8)
+            wp, col = W.pack_int4(q), q.sum(0).to(torch.int32)
+            scale = torch.rand(n, generator=gen, device=dev) * 0.05 + 1e-3
+            args = (x, wp, scale, col, 0.0213, 131.0)
+            y = W.w4a8_decode_matmul(*args, out_dtype=torch.bfloat16)
+            r = W.w4a8_decode_matmul(*args, out_dtype=torch.bfloat16, reference=True)
+            check(torch.equal(y, r), f"B1 != plain at granite's M={m} K={k} N={n}")
+            sw = scale * 0.0213
+            corr = col.float() * 131.0
+            ms = time_ms(torch, lambda: W.w4a8_matmul_kernel(x, wp, sw, corr, torch.bfloat16),
+                         flush=flush)
+            b, by = bound_ms(m, k, n)
+            print(f"[expert] B1 at granite's dense site M={m:3d} K={k} N={n}: bit-equal, "
+                  f"{ms:.5f} ms, bound {b:.5f} ms ({by}), "
+                  f"{plan_fields(W.w4a8_matmul.last_plan)['plan']}")
+    return rows, err
+
+
+class FixedRecorder:
+    """Records the logits a fresh ``GenerationEngine`` samples from, by
+    column: entered before the engine's first generate, it adds to the
+    captured step a device copy of the logits into a static buffer at the
+    step's column (the prefill's first token is copied the same way,
+    eagerly), read once after the generate."""
+
+    def __init__(self, engine, batch: int, max_len: int):
+        import torch
+
+        self.engine = engine
+        vp = engine.model.cfg.vocab_padded
+        self.buf = torch.zeros((max_len, batch, vp), dtype=torch.float32, device=engine.device)
+
+    def __enter__(self):
+        from repro_torch.serving import engine as EN
+
+        check(not self.engine._buckets, "FixedRecorder needs an engine with no bucket yet")
+        self._orig = EN.sample_rows
+
+        def spy(logits, temperature, seed, rows, cols):
+            self.buf.index_copy_(0, cols[:1].long(), logits.float()[None])
+            return self._orig(logits, temperature, seed, rows, cols)
+
+        EN.sample_rows = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.serving import engine as EN
+
+        EN.sample_rows = self._orig
+
+    def logits(self, row: int, start: int, n: int):
+        host = self.buf[start:start + n, row].cpu()
+        return [host[t] for t in range(n)]
+
+
+def phase_moe_slice(torch):
+    """granite-moe-3b-a800m at full width: (a) fixed slot, (b) paged FIFO,
+    (c) calibration of a 4-layer cut, (d) 2:4 serving of the cut."""
+    import tempfile
+    from dataclasses import replace
+
+    import numpy as np
+    from repro_torch.checkpoint import save_pytree
+    from repro_torch.configs import get_config
+    from repro_torch.core.axe import PTQConfig
+    from repro_torch.core.overflow import min_feasible_p_bits
+    from repro_torch.data import DataConfig, TokenBatcher
+    from repro_torch.models import transformer as T
+    from repro_torch.quant.pipeline import calibrate_and_quantize
+    from repro_torch.quant.serve_packed import (
+        export_quantized_artifact,
+        load_flat_artifact,
+        pack_decode_params,
+        packed_params_from_artifact,
+        packed_weight_bytes,
+    )
+    from repro_torch.quant.spec import DatapathSpec
+    from repro_torch.serving import (
+        GenerationEngine,
+        PagedConfig,
+        PagedEngine,
+        Request,
+        SamplerConfig,
+    )
+    from repro_torch.serving.graphs import COUNTERS
+
+    t_phase = time.perf_counter()
+    greedy = SamplerConfig(temperature=0.0)
+    cfg = get_config(GRANITE)
+    L, E = cfg.n_layers, cfg.moe.n_experts
+    per_forward = {"w4a8_matmul": 4 * L, "w4a8_expert_matmul": 3 * L}
+    t0 = time.perf_counter()
+    model = pack_decode_params(T.init_model(cfg, 0, device="cuda"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    init_s = time.perf_counter() - t0
+    prompts = TokenBatcher(DataConfig(vocab=cfg.vocab, seq_len=PROMPT, global_batch=BATCH,
+                                      seed=0)).batch(0)["tokens"]
+
+    # (a) the fixed-slot engine: one capture, then generates of replays
+    engine = GenerationEngine(model, cfg, greedy, device="cuda")
+    t0 = time.perf_counter()
+    engine.generate(prompts, MAX_NEW)  # builds the bucket and captures its step
+    first_s = time.perf_counter() - t0
+    (bucket,) = engine._buckets.values()
+    program = bucket.program
+    check(program.graph is not None and engine.gen_traces == 1,
+          "the first generate did not capture the MoE step")
+    reset_peak(torch)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, MAX_NEW)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for counter, n in per_forward.items():
+        check(counts[counter] == n * MAX_NEW,
+              f"{counter}: {counts[counter]} launches in a generate, expected {n * MAX_NEW}")
+    check(counts["w4a8_sparse_matmul"] == counts["w4a8_sparse_expert_matmul"] == 0,
+          f"dense serving launched a 2:4 kernel: {counts}")
+    rise = {getattr(fn, "__name__", "?"): r for (fn, _, _), r in zip(COUNTERS, program.rise)}
+    check(rise["w4a8_expert_matmul"] == 3 * L and rise["w4a8_matmul"] == 4 * L,
+          f"a replay adds {rise}, expected B1e {3 * L} and B1 {4 * L}")
+    check(bool(((out >= 0) & (out < cfg.vocab)).all()), "token out of the vocabulary")
+    host = engine.generate_host_loop(prompts, MAX_NEW)
+    eager_toks, eager_logits = fixed_slot_run(torch, model, prompts, MAX_NEW)
+    check((eager_toks == host[:, PROMPT:]).all(), "the recorded eager run differs from the "
+                                                  "host loop")
+    rec_engine = GenerationEngine(model, cfg, greedy, device="cuda")
+    with FixedRecorder(rec_engine, BATCH, PROMPT + MAX_NEW) as rec:
+        rec_out = rec_engine.generate(prompts, MAX_NEW)
+    check((rec_out == out).all(), "two captures of the MoE step disagree")
+    cmp_a = tie_limited([(out[b, PROMPT:], host[b, PROMPT:], rec.logits(b, PROMPT, MAX_NEW),
+                          [eager_logits[t][b] for t in range(MAX_NEW)]) for b in range(BATCH)],
+                        cfg.vocab)
+    del rec_engine, rec
+    gen_t = in_turns(torch, {"graph": lambda: engine.generate(prompts, MAX_NEW),
+                             "host_loop": lambda: engine.generate_host_loop(prompts, MAX_NEW)},
+                     runs=4)
+    tokens = torch.as_tensor(prompts, device="cuda")
+    with torch.inference_mode():
+        _, caches = T.prefill(model, {"tokens": tokens}, PROMPT + MAX_NEW)
+        step_tok = torch.as_tensor(out[:, PROMPT:PROMPT + 1], device="cuda")
+        engine._start(bucket, tokens)
+        step_t = in_turns(torch, {"eager": lambda: T.decode_step(model, step_tok, caches,
+                                                                  PROMPT),
+                                  "replay": lambda: program.run(1)}, runs=6)
+    nbytes = packed_weight_bytes(cfg)
+    fixed = {"wall_s": wall, "tok_s": BATCH * MAX_NEW / wall, "gen": gen_t, "step": step_t,
+             "peak_mib": peak / 2**20, "capture_ms": 1e3 * program.capture_s,
+             "device_ops": program.device_ops, "cmp": cmp_a, "counts": counts}
+    print(f"[moe] {GRANITE} full width ({L} layers, d_model {cfg.d_model}, {E} experts "
+          f"top-{cfg.moe.top_k}, bf16, seeded random init) RTN-packed in {init_s:.3f} s: "
+          f"packed_weight_bytes {nbytes['packed_bytes']} ({nbytes['packed_code_bytes']} code "
+          f"bytes; bf16 {nbytes['bf16_bytes']})")
+    print(f"[moe] (a) fixed slot, batch {BATCH} x prompt {PROMPT} + {MAX_NEW} new: launches "
+          f"{ {k: counts[k] for k in per_forward} } = a forward's {per_forward} x {MAX_NEW}; "
+          f"one capture ({1e3 * program.capture_s:.3f} ms, {program.device_ops} device "
+          f"operations; first generate {first_s:.3f} s); {cmp_a['agree']} of {cmp_a['total']} "
+          f"tokens agree with the eager host loop (partings {cmp_a['partings']}, tie band "
+          f"{cmp_a['band']:.4f})")
+    print(f"[moe] (a) generate wall {wall:.4f} s = {fixed['tok_s']:.1f} tok/s; in turns: "
+          f"captured {fmt_spread(gen_t['graph'])}, host loop {fmt_spread(gen_t['host_loop'])}; "
+          f"decode step replay {fmt_spread(step_t['replay'])}, eager "
+          f"{fmt_spread(step_t['eager'])}; peak memory {peak / 2**20:.1f} MiB")
+
+    # (b) the paged FIFO loop over phase 7's trace, float then int8 KV
+    def paged_engine(kv="act"):
+        return PagedEngine(model, cfg, PagedConfig(
+            block_size=PAGED_BLOCK, num_blocks=PAGED_BLOCKS, max_concurrency=PAGED_SLOTS,
+            chunk_max=PAGED_CHUNK, attn_impl="auto", kv_dtype=kv), greedy, device="cuda",
+            **({"assert_bounds": True} if kv == "int8" else {}))
+
+    specs, _ = trace_specs(cfg)
+    warm = specs[0][1]
+    # the shared prompts, each prefilled alone as the paged engine admits
+    # it: a dispatch group shares expert capacity, so the fixed slot's
+    # batched prefill routes otherwise
+    alone = [fixed_slot_run(torch, model, prompts[b:b + 1], MAX_NEW) for b in range(BATCH)]
+    shared = [(300 + b, prompts[b], MAX_NEW) for b in range(BATCH)]
+    paged = {}
+    for kv in ("act", "int8"):
+        eng = paged_engine(kv)
+        warm_paged(eng, warm)
+        run = driven(torch, cfg, eng, [Request(uid=u, prompt=p, max_new=n)
+                                       for u, p, n in specs], kv, per_forward)
+        if kv == "int8":
+            spec = eng.attn_spec
+            qk, pv = run["watermarks"]
+            check(qk <= 2 ** (spec.p_qk - 1) - 1 and pv <= 2 ** (spec.p_pv - 1) - 1,
+                  f"B3 watermarks {qk}, {pv} against {spec.describe()}")
+        res, rows = recorded(paged_engine(kv), [Request(uid=u, prompt=p, max_new=n)
+                                                for u, p, n in shared], warm)
+        cmp = tie_limited([(res[u][PROMPT:], alone[b][0][0], [rows[(u, t)] for t in
+                                                              range(MAX_NEW)],
+                            [alone[b][1][t][0] for t in range(MAX_NEW)])
+                           for b, (u, _, _) in enumerate(shared)], cfg.vocab)
+        run["cmp"] = cmp
+        paged[kv] = run
+        print(f"[moe] (b) paged FIFO, {kv} KV, {TRACE_REQUESTS} requests: launches "
+              f"{run['counts']} ({run['ran']}), every page back on the free list; decode step "
+              f"{run['step_ms']:.3f} ms, {run['admit_ms_per_request']:.3f} ms of admits a "
+              f"request, {run['tok_s']:.1f} tok/s, wall {run['wall']:.3f} s, peak "
+              f"{run['peak_mib']:.1f} MiB; the {BATCH} shared prompts: {cmp['agree']} of "
+              f"{cmp['total']} tokens agree with the fixed slot run alone (partings "
+              f"{cmp['partings']}, tie band {cmp['band']:.4f})"
+              + (f"; B3 watermarks {run['watermarks']}" if kv == "int8" else ""))
+    del model, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) calibration of a float32 cut to MOE_CALIB_LAYERS layers at full width
+    cfg_c = replace(cfg, n_layers=MOE_CALIB_LAYERS, param_dtype="float32",
+                    act_dtype="float32")
+    model_c = T.init_model(cfg_c, 0, device="cuda")
+    data = TokenBatcher(DataConfig(vocab=cfg.vocab, seq_len=CALIB_SEQ,
+                                   global_batch=CALIB_BATCH, seed=0))
+    calib = [data.batch(10_000 + i) for i in range(CALIB_BATCHES)]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    qm = calibrate_and_quantize(model_c, cfg_c, calib, PTQConfig(), device="cuda")
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    ccounts = read_counts()
+    solves = (4 + 3 * E) * MOE_CALIB_LAYERS
+    check(ccounts["gpfq_solve"] == solves, f"{ccounts['gpfq_solve']} B5 launches calibrating, "
+                                           f"expected {solves}")
+    summary = qm.cert_summary()
+    check(summary["ok"] and summary["n_certified"] == 7 * MOE_CALIB_LAYERS,
+          f"certificates: {summary}")
+    floors, experts_certified = {}, 0
+    for name, ql in qm.quantized_linears():
+        if ql.stacked:
+            check(len(ql.cert.reports) == E and all(r.ok for r in ql.cert.reports),
+                  f"{name}: not every expert certified")
+            experts_certified += E
+        floors[name] = min_feasible_p_bits(ql.cert)
+    artifact, meta = export_quantized_artifact(qm)
+    with tempfile.TemporaryDirectory() as tmp:
+        save_pytree(artifact, os.path.join(tmp, "quantized"), meta)
+        flat, meta2 = load_flat_artifact(os.path.join(tmp, "quantized"))
+    served = packed_params_from_artifact(flat, model_c, cfg_c, meta=meta2)
+
+    def serve_cut(m, expect):
+        eng = GenerationEngine(m, cfg_c, greedy, device="cuda")
+        eng.generate(prompts, MAX_NEW)  # captures
+        reset_counts()
+        t = time.perf_counter()
+        o = eng.generate(prompts, MAX_NEW)
+        s = time.perf_counter() - t
+        c = read_counts()
+        for counter, n in expect.items():
+            check(c[counter] == n * MOE_CALIB_LAYERS * MAX_NEW,
+                  f"{counter}: {c[counter]} launches serving the cut, expected "
+                  f"{n * MOE_CALIB_LAYERS * MAX_NEW}")
+        ref = GenerationEngine(m, cfg_c, greedy, device="cuda",
+                               backend="reference").generate(prompts, MAX_NEW)
+        check((o == ref).all(), "kernel and reference backends disagree on the cut")
+        check((o == eng.generate_host_loop(prompts, MAX_NEW)).all(),
+              "the captured generate and the eager host loop disagree on the cut")
+        return c, s
+
+    serve_c, serve_c_s = serve_cut(served, {"w4a8_matmul": 4, "w4a8_expert_matmul": 3,
+                                            "w4a8_sparse_matmul": 0,
+                                            "w4a8_sparse_expert_matmul": 0})
+    print(f"[moe] (c) AXE-GPFQ calibration (default PTQConfig) of a float32 cut to "
+          f"{MOE_CALIB_LAYERS} of {L} layers at full width, {CALIB_BATCHES} x {CALIB_BATCH} x "
+          f"{CALIB_SEQ} tokens: wall {calib_s:.3f} s; B5 launches {ccounts['gpfq_solve']} = "
+          f"(4 + 3 x {E}) x {MOE_CALIB_LAYERS}; {summary['n_certified']} sites certified, "
+          f"{experts_certified} expert slices each certified on its own, min headroom "
+          f"{summary['min_headroom_bits']:.4f} bits at {summary['min_headroom_site']}")
+    print("[moe] (c) min_feasible_p_bits per site: " + ", ".join(
+        f"{n.replace('layer', 'L')} {p}" for n, p in floors.items()))
+    print(f"[moe] (c) the artifact ({len(artifact)} leaves, {meta['datapath']}) served greedy "
+          f"batch {BATCH} x prompt {PROMPT} + {MAX_NEW} new through the captured step: "
+          f"{ {k: v for k, v in serve_c.items() if v} }; tokens identical to the reference "
+          f"backend and the eager host loop; {BATCH * MAX_NEW / serve_c_s:.1f} tok/s")
+
+    # (d) the same cut RTN-packed at 2:4, served through B4e
+    packed24 = pack_decode_params(model_c, cfg_c, DatapathSpec(sparsity="2:4"))
+    serve_d, serve_d_s = serve_cut(packed24, {"w4a8_sparse_matmul": 4,
+                                              "w4a8_sparse_expert_matmul": 3,
+                                              "w4a8_matmul": 0, "w4a8_expert_matmul": 0})
+    print(f"[moe] (d) the cut RTN-packed at sparsity=2:4: "
+          f"{ {k: v for k, v in serve_d.items() if v} } in a generate (B4e 3 a layer a "
+          f"forward, 0 B1e); tokens identical to the reference backend and the eager host "
+          f"loop; {BATCH * MAX_NEW / serve_d_s:.1f} tok/s")
+    print(f"[moe] phase 11 wall {time.perf_counter() - t_phase:.3f} s")
+    return {"fixed": fixed, "paged": paged, "calib_s": calib_s, "floors": floors,
+            "b1e_launches": counts["w4a8_expert_matmul"],
+            "b4e_launches": serve_d["w4a8_sparse_expert_matmul"]}
+
+
+def expert_record(name, rows, err, launches, ms_key, plain_key, replaces, pallas):
+    """One record for B1e or B4e: times summed over the 3 expert sites of
+    one granite MoE layer at decode (M = 4, E = 40); the same at M = 64 (a
+    prefill's capacity rows) in ``m64``; every shape beside."""
+    def layer(m):
+        rs = [r for r in rows if "ms" in r and r["M"] == m]
+        return {"ms": moe_layer_sum(rows, m, ms_key),
+                "plain_ms": moe_layer_sum(rows, m, plain_key),
+                "bound_ms": moe_layer_sum(rows, m, "bound_ms"),
+                "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rs)
+                else "operations",
+                "library_ms": moe_layer_sum(rows, m, "library_ms"),
+                "int_mm_ms": moe_layer_sum(rows, m, "int_mm_ms")}
+
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/w4a8_mm.cu",
+        "replaces": f"src/repro/kernels/w4a8_mm.py:{replaces}",
+        "pallas_call": f"src/repro/kernels/w4a8_mm.py:{pallas}",
+        "vmapped_at": "src/repro/models/moe.py:122",
+        "launches": launches,
+        "max_abs_err": err,
+        **layer(BATCH),
+        "m64": layer(PROMPT),
+        "timed_as": "sum over the 3 expert sites of one granite-moe-3b-a800m layer (E=40; "
+                    "(1536, 512) twice and (512, 1536)) at decode, M=4 rows an expert, cold "
+                    "L2; m64 the same at M=64; the library call is one bf16 torch.bmm on the "
+                    "dequantized stack, int_mm_ms 40 torch._int_mm calls on the unpacked codes",
+        "shapes": rows,
+    }
+
+
 def paged_record(name, rows, err, launches, source_line) -> dict:
     """One record for a paged-attention kernel: times at smollm-360m decode,
     4 slots x 80 tokens (the slice's lengths); the other timed shapes beside."""
@@ -2828,6 +3323,8 @@ def main() -> int:
     b6 = phase_rmsnorm(torch)
     sparse = phase_sparse_slice(torch, calib, paged)
     throughput = phase_throughput_slice(torch, paged)
+    expert_rows, expert_err = phase_expert_kernels(torch)
+    moe = phase_moe_slice(torch)
     records = [
         kernel_record(rows, max_err, launches, host),
         paged_record("paged_decode_attention", paged_rows["float"], paged_err["float"],
@@ -2837,7 +3334,11 @@ def main() -> int:
         sparse_kernel_record(*sparse_k["b4"], sparse["serve_launches"]),
         gpfq_record(gpfq_rows, gpfq_err, calib["launches"], *sparse_k["b5"],
                     sparse["calib_launches"]),
-        rmsnorm_record(*b6, b6_host)]
+        rmsnorm_record(*b6, b6_host),
+        expert_record("w4a8_expert_matmul", expert_rows, expert_err["b1e"],
+                      moe["b1e_launches"], "ms", "plain_ms", 140, 263),
+        expert_record("w4a8_sparse_expert_matmul", expert_rows, expert_err["b4e"],
+                      moe["b4e_launches"], "b4e_ms", "b4e_plain_ms", 311, 410)]
     # phase 10's launches on the throughput loop: (a) float, (a) int8, (b)
     for rec, counter in zip(records[:3], ("w4a8_matmul", "paged_decode_attention",
                                           "paged_decode_attention_int8")):

@@ -1,15 +1,16 @@
 """Architecture registry of the port (port of ``repro/configs/__init__.py``):
-the dense ``tiny-lm-*`` rungs and smollm-360m. Other architectures raise
-until the slice that serves their family is ported."""
+the dense ``tiny-lm-*`` rungs, ``tiny-moe``, smollm-360m and
+granite-moe-3b-a800m. Other architectures raise until the slice that
+serves their family is ported."""
 
 from __future__ import annotations
 
 from repro_torch.models.config import ModelConfig
 
-from . import smollm_360m
+from . import granite_moe_3b_a800m, smollm_360m
 from .paper import PAPER_MODELS
 
-REGISTRY = {smollm_360m.ARCH_ID: smollm_360m}
+REGISTRY = {m.ARCH_ID: m for m in (smollm_360m, granite_moe_3b_a800m)}
 
 
 def get_config(arch: str) -> ModelConfig:
@@ -19,8 +20,8 @@ def get_config(arch: str) -> ModelConfig:
         return PAPER_MODELS[arch]()
     raise KeyError(
         f"unknown arch {arch!r} in the port; known: "
-        f"{sorted(REGISTRY) + sorted(PAPER_MODELS)} (the other families "
-        f"arrive with the family slice)"
+        f"{sorted(REGISTRY) + sorted(PAPER_MODELS)} (the SSM/xLSTM/hybrid "
+        f"families arrive with their slices)"
     )
 
 

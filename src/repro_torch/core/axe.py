@@ -10,7 +10,10 @@ the certificate and the serving :class:`~repro_torch.quant.spec.DatapathSpec`.
 
 Calibration takes float32 weights, as the reference does (its solvers fail
 on bfloat16 weights); other dtypes raise ``TypeError``. Expert-stacked
-(E, K, C) weights arrive with the MoE slice of the port.
+(E, K, C) weights (an MoE FFN's sites) are solved one expert at a time
+with the shared statistics, the reference's ``vmap`` over the stack: E
+solves (E launches of the GPFQ kernel on CUDA tensors), a certificate an
+expert and the bias correction as the stack's (E, 1, C) bias.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from .ep_init import ep_init, tiled, untiled
 from .equalization import bias_correction
 from .gpfq import AxeConfig, GreedyResult, gpfq_memory_efficient
 from .optq import optq
-from .overflow import CertReport, StackedCertReport, certify
+from .overflow import CertReport, StackedCertReport, certify, certify_stacked
 from .quantizers import (
     ROUND_NEAREST,
     ActQuantParams,
@@ -47,8 +50,6 @@ GPFQ = "gpfq"
 OPTQ = "optq"
 RTN = "rtn"  # direct round-to-nearest baseline
 EPINIT = "ep_init"  # projection + round-to-zero baseline (A2Q+ post hoc)
-
-SLICE_MOE = "expert-stacked (E, K, C) weights arrive with the MoE slice of the port"
 
 
 @dataclass(frozen=True)
@@ -126,10 +127,10 @@ class PTQConfig:
 class QuantizedLinear:
     """Deployable artifact for one linear layer."""
 
-    q_int: torch.Tensor  # (K, C) integer codes
-    scale: torch.Tensor  # (1, C)
+    q_int: torch.Tensor  # (K, C) integer codes, (E, K, C) for an expert stack
+    scale: torch.Tensor  # (1, C), or (E, 1, C)
     act: ActQuantParams
-    bias: torch.Tensor | None  # (C,) corrected bias
+    bias: torch.Tensor | None  # (C,) corrected bias, or (E, 1, C)
     cert: CertReport | StackedCertReport | None
     cfg: PTQConfig
     spec: object | None = None  # the certified serving DatapathSpec
@@ -197,10 +198,10 @@ def _make_solver(stats: LayerStats, cfg: PTQConfig, k: int):
 
 
 def check_weight(w: torch.Tensor) -> None:
-    """Raise on weights calibration does not take: expert stacks (a later
-    slice) and any dtype but float32."""
-    if w.dim() == 3:
-        raise NotImplementedError(SLICE_MOE)
+    """Raise on weights calibration does not take: any shape but (K, C) or
+    an (E, K, C) expert stack, and any dtype but float32."""
+    if w.dim() not in (2, 3):
+        raise ValueError(f"calibration takes (K, C) or (E, K, C) weights, got {tuple(w.shape)}")
     if w.dtype != torch.float32:
         raise TypeError(
             f"calibration takes float32 weights, got {w.dtype}: the reference's "
@@ -210,16 +211,32 @@ def check_weight(w: torch.Tensor) -> None:
 
 def quantize_linear(w: torch.Tensor, stats: LayerStats, cfg: PTQConfig,
                     bias: torch.Tensor | None = None) -> QuantizedLinear:
-    """Quantize one (K, C) float32 linear layer from its streamed statistics."""
+    """Quantize one (K, C) float32 linear layer from its streamed statistics,
+    or an (E, K, C) expert stack: each expert solved on its own with the
+    shared statistics (exactly quantizing each slice alone), a certificate
+    an expert, and the corrected bias (E, 1, C); a stack takes no input
+    bias."""
     check_weight(w)
     k = w.shape[-2]
     if stats.k != k:
         raise ValueError(f"stats built for K={stats.k}, weights have K={k}")
     act_params = stats.observer.act_quant(cfg.act_alphabet)
     dp_spec = cfg.to_datapath_spec(k, act_params)
-    res = _make_solver(stats, cfg, k)(w)
-    new_bias = bias_correction(stats.x_mean, w, res.w_q, bias)
+    solve = _make_solver(stats, cfg, k)
     want_cert = cfg.constrain or cfg.algorithm == EPINIT
+    if w.dim() == 3:  # expert stack
+        if bias is not None:
+            raise ValueError("stacked quantization does not take an input bias")
+        results = [solve(we) for we in w]
+        q_int = torch.stack([r.q_int for r in results])
+        scale = torch.stack([r.scale for r in results])
+        delta = torch.einsum("k,ekc->ec", stats.x_mean.to(w.dtype), w - q_int * scale)
+        cert = (certify_stacked(q_int, cfg.act_alphabet, cfg.p_bits, cfg.tile,
+                                sparsity=cfg.sparsity) if want_cert else None)
+        return QuantizedLinear(q_int=q_int, scale=scale, act=act_params,
+                               bias=delta[:, None, :], cert=cert, cfg=cfg, spec=dp_spec)
+    res = solve(w)
+    new_bias = bias_correction(stats.x_mean, w, res.w_q, bias)
     cert = (certify(res.q_int, cfg.act_alphabet, cfg.p_bits, cfg.tile, sparsity=cfg.sparsity)
             if want_cert else None)
     return QuantizedLinear(q_int=res.q_int, scale=res.scale, act=act_params, bias=new_bias,

@@ -6,7 +6,9 @@
 builds the port's :class:`~repro_torch.models.transformer.Transformer`
 computing the same function. The reference stacks each pattern slot's
 leaves over repeats, ``(R, ...)``; layer ``r * period + s`` of the port
-takes slice ``r`` of slot ``s``. Packed leaves become
+takes slice ``r`` of slot ``s``. An MoE FFN becomes
+:class:`~repro_torch.models.moe.MoE`: its router a float ``Linear`` and its
+expert stacks (E, K, C) sites. Packed leaves become
 :class:`~repro_torch.models.layers.PackedLinear` modules whose
 :class:`~repro_torch.quant.spec.DatapathSpec` is rebuilt from ``spec_arr``
 (the reference's static ``spec`` node is not an array and is ignored); a
@@ -32,6 +34,7 @@ from repro_torch.models.layers import (
     Norm,
     PackedLinear,
 )
+from repro_torch.models.moe import MoE
 from repro_torch.models.transformer import Block, Transformer
 from repro_torch.quant.spec import DatapathSpec
 
@@ -48,7 +51,9 @@ def _site(leaf, r: int, device) -> torch.nn.Module:
     if isinstance(leaf, dict) and "packed" in leaf:
         arrays = {k: to_tensor(np.asarray(v)[r], device)
                   for k, v in leaf.items() if k != "spec"}
-        spec = DatapathSpec.from_array(arrays["spec_arr"].reshape(-1).cpu().numpy()).leaf_spec()
+        spec_arr = arrays["spec_arr"]  # (L,), or (E, L) for an expert stack
+        spec = DatapathSpec.from_array(
+            spec_arr.reshape(-1, spec_arr.shape[-1])[0].cpu().numpy()).leaf_spec()
         return PackedLinear(
             packed=arrays["packed"], meta=arrays.get("meta"), scale=arrays["scale"],
             col_sums=arrays.get("col_sums"), spec=spec, spec_arr=arrays["spec_arr"],
@@ -85,7 +90,8 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, *, device="cuda") -> Transfo
                                        for n in ("wq", "wk", "wv", "wo")})
         if "ffn" in slot:
             block.norm2 = _norm(slot["norm2"], r, dev)
-            block.ffn = MLP(**{n: _site(v, r, dev) for n, v in slot["ffn"].items()})
+            ffn = MoE if cfg.layer_spec(i).ffn == "moe" else MLP
+            block.ffn = ffn(**{n: _site(v, r, dev) for n, v in slot["ffn"].items()})
         layers.append(block)
     return Transformer(cfg, embedding, layers, _norm(tree["final_norm"], None, dev))
 

@@ -62,6 +62,19 @@
 // bound as B1 is; mma.sp with a meta re-laid out at pack time is later
 // work.
 //
+// B1e and B4e, the same two kernels over an expert axis (`Experts` = true;
+// entries w4a8_expert_matmul_launch and w4a8_sparse_expert_matmul_launch),
+// are the counterpart of the batched pallas_call that jax.vmap makes of
+// both Pallas kernels for the MoE FFN (repro/models/moe.py:122): E
+// problems of (M, N, K) in one launch, each expert with its own sw and
+// corr rows, the grid's rows walking the experts' row tiles. Each expert's
+// tiles are the kernel's own, so B1e and B4e are bit-equal to E launches
+// of B1 and B4 on the slices. At granite-moe-3b-a800m's decode (E = 40,
+// M = 4) the experts' tiles fill the card without a K split, and each
+// block walks the whole K: bound by that chain of stages, not by the
+// 15.7 MB of int4 a site (times in PERF.md section 6, chip_smoke.py
+// phase 11).
+//
 // Measured (chip_smoke.py phases 2 and 8, NVIDIA H100 80GB HBM3, 700 W, cold
 // L2, an event pair around one launch; an empty kernel reads 5.0 us so):
 // one smollm-360m layer's 7 sites take 0.0640 ms at M = 4 (8.5-9.9 us a
@@ -267,16 +280,36 @@ int smem_bytes(int m, int chunks) {
   return kRingBytes + 2 * kBN * 4 + rx;
 }
 
-template <int CP, bool ASigned, bool Sparse, typename OutT>
+// Experts: the grid's rows walk E problems of (M, N, K) laid out one
+// after the other (x (E, M, K), w and meta (E, K/2 or K/4, N), sw and corr
+// (E, N), out (E, M, N)); expert e owns grid rows [e * row_tiles,
+// (e + 1) * row_tiles), and a block moves its pointers to its expert's
+// problem before anything else. Without it the grid is one problem.
+template <int CP, bool ASigned, bool Sparse, bool Experts, typename OutT>
 __global__ void __launch_bounds__(kThreads)
-w4a8_kernel(Problem p) {
+w4a8_kernel(Problem prob) {
   constexpr int A_BYTES = kBM * kAStride;
   extern __shared__ __align__(16) unsigned char smem[];
+
+  Problem p = prob;
+  int row_tile = blockIdx.y;
+  if constexpr (Experts) {
+    const int row_tiles = (p.M + kBM - 1) / kBM;
+    const int e = blockIdx.y / row_tiles;
+    row_tile = blockIdx.y - e * row_tiles;
+    const size_t w_elems = (size_t)(Sparse ? p.K / 4 : p.K / 2) * p.N;
+    p.x += (size_t)e * p.M * p.K;
+    p.w += e * w_elems;
+    if constexpr (Sparse) p.meta += e * w_elems;
+    p.sw += (size_t)e * p.N;
+    p.corr += (size_t)e * p.N;
+    p.out = static_cast<OutT*>(p.out) + (size_t)e * p.M * p.N;
+  }
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int wm = warp / kWarpsN, wn = warp % kWarpsN;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int m0 = row_tile * kBM, n0 = blockIdx.x * kBN;
   const int k_begin = blockIdx.z * p.ck;
   const int k_end = min(p.K, k_begin + p.ck);
   const int nkt = (k_end - k_begin + kBK - 1) / kBK;
@@ -459,10 +492,10 @@ int launch(void (*kernel)(Args...), dim3 grid, int threads, int smem, cudaStream
   return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, args...));
 }
 
-template <bool ASigned, bool Sparse, typename OutT>
+template <bool ASigned, bool Sparse, bool Experts, typename OutT>
 int launch_typed(const Problem& p, int vec, dim3 grid, cudaStream_t s) {
-  auto kernel = vec == 16 ? w4a8_kernel<16, ASigned, Sparse, OutT>
-                          : w4a8_kernel<4, ASigned, Sparse, OutT>;
+  auto kernel = vec == 16 ? w4a8_kernel<16, ASigned, Sparse, Experts, OutT>
+                          : w4a8_kernel<4, ASigned, Sparse, Experts, OutT>;
   const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                smem_bytes(kBM, kMaxClusterChunks));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -474,25 +507,28 @@ int cdiv(int a, int b) { return (a + b - 1) / b; }
 bool aligned16(const void* ptr) { return ptr == nullptr || (uintptr_t)ptr % 16 == 0; }
 
 // The plan's ints, checked against the shape before anything launches.
-bool plan_ok(const Problem& p, int vec, dim3 grid) {
+bool plan_ok(const Problem& p, int experts, int vec, dim3 grid) {
+  if (experts < 1) return false;
   if (p.M < 1 || p.N < 4 || p.N % 4 || p.K < 0 || p.K % 4 || p.ck < kBK || p.ck % kBK)
     return false;
   if (vec != 4 && vec != 16) return false;
   if (vec == 16 && (p.N % 16 || p.K % 16 || !aligned16(p.x) || !aligned16(p.w) ||
                     !aligned16(p.meta)))
     return false;
-  return (int)grid.x == cdiv(p.N, kBN) && (int)grid.y == cdiv(p.M, kBM) &&
+  return (int)grid.x == cdiv(p.N, kBN) && (long)grid.y == (long)experts * cdiv(p.M, kBM) &&
          (int)grid.z == (p.K ? cdiv(p.K, p.ck) : 1) && (int)grid.z <= kMaxClusterChunks;
 }
 
-int launch_any(const Problem& p, int a_signed, int out_bf16, int sparse, int vec, int gx, int gy,
-               int gz, void* stream) {
+template <bool Experts>
+int launch_any(const Problem& p, int experts, int a_signed, int out_bf16, int sparse, int vec,
+               int gx, int gy, int gz, void* stream) {
   const dim3 grid(gx, gy, gz);
-  if (!plan_ok(p, vec, grid)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!plan_ok(p, experts, vec, grid) || (!Experts && experts != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define W4A8_TYPED(AS, SP)                                                      \
-  return out_bf16 ? launch_typed<AS, SP, __nv_bfloat16>(p, vec, grid, s)        \
-                  : launch_typed<AS, SP, float>(p, vec, grid, s)
+#define W4A8_TYPED(AS, SP)                                                           \
+  return out_bf16 ? launch_typed<AS, SP, Experts, __nv_bfloat16>(p, vec, grid, s)    \
+                  : launch_typed<AS, SP, Experts, float>(p, vec, grid, s)
   if (sparse) {
     if (a_signed) W4A8_TYPED(true, true);
     W4A8_TYPED(false, true);
@@ -517,7 +553,7 @@ extern "C" int w4a8_matmul_launch(const void* x, const void* w, const void* sw,
   const Problem p{static_cast<const uint8_t*>(x), static_cast<const int8_t*>(w), nullptr,
                   static_cast<const float*>(sw), static_cast<const float*>(corr), out, M, N, K,
                   ck};
-  return launch_any(p, a_signed, out_bf16, 0, vec, gx, gy, gz, stream);
+  return launch_any<false>(p, 1, a_signed, out_bf16, 0, vec, gx, gy, gz, stream);
 }
 
 // The 2:4 entry point (kernel B4): w is the (K/4, N) packed codes, meta the
@@ -529,5 +565,30 @@ extern "C" int w4a8_sparse_matmul_launch(const void* x, const void* w, const voi
   const Problem p{static_cast<const uint8_t*>(x), static_cast<const int8_t*>(w),
                   static_cast<const uint8_t*>(meta), static_cast<const float*>(sw),
                   static_cast<const float*>(corr), out, M, N, K, ck};
-  return launch_any(p, a_signed, out_bf16, 1, vec, gx, gy, gz, stream);
+  return launch_any<false>(p, 1, a_signed, out_bf16, 1, vec, gx, gy, gz, stream);
+}
+
+// The expert-axis entry points (kernels B1e and B4e): E problems of (M, N,
+// K) one after the other in x (E, M, K), w (and meta) (E, K/2 or K/4, N),
+// sw and corr (E, N) and out (E, M, N), in one launch; the plan's grid has
+// E times the row tiles of one problem. The same requirements as above.
+extern "C" int w4a8_expert_matmul_launch(const void* x, const void* w, const void* sw,
+                                         const void* corr, void* out, int E, int M, int N,
+                                         int K, int a_signed, int out_bf16, int vec, int ck,
+                                         int gx, int gy, int gz, void* stream) {
+  const Problem p{static_cast<const uint8_t*>(x), static_cast<const int8_t*>(w), nullptr,
+                  static_cast<const float*>(sw), static_cast<const float*>(corr), out, M, N, K,
+                  ck};
+  return launch_any<true>(p, E, a_signed, out_bf16, 0, vec, gx, gy, gz, stream);
+}
+
+extern "C" int w4a8_sparse_expert_matmul_launch(const void* x, const void* w, const void* meta,
+                                                const void* sw, const void* corr, void* out,
+                                                int E, int M, int N, int K, int a_signed,
+                                                int out_bf16, int vec, int ck, int gx, int gy,
+                                                int gz, void* stream) {
+  const Problem p{static_cast<const uint8_t*>(x), static_cast<const int8_t*>(w),
+                  static_cast<const uint8_t*>(meta), static_cast<const float*>(sw),
+                  static_cast<const float*>(corr), out, M, N, K, ck};
+  return launch_any<true>(p, E, a_signed, out_bf16, 1, vec, gx, gy, gz, stream);
 }

@@ -7,17 +7,30 @@ from __future__ import annotations
 import torch
 
 
-def quantize_activations(x: torch.Tensor):
+def quantize_activations(x: torch.Tensor, *, per_expert: bool = False):
     """Dynamic per-tensor asymmetric 8-bit activation quantization (the A8
     half of W4A8 when no calibrated activation quantizer ships with the
-    artifact). Returns (codes uint8, scale f32, zp f32) as 0-d tensors on
-    ``x``'s device: no host read."""
+    artifact). Returns (codes uint8, scale f32, zp f32), the scale and zero
+    point 0-d tensors on ``x``'s device: no host read.
+
+    ``per_expert``: ``x`` is (E, M, K), one expert's rows a slice, and each
+    slice is quantized on its own, as the reference's quantizer is under
+    ``vmap``: its min and max include the capacity rows the dispatch left
+    at zero, and an expert that got no token takes the 1e-8 scale floor.
+    The scale and zero point are then (E,)."""
     xf = x.to(torch.float32)
-    lo = torch.clamp(torch.amin(xf), max=0.0)
-    hi = torch.clamp(torch.amax(xf), min=0.0)
+    if per_expert:
+        flat = xf.reshape(xf.shape[0], -1)
+        lo = torch.clamp(torch.amin(flat, dim=1), max=0.0)
+        hi = torch.clamp(torch.amax(flat, dim=1), min=0.0)
+    else:
+        lo = torch.clamp(torch.amin(xf), max=0.0)
+        hi = torch.clamp(torch.amax(xf), min=0.0)
     scale = torch.clamp((hi - lo) / 255.0, min=1e-8)
     zp = torch.clamp(torch.round(-lo / scale), 0.0, 255.0)
-    codes = torch.clamp(torch.round(xf / scale) + zp, 0.0, 255.0).to(torch.uint8)
+    shape = (-1,) + (1,) * (xf.dim() - 1) if per_expert else ()
+    codes = torch.clamp(torch.round(xf / scale.reshape(shape)) + zp.reshape(shape), 0.0,
+                        255.0).to(torch.uint8)
     return codes, scale, zp
 
 

@@ -36,6 +36,15 @@ them: the same kernel source with a loader that expands each group of 4 K
 rows in registers (``w4a8_sparse_matmul.launches`` counts it apart), and
 the plain version :func:`w4a8_sparse_matmul_plain`. Both are bit-equal to
 B1 on the dense-with-zeros codes.
+
+:func:`w4a8_expert_matmul` (B1e) and :func:`w4a8_sparse_expert_matmul`
+(B4e) are B1 and B4 over an expert axis, the counterpart of the batched
+``pallas_call`` that ``jax.vmap(packed_linear)`` makes of the same two
+Pallas kernels at ``repro/models/moe.py:122``: (E, M, K) codes against
+(E, K/2, N) stacks, each expert with its own scales and activation
+quantizer, in one launch (the same kernel source, its grid rows walking E
+problems), each with a launch counter of its own and a plain version of E
+calls of B1's or B4's.
 """
 
 from __future__ import annotations
@@ -203,18 +212,23 @@ class W4A8Plan:
 
 
 @functools.cache
-def w4a8_plan(m: int, n: int, k: int, aligned: bool = True, n_sm: int = H100_SMS) -> W4A8Plan:
+def w4a8_plan(m: int, n: int, k: int, aligned: bool = True, n_sm: int = H100_SMS,
+              experts: int = 1) -> W4A8Plan:
     """The plan of one (M, N, K) call, computed once per shape; ``aligned``
     says x, w (and meta) are 16-byte aligned. K is split until about
     BLOCKS_PER_SM blocks an SM, while a chunk keeps its least number of
-    stages (one at decode, where M fits one row tile; else MIN_STEPS)."""
+    stages (one at decode, where M fits one row tile; else MIN_STEPS).
+    ``experts`` > 1 plans the expert-axis kernel: E problems of (M, N, K),
+    expert e's row tiles at grid rows [e * row_tiles, (e + 1) * row_tiles),
+    and the split counts the tiles of all E."""
     vec = 16 if aligned and n % 16 == 0 and k % 16 == 0 else 4
-    tiles = -(-m // TILE_M) * -(-n // TILE_N)
+    row_tiles = -(-m // TILE_M)
+    tiles = experts * row_tiles * -(-n // TILE_N)
     steps = -(-k // STAGE_K)
     min_steps = 1 if m <= TILE_M else MIN_STEPS
     split = max(1, min(-(-BLOCKS_PER_SM * n_sm // tiles), steps // min_steps, MAX_CHUNKS))
     ck = STAGE_K * -(-steps // split)
-    return W4A8Plan(vec, ck, (-(-n // TILE_N), -(-m // TILE_M), max(1, -(-k // ck))))
+    return W4A8Plan(vec, ck, (-(-n // TILE_N), experts * row_tiles, max(1, -(-k // ck))))
 
 
 @functools.cache
@@ -226,9 +240,13 @@ def _launch(name: str, x, weights, sw, corr, out_dtype, rows_per_k: int):
     """Check and launch the B1 (``weights`` = (w_packed,)) or B4 (``(packed,
     meta)``) entry point on CUDA tensors with the shape's plan; raise on
     what the kernel does not take or on a CUDA error from the launch.
-    Returns the output and the plan it launched with (None if empty)."""
-    m, k = x.shape
-    n = weights[0].shape[1]
+    Returns the output and the plan it launched with (None if empty).
+    An expert-axis entry (B1e, B4e) takes ``x`` (E, M, K), weights (E, ...,
+    N) and ``sw``/``corr`` (E, N), and launches once for all E."""
+    experts = x.shape[0] if x.dim() == 3 else 1
+    lead = (experts,) if x.dim() == 3 else ()
+    m, k = x.shape[-2:]
+    n = weights[0].shape[-1]
     if not x.is_cuda:
         raise ValueError(f"{name}_kernel takes CUDA tensors, got {x.device}")
     named = (("x", x), ("sw", sw), ("corr", corr)) + tuple(
@@ -244,24 +262,25 @@ def _launch(name: str, x, weights, sw, corr, out_dtype, rows_per_k: int):
         raise TypeError(f"{name}: out_dtype {out_dtype}")
     if sw.dtype != torch.float32 or corr.dtype != torch.float32:
         raise TypeError(f"{name}: sw and corr must be float32")
-    if any(w.shape != (k // rows_per_k, n) for w in weights) or k % rows_per_k:
+    if any(w.shape != (*lead, k // rows_per_k, n) for w in weights) or k % rows_per_k:
         raise ValueError(f"{name}: x {tuple(x.shape)} does not match weights "
                          f"{[tuple(w.shape) for w in weights]}")
-    if sw.numel() != n or corr.numel() != n:
-        raise ValueError(f"{name}: sw/corr need {n} entries")
+    if sw.numel() != experts * n or corr.numel() != experts * n:
+        raise ValueError(f"{name}: sw/corr need {experts * n} entries")
     if k % 4 or n % 4:
         raise ValueError(f"{name} kernel takes K and N multiples of 4, got K={k} N={n}")
     if any(t.data_ptr() % 4 for t in (x, *weights)):
         raise ValueError(f"{name} kernel needs 4-byte aligned codes and weights")
-    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    if m == 0 or n == 0:
+    out = torch.empty((*lead, m, n), dtype=out_dtype, device=x.device)
+    if m == 0 or n == 0 or experts == 0:
         return out, None
     plan = w4a8_plan(m, n, k, all(t.data_ptr() % 16 == 0 for t in (x, *weights)),
-                     _sm_count(x.device.index))
+                     _sm_count(x.device.index), experts)
     err = getattr(_library(), f"{name}_launch")(
         x.data_ptr(), *(w.data_ptr() for w in weights), sw.data_ptr(), corr.data_ptr(),
-        out.data_ptr(), m, n, k, int(x.dtype == torch.int8), int(out_dtype == torch.bfloat16),
-        plan.vec, plan.ck, *plan.grid, torch.cuda.current_stream(x.device).cuda_stream,
+        out.data_ptr(), *lead, m, n, k, int(x.dtype == torch.int8),
+        int(out_dtype == torch.bfloat16), plan.vec, plan.ck, *plan.grid,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
@@ -304,6 +323,12 @@ def _library() -> ctypes.CDLL:
     lib.w4a8_sparse_matmul_launch.argtypes = (
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     lib.w4a8_sparse_matmul_launch.restype = ctypes.c_int
+    lib.w4a8_expert_matmul_launch.argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+    lib.w4a8_expert_matmul_launch.restype = ctypes.c_int
+    lib.w4a8_sparse_expert_matmul_launch.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
+    lib.w4a8_sparse_expert_matmul_launch.restype = ctypes.c_int
     return lib
 
 
@@ -421,6 +446,136 @@ def w4a8_sparse_decode_matmul(x, w_packed, w_meta, w_scale, col_sums, act_scale,
                               col_sums=col_sums, **kw)
 
 
+# ---------------------------------------------------------------------------
+# The expert axis (B1e, B4e)
+# ---------------------------------------------------------------------------
+def _expert_epilogue(w_scale, col_sums, act_scale, act_zp, experts: int, n: int):
+    """Each expert's ``sw`` and ``corr`` rows, (E, N) f32, formed as B1's
+    wrapper forms them from that expert's scales and zero point."""
+    sw = w_scale.reshape(experts, n).to(torch.float32) * act_scale.reshape(experts, 1)
+    corr = col_sums.reshape(experts, n).to(torch.float32) * act_zp.reshape(experts, 1)
+    return sw, corr
+
+
+def w4a8_expert_matmul_plain(x, w_packed, sw, corr, out_dtype=torch.float32):
+    """B1e's plain version: E calls of :func:`w4a8_matmul_plain`, one an
+    expert, on the expert's slices and its ``sw``/``corr`` rows."""
+    return torch.stack([w4a8_matmul_plain(x[e], w_packed[e], sw[e], corr[e], out_dtype)
+                        for e in range(x.shape[0])])
+
+
+def w4a8_sparse_expert_matmul_plain(x, w_packed, w_meta, sw, corr, out_dtype=torch.float32):
+    """B4e's plain version: E calls of :func:`w4a8_sparse_matmul_plain`."""
+    return torch.stack([
+        w4a8_sparse_matmul_plain(x[e], w_packed[e], w_meta[e], sw[e], corr[e], out_dtype)
+        for e in range(x.shape[0])])
+
+
+def _check_expert_args(name, x, weights, act_scale, act_zp, out_dtype, rows_per_k):
+    if x.dim() != 3 or any(w.dim() != 3 for w in weights):
+        raise ValueError(f"{name}: x (E, M, K) and weights (E, K/{rows_per_k}, N), got "
+                         f"{tuple(x.shape)} / {[tuple(w.shape) for w in weights]}")
+    e, _, k = x.shape
+    if any(w.shape[:2] != (e, k // rows_per_k) for w in weights) or k % rows_per_k:
+        raise ValueError(f"{name}: x {tuple(x.shape)} does not match weights "
+                         f"{[tuple(w.shape) for w in weights]}")
+    if act_scale.numel() != e or act_zp.numel() != e:
+        raise ValueError(f"{name}: act_scale/act_zp need one entry an expert ({e})")
+    if x.dtype not in _ACT_DTYPES:
+        raise TypeError(f"activation codes must be uint8 or int8, got {x.dtype}")
+    if any(w.dtype != torch.int8 for w in weights):
+        raise TypeError(f"{name}: weights must be int8, got {[w.dtype for w in weights]}")
+    if out_dtype not in _OUT_DTYPES:
+        raise TypeError(f"out_dtype must be bfloat16 or float32, got {out_dtype}")
+
+
+def w4a8_expert_matmul(
+    x: torch.Tensor,  # (E, M, K) uint8 or int8 activation codes, one slice an expert
+    w_packed: torch.Tensor,  # (E, K//2, N) int8 packed int4 weights
+    w_scale: torch.Tensor,  # (E, N) (or (E, 1, N)) per-channel weight scales
+    col_sums: torch.Tensor,  # (E, N) (or (E, 1, N)) int32, pack-time
+    act_scale: torch.Tensor,  # (E,) one activation quantizer an expert
+    act_zp: torch.Tensor,  # (E,)
+    *,
+    block_k: int = 128,
+    p_inner: int = 16,
+    assert_inner: bool = False,
+    out_dtype=torch.float32,
+    reference: bool = False,
+) -> torch.Tensor:
+    """B1 over an expert axis (B1e): per expert e, ``(acc_e - zp_e *
+    col_sums_e) * w_scale_e * act_scale_e``, bit-equal to E calls of
+    :func:`w4a8_decode_matmul` on the slices. CUDA tensors launch the
+    kernel once for all E (``w4a8_expert_matmul.launches`` counts it, apart
+    from B1's count); CPU tensors, or ``reference``, take the plain
+    version. Never falls back. Returns (E, M, N)."""
+    _check_expert_args("w4a8_expert_matmul", x, (w_packed,), act_scale, act_zp, out_dtype, 2)
+    e, _, k = x.shape
+    n = w_packed.shape[-1]
+    if _fit_block(k, block_k) % 2:
+        raise ValueError(f"K tile {_fit_block(k, block_k)} must be even (K={k})")
+    sw, corr = _expert_epilogue(w_scale, col_sums, act_scale, act_zp, e, n)
+    if assert_inner:
+        for i in range(e):
+            check_inner(x[i], w_packed[i], block_k, p_inner)
+    if reference or not x.is_cuda:
+        return w4a8_expert_matmul_plain(x, w_packed, sw, corr, out_dtype)
+    out, w4a8_expert_matmul.last_plan = _launch(
+        "w4a8_expert_matmul", x, (w_packed,), sw.contiguous(), corr.contiguous(), out_dtype,
+        rows_per_k=2)
+    w4a8_expert_matmul.launches += 1
+    return out
+
+
+#: B1e launches since the last reset, and the plan of the last launch
+w4a8_expert_matmul.launches = 0
+w4a8_expert_matmul.last_plan = None
+
+
+def w4a8_sparse_expert_matmul(
+    x: torch.Tensor,  # (E, M, K) activation codes
+    w_packed: torch.Tensor,  # (E, K//4, N) int8 packed 2:4 codes
+    w_meta: torch.Tensor,  # (E, K//4, N) int8 in-group positions
+    w_scale: torch.Tensor,
+    col_sums: torch.Tensor,
+    act_scale: torch.Tensor,
+    act_zp: torch.Tensor,
+    *,
+    block_k: int = 128,
+    p_inner: int = 16,
+    assert_inner: bool = False,
+    out_dtype=torch.float32,
+    reference: bool = False,
+) -> torch.Tensor:
+    """B4 over an expert axis (B4e): :func:`w4a8_expert_matmul` on
+    2:4-compressed stacks, bit-equal to E calls of
+    :func:`w4a8_sparse_decode_matmul`; one launch for all E
+    (``w4a8_sparse_expert_matmul.launches``)."""
+    _check_expert_args("w4a8_sparse_expert_matmul", x, (w_packed, w_meta), act_scale, act_zp,
+                       out_dtype, 4)
+    e, _, k = x.shape
+    n = w_packed.shape[-1]
+    if _fit_block(k, block_k) % 4:
+        raise ValueError(f"K tile {_fit_block(k, block_k)} must be a multiple of 4 for "
+                         f"2:4 codes (K={k})")
+    sw, corr = _expert_epilogue(w_scale, col_sums, act_scale, act_zp, e, n)
+    if assert_inner:
+        for i in range(e):
+            check_inner(x[i], w_packed[i], block_k, p_inner, meta=w_meta[i])
+    if reference or not x.is_cuda:
+        return w4a8_sparse_expert_matmul_plain(x, w_packed, w_meta, sw, corr, out_dtype)
+    out, w4a8_sparse_expert_matmul.last_plan = _launch(
+        "w4a8_sparse_expert_matmul", x, (w_packed, w_meta), sw.contiguous(), corr.contiguous(),
+        out_dtype, rows_per_k=4)
+    w4a8_sparse_expert_matmul.launches += 1
+    return out
+
+
+#: B4e launches since the last reset, and the plan of the last launch
+w4a8_sparse_expert_matmul.launches = 0
+w4a8_sparse_expert_matmul.last_plan = None
+
+
 __all__ = [
     "check_inner",
     "compress_2to4",
@@ -430,10 +585,14 @@ __all__ = [
     "unpack_int4",
     "unpack_sparse24",
     "w4a8_decode_matmul",
+    "w4a8_expert_matmul",
+    "w4a8_expert_matmul_plain",
     "w4a8_matmul",
     "w4a8_matmul_kernel",
     "w4a8_matmul_plain",
     "w4a8_sparse_decode_matmul",
+    "w4a8_sparse_expert_matmul",
+    "w4a8_sparse_expert_matmul_plain",
     "w4a8_sparse_matmul",
     "w4a8_sparse_matmul_kernel",
     "w4a8_sparse_matmul_plain",

@@ -3,14 +3,25 @@
 A model is a token embedding, a stack of layers, a final norm and an LM
 head. Each layer is a (mixer, ffn) pair described by a :class:`LayerSpec`;
 a stack is ``pattern`` repeated ``n_layers // period`` times. The port
-serves the dense pattern (``attn`` + ``mlp``); the other families' config
-blocks (``moe``, ``ssm``, ``xlstm``) are kept as opaque fields so configs
-keep the reference's shape, and the model raises on them.
+serves the dense pattern (``attn`` + ``mlp``) and the MoE FFN
+(:class:`MoEConfig`); the SSM and xLSTM config blocks (``ssm``, ``xlstm``)
+are kept as opaque fields so configs keep the reference's shape, and the
+model raises on them.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+    group_size: int = 1024  # dispatch group size (GShard-style)
+    router_jitter: float = 0.0
 
 
 @dataclass(frozen=True)
@@ -31,7 +42,7 @@ class ModelConfig:
     vocab: int
     pattern: tuple[LayerSpec, ...] = (LayerSpec("attn", "mlp"),)
     d_head: int | None = None
-    moe: object | None = None
+    moe: MoEConfig | None = None
     ssm: object | None = None
     xlstm: object | None = None
     norm: str = "rmsnorm"  # rmsnorm | layernorm

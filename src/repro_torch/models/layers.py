@@ -32,7 +32,9 @@ from repro_torch.kernels.w4a8_mm import (
     unpack_int4,
     unpack_sparse24,
     w4a8_decode_matmul,
+    w4a8_expert_matmul,
     w4a8_sparse_decode_matmul,
+    w4a8_sparse_expert_matmul,
 )
 from repro_torch.quant.spec import (
     AttnDatapathSpec,
@@ -84,9 +86,18 @@ def use_packed_backend(mode: str):
         _packed_state.override = prev
 
 
+def _add_bias(y: torch.Tensor, bias: torch.Tensor | None, stacked: bool) -> torch.Tensor:
+    """``y`` plus a site's corrected bias: (N,) for a plain site, one row of
+    N an expert, (E, 1, N), for an expert-stacked one."""
+    if bias is None:
+        return y
+    return y + (bias.reshape(bias.shape[0], 1, -1) if stacked else bias.reshape(-1)).to(y.dtype)
+
+
 class Linear(nn.Module):
-    """A float site: ``x @ w`` with ``w`` (K, N), plus the corrected bias
-    when the site is a high-precision leaf of a calibrated artifact."""
+    """A float site: ``x @ w`` with ``w`` (K, N), or expert-stacked (E, K, N)
+    taking (E, M, K) rows, plus the corrected bias when the site is a
+    high-precision leaf of a calibrated artifact."""
 
     def __init__(self, w: torch.Tensor, bias: torch.Tensor | None = None):
         super().__init__()
@@ -94,10 +105,7 @@ class Linear(nn.Module):
         self.register_buffer("bias", bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = x @ self.w
-        if self.bias is not None:
-            y = y + self.bias.reshape(-1).to(y.dtype)
-        return y
+        return _add_bias(x @ self.w, self.bias, self.w.dim() == 3)
 
 
 class PackedLinear(nn.Module):
@@ -112,7 +120,12 @@ class PackedLinear(nn.Module):
     ``spec_arr`` the persistable spec twin, and optional ``act_scale`` /
     ``act_zp`` (0-d f32, a calibrated static activation quantizer) and
     ``bias`` (N,). ``spec`` is the site's
-    :class:`~repro_torch.quant.spec.DatapathSpec`."""
+    :class:`~repro_torch.quant.spec.DatapathSpec`.
+
+    An expert-stacked site (an MoE FFN's) carries a leading E on every
+    buffer: ``packed`` (E, K//2, N), ``scale`` and ``col_sums`` (E, 1, N),
+    ``spec_arr`` (E, L), ``act_scale``/``act_zp`` (E,), one quantizer an
+    expert, and ``bias`` (E, 1, N)."""
 
     def __init__(self, packed, scale, col_sums=None, spec=None, spec_arr=None,
                  act_scale=None, act_zp=None, bias=None, meta=None):
@@ -126,6 +139,10 @@ class PackedLinear(nn.Module):
         self.register_buffer("act_zp", act_zp)
         self.register_buffer("bias", bias)
         self.spec = spec
+
+    @property
+    def stacked(self) -> bool:
+        return self.packed.dim() == 3
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return packed_linear(x, self)
@@ -146,8 +163,9 @@ def dequant_weight(leaf: PackedLinear) -> torch.Tensor:
 def _static_act_codes(x2, leaf: PackedLinear, spec: DatapathSpec):
     """Activation codes from the site's calibrated static quantizer: pure
     elementwise ops, codes in the certificate's alphabet."""
-    scale = leaf.act_scale.to(torch.float32).reshape(())
-    zp = leaf.act_zp.to(torch.float32).reshape(())
+    shape = (-1, 1, 1) if leaf.stacked else ()  # one quantizer an expert
+    scale = leaf.act_scale.to(torch.float32).reshape(shape)
+    zp = leaf.act_zp.to(torch.float32).reshape(shape)
     alpha = act_alphabet(spec.act_bits, signed=spec.act_signed)
     codes = torch.clamp(torch.round(x2.to(torch.float32) / scale) + zp,
                         alpha.qmin, alpha.qmax)
@@ -156,7 +174,9 @@ def _static_act_codes(x2, leaf: PackedLinear, spec: DatapathSpec):
 
 def packed_linear(x, leaf: PackedLinear, *, spec: DatapathSpec | None = None,
                   assert_inner: bool = False):
-    """x: (..., K) through a packed site -> (..., N) in ``x``'s dtype.
+    """x: (..., K) through a packed site -> (..., N) in ``x``'s dtype; an
+    expert-stacked site takes (E, M, K) and gives (E, M, N), all experts in
+    one launch of the expert-axis kernel, each quantizing its own rows.
 
     The accumulation datapath (T, P_I) and the activation quantizer come
     from the site's embedded spec; ``spec`` is a request, and one that
@@ -176,32 +196,35 @@ def packed_linear(x, leaf: PackedLinear, *, spec: DatapathSpec | None = None,
             f"{'carries' if leaf.meta is not None else 'lacks'} a 2:4 metadata leaf)")
 
     backend = packed_backend()
+    stacked = leaf.stacked
     if backend == "dequant":
         w = dequant_weight(leaf)
         dt = torch.promote_types(x.dtype, w.dtype)
-        y = x.to(dt) @ w.to(dt)
-        if leaf.bias is not None:
-            y = y + leaf.bias.reshape(-1).to(y.dtype)
-        return y
+        return _add_bias(x.to(dt) @ w.to(dt), leaf.bias, stacked)
 
-    *lead, k = x.shape
-    x2 = x.reshape(-1, k)
+    if stacked:  # (E, M, K) rows: each expert quantizes its own
+        x2 = x
+    else:
+        *lead, k = x.shape
+        x2 = x.reshape(-1, k)
     if resolved.static_act and leaf.act_scale is not None:
         codes, act_scale, act_zp = _static_act_codes(x2, leaf, resolved)
     else:
-        codes, act_scale, act_zp = quantize_activations(x2)
+        codes, act_scale, act_zp = quantize_activations(x2, per_expert=stacked)
     col_sums = leaf.col_sums
     if col_sums is None:  # legacy artifact without the pack-time term
         col_sums = site_codes(leaf).to(torch.int32).sum(dim=-2)
     if leaf.meta is not None:
-        matmul, weights = w4a8_sparse_decode_matmul, (leaf.packed, leaf.meta)
+        weights = (leaf.packed, leaf.meta)
+        matmul = w4a8_sparse_expert_matmul if stacked else w4a8_sparse_decode_matmul
     else:
-        matmul, weights = w4a8_decode_matmul, (leaf.packed,)
+        weights = (leaf.packed,)
+        matmul = w4a8_expert_matmul if stacked else w4a8_decode_matmul
     y = matmul(
         codes,
         *weights,
-        leaf.scale.reshape(-1).to(torch.float32),
-        col_sums.reshape(-1),
+        leaf.scale.to(torch.float32),  # (1, N), or (E, 1, N): the wrappers take either
+        col_sums,
         act_scale,
         act_zp,
         **datapath_kernel_args(resolved),
@@ -209,10 +232,9 @@ def packed_linear(x, leaf: PackedLinear, *, spec: DatapathSpec | None = None,
         out_dtype=x.dtype,
         reference=(backend == "reference"),
     )
-    y = y.reshape(*lead, y.shape[-1])
-    if leaf.bias is not None:
-        y = y + leaf.bias.reshape(-1).to(y.dtype)
-    return y
+    if not stacked:
+        y = y.reshape(*lead, y.shape[-1])
+    return _add_bias(y, leaf.bias, stacked)
 
 
 def pmm(p: nn.Module, name: str, x):

@@ -1,11 +1,12 @@
-"""Model assembly, dense pattern (port of ``repro/models/transformer.py``).
+"""Model assembly, attention mixers with MLP or MoE FFNs (port of
+``repro/models/transformer.py``).
 
 The reference stacks each pattern slot's parameters over repeats and scans
 over them; the port keeps one :class:`Block` per layer in an
 ``nn.ModuleList`` and loops (layer ``r * period + s`` is repeat ``r`` of
 slot ``s``). Decode caches are per-layer ``{"k", "v"}`` dicts, written in
-place. MoE, Mamba and xLSTM mixers arrive with the family slice and raise
-here.
+place. Mamba and xLSTM mixers and modality frontends arrive with their
+slices and raise here.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from torch import nn
 from repro_torch import resolve_device
 
 from .config import LayerSpec, ModelConfig
+from .moe import MoE, moe
 from .layers import (
     MLP,
     Attention,
@@ -38,19 +40,21 @@ from .layers import (
 AUX_LOSS_WEIGHT = 0.01
 
 
-def _check_dense(cfg: ModelConfig) -> None:
+def _check_ported(cfg: ModelConfig) -> None:
     for spec in cfg.pattern:
-        if spec.mixer not in ("attn", "none") or spec.ffn not in ("mlp", "none"):
+        if spec.mixer not in ("attn", "none") or spec.ffn not in ("mlp", "moe", "none"):
             raise NotImplementedError(
-                f"{cfg.name}: layer {spec} — only the dense pattern (attn, "
-                f"mlp) is ported; MoE/SSM/xLSTM arrive with the family slice")
+                f"{cfg.name}: layer {spec} — the port serves attention mixers with "
+                f"MLP or MoE FFNs; the SSM/xLSTM mixers arrive with their slices")
     if cfg.frontend is not None:
         raise NotImplementedError(f"{cfg.name}: modality frontends are not ported")
+    if any(s.ffn == "moe" for s in cfg.pattern) and cfg.moe is None:
+        raise ValueError(f"{cfg.name}: pattern uses moe but moe config is None")
 
 
 class Block(nn.Module):
     """One layer: ``norm1`` + ``mixer`` (Attention) and ``norm2`` + ``ffn``
-    (MLP); a component is None where the pattern says "none"."""
+    (MLP or MoE); a component is None where the pattern says "none"."""
 
     def __init__(self, spec: LayerSpec, norm1=None, mixer=None, norm2=None, ffn=None):
         super().__init__()
@@ -64,7 +68,7 @@ class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, embedding: Embedding, layers: list[Block],
                  final_norm: Norm):
         super().__init__()
-        _check_dense(cfg)
+        _check_ported(cfg)
         if len(layers) != cfg.n_layers:
             raise ValueError(f"{cfg.name}: {len(layers)} blocks for {cfg.n_layers} layers")
         self.cfg = cfg
@@ -107,6 +111,17 @@ def _init_block(spec: LayerSpec, cfg: ModelConfig, gen, device) -> Block:
             block.ffn = MLP(wg=lin(d, f, s_in), wu=lin(d, f, s_in), wd=lin(f, d, s_out))
         else:
             block.ffn = MLP(wi=lin(d, f, s_in), wd=lin(f, d, s_out))
+    elif spec.ffn == "moe":
+        block.norm2 = new_norm()
+        e, f = cfg.moe.n_experts, cfg.moe.d_ff_expert
+        s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
+
+        def stack(k, n, std):
+            return Linear(_normal((e, k, n), std, gen, dt, device))
+
+        sites = ({"wg": stack(d, f, s_in), "wu": stack(d, f, s_in)} if cfg.act == "swiglu"
+                 else {"wi": stack(d, f, s_in)})
+        block.ffn = MoE(router=lin(d, e, s_in), **sites, wd=stack(f, d, s_out))
     return block
 
 
@@ -117,7 +132,7 @@ def init_model(cfg: ModelConfig, seed: int = 0, *, device="cuda",
     0.02, unit norms), drawn from ``generator`` (default: a generator on
     ``device`` seeded with ``seed``). The draws differ from ``jax.random``;
     tests carry weights across with ``repro_torch.interop``."""
-    _check_dense(cfg)
+    _check_ported(cfg)
     dev = resolve_device(device)
     gen = generator if generator is not None else torch.Generator(device=dev).manual_seed(seed)
     dt = torch_dtype(cfg.param_dtype)
@@ -142,23 +157,31 @@ def _embed_inputs(model: Transformer, tokens, pos_offset: int = 0):
     return x, positions
 
 
-def _apply_block(block: Block, cfg: ModelConfig, x, positions):
-    if block.mixer is not None:
-        y, _ = attention(block.mixer, norm(block.norm1, x, cfg.norm), cfg, positions)
-        x = x + y
-    if block.ffn is not None:
-        x = x + mlp(block.ffn, norm(block.norm2, x, cfg.norm), cfg)
-    return x
+def _ffn(block: Block, cfg: ModelConfig, x, aux=None):
+    """The block's FFN residual on ``x``; an MoE FFN adds its load-balance
+    loss to the 0-d ``aux`` in place when one is given."""
+    h = norm(block.norm2, x, cfg.norm)
+    if block.spec.ffn == "moe":
+        y, loss = moe(block.ffn, h, cfg, aux=aux is not None)
+        if aux is not None:
+            aux += loss
+        return x + y
+    return x + mlp(block.ffn, h, cfg)
 
 
 def forward(model: Transformer, batch: dict):
-    """batch: {"tokens": (B, S) int}. Returns (logits (B, S, V_padded), aux)."""
+    """batch: {"tokens": (B, S) int}. Returns (logits (B, S, V_padded), aux),
+    ``aux`` the MoE blocks' summed load-balance loss (0 without them)."""
     cfg = model.cfg
     x, positions = _embed_inputs(model, batch["tokens"])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for block in model.layers:
-        x = _apply_block(block, cfg, x, positions)
+        if block.mixer is not None:
+            y, _ = attention(block.mixer, norm(block.norm1, x, cfg.norm), cfg, positions)
+            x = x + y
+        if block.ffn is not None:
+            x = _ffn(block, cfg, x, aux)
     x = norm(model.final_norm, x, cfg.norm)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)  # dense: no router loss
     return lm_logits(model.embedding, x, cfg), aux
 
 
@@ -187,7 +210,7 @@ def loss_fn(model: Transformer, batch: dict):
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda"):
     """Per-layer ``{"k", "v"}`` caches of (B, max_len, nkv, hd) in act dtype."""
-    _check_dense(cfg)
+    _check_ported(cfg)
     dev = resolve_device(device)
     shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     dt = torch_dtype(cfg.act_dtype)
@@ -228,7 +251,7 @@ def prefill(model: Transformer, batch: dict, max_len: int, prefix_kv=None,
             cache["v"][:, :S] = v
             x = x + y
         if block.ffn is not None:
-            x = x + mlp(block.ffn, norm(block.norm2, x, cfg.norm), cfg)
+            x = _ffn(block, cfg, x)
     x = norm(model.final_norm, x, cfg.norm)
     return lm_logits(model.embedding, x, cfg), caches
 
@@ -247,7 +270,7 @@ def decode_step(model: Transformer, tokens, caches, index):
             y, _, _ = attention_decode(block.mixer, h, cfg, cache["k"], cache["v"], index)
             x = x + y
         if block.ffn is not None:
-            x = x + mlp(block.ffn, norm(block.norm2, x, cfg.norm), cfg)
+            x = _ffn(block, cfg, x)
     x = norm(model.final_norm, x, cfg.norm)
     return lm_logits(model.embedding, x, cfg), caches
 
@@ -271,7 +294,7 @@ def init_paged_cache(cfg: ModelConfig, num_slots: int, num_blocks: int, block_si
     (:class:`~repro_torch.serving.scheduler.PoolState`): ``page_refcounts``
     counts the block-table rows holding a page plus one while the prefix
     cache holds it."""
-    _check_dense(cfg)
+    _check_ported(cfg)
     dev = resolve_device(device)
     dt = torch.int8 if kv_dtype == "int8" else torch_dtype(kv_dtype or cfg.act_dtype)
     pools = []
@@ -327,7 +350,7 @@ def decode_step_paged(model: Transformer, tokens, cache: dict, *, attn_impl: str
                                           assert_bounds=assert_bounds, watermarks=watermarks)
             x = x + y
         if block.ffn is not None:
-            x = x + mlp(block.ffn, norm(block.norm2, x, cfg.norm), cfg)
+            x = _ffn(block, cfg, x)
     x = norm(model.final_norm, x, cfg.norm)
     lens.add_(active.to(lens.dtype))
     return lm_logits(model.embedding, x, cfg), cache

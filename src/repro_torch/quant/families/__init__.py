@@ -1,6 +1,6 @@
 """Quantizable-site registry (port of ``repro/quant/families/__init__.py``):
-one adapter per (kind, LayerSpec value). The port registers the dense
-adapters; MoE, Mamba and xLSTM arrive with the family slice."""
+one adapter per (kind, LayerSpec value). The port registers the dense and
+MoE adapters; Mamba and xLSTM arrive with their slices."""
 
 from __future__ import annotations
 
@@ -8,9 +8,10 @@ from repro_torch.models.config import ModelConfig
 
 from .base import BlockAdapter, Pair, SiteSpec, TapContext, TapFn, both
 from .dense import AttentionAdapter, MLPAdapter
+from .moe import MoEAdapter
 
 _REGISTRY: dict[tuple[str, str], BlockAdapter] = {
-    (a.kind, a.name): a for a in (AttentionAdapter(), MLPAdapter())
+    (a.kind, a.name): a for a in (AttentionAdapter(), MLPAdapter(), MoEAdapter())
 }
 
 
@@ -21,8 +22,8 @@ def get_adapter(kind: str, name: str) -> BlockAdapter:
     except KeyError:
         raise NotImplementedError(
             f"no adapter for {kind} {name!r} in the port (registered: "
-            f"{sorted(_REGISTRY)}); the MoE/SSM/xLSTM families arrive with "
-            f"the family slice of the port"
+            f"{sorted(_REGISTRY)}); the SSM/xLSTM families arrive with "
+            f"their slices of the port"
         ) from None
 
 

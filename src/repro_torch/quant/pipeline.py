@@ -209,9 +209,10 @@ def _calibrate_component(adapter, p: dict, nrm: dict, x_a, x_q, cfg, ptq, positi
     return (y_a, y_q), comp, nrm
 
 
-def _component_params(module, adapter, cfg) -> dict:
-    """The component's float site weights as a dict keyed by site name."""
-    return {s.name: getattr(module, s.path[-1]).w.detach() for s in adapter.enumerate_sites(cfg)}
+def _component_params(module) -> dict:
+    """The component's float weights as a dict keyed by module name: its
+    sites' and any other (an MoE router)."""
+    return {name: child.w.detach() for name, child in module.named_children()}
 
 
 def _tokens(batches, device) -> torch.Tensor:
@@ -253,7 +254,7 @@ def calibrate_and_quantize(model, cfg: ModelConfig, batches: list[dict], ptq: PT
                 continue
             adapter = get_adapter(kind, fam)
             (y_a, y_q), comp, nrm = _calibrate_component(
-                adapter, _component_params(getattr(blk, kind), adapter, cfg),
+                adapter, _component_params(getattr(blk, kind)),
                 _norm_dict(getattr(blk, nname)), x_a, x_q, cfg, ptq, positions, equalize,
                 plan=plan, site_prefix=f"slot{slot}/{kind}.")
             x_a = x_a + y_a

@@ -37,6 +37,7 @@ from repro_torch.core.sparsity import is_2to4, mask_2to4
 from repro_torch.kernels.w4a8_mm import compress_2to4, pack_int4
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import MLP, Attention, Linear, Norm, PackedLinear, site_codes
+from repro_torch.models.moe import MoE
 
 from .families import SiteSpec, check_supported, get_adapter
 from .spec import (
@@ -61,7 +62,8 @@ __all__ = [
     "upgrade_packed_params",
 ]
 
-_COMPONENTS = {"mixer": Attention, "ffn": MLP}
+#: the serving module of each family adapter's component
+_COMPONENTS = {"attn": Attention, "mlp": MLP, "moe": MoE}
 
 
 def packable_sites(cfg: ModelConfig):
@@ -81,9 +83,11 @@ def packable_sites(cfg: ModelConfig):
     return slots
 
 
-def _spec_arr(spec: DatapathSpec, device) -> torch.Tensor:
-    """The persistable f32 array twin of a site's spec."""
-    return torch.tensor(spec.to_array(), dtype=torch.float32, device=device)
+def _spec_arr(spec: DatapathSpec, device, lead: tuple[int, ...] = ()) -> torch.Tensor:
+    """The persistable f32 array twin of a site's spec, broadcast over an
+    expert stack's leading axis (``lead``)."""
+    arr = torch.tensor(spec.to_array(), dtype=torch.float32, device=device)
+    return arr.expand(*lead, arr.shape[0]).contiguous()
 
 
 def _rtn_codes(w: torch.Tensor, w_bits: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -97,7 +101,8 @@ def _rtn_codes(w: torch.Tensor, w_bits: int) -> tuple[torch.Tensor, torch.Tensor
 
 
 def _pack_leaf(w: torch.Tensor, spec: DatapathSpec | None = None) -> PackedLinear:
-    """(K, N) float weight -> RTN-packed site with bf16 scales and the
+    """(K, N) float weight, or an (E, K, N) expert stack, -> RTN-packed
+    site with bf16 scales and the
     pack-time ``col_sums``. RTN ships no activation quantizer, so the
     embedded spec has ``static_act`` cleared. A 2:4 spec masks the RTN
     codes (mask, then round: no error feedback) and stores them
@@ -122,7 +127,7 @@ def _pack_leaf(w: torch.Tensor, spec: DatapathSpec | None = None) -> PackedLinea
         scale=scale.to(torch.bfloat16),
         col_sums=q.sum(dim=-2, keepdim=True).to(torch.int32),
         spec=spec,
-        spec_arr=_spec_arr(spec, w.device),
+        spec_arr=_spec_arr(spec, w.device, tuple(w.shape[:-2])),
     )
 
 
@@ -190,7 +195,9 @@ def _site_rec_leaf(rec: dict, site: SiteSpec, name: str, device):
 
     ``rec``: {"q": (K, C) int8-valued codes, "scale": (1, C) (numpy arrays
     or tensors), "spec":
-    DatapathSpec with act numerics, "bias": optional (C,)}. Returns a
+    DatapathSpec with act numerics, "bias": optional (C,)}; an expert-stacked
+    site's record carries (E, K, C) codes, (E, 1, C) scales and biases, and
+    its one static activation quantizer goes to every expert. Returns a
     PackedLinear, or a float :class:`Linear` (dequantized weight plus the
     corrected bias) when the codes have no int4 container (w_bits > 4, odd
     K, or a 2:4 spec at K % 4 != 0). A 2:4 spec requires 2:4 codes, else
@@ -212,17 +219,18 @@ def _site_rec_leaf(rec: dict, site: SiteSpec, name: str, device):
                 f"the certificate's effective-depth bound would not hold for these "
                 f"weights")
         packed, meta = compress_2to4(q)
+    lead = tuple(q.shape[:-2])  # (E,) for an expert stack
     act_scale = act_zp = None
     if spec.static_act:
-        act_scale = torch.tensor(spec.act_scale, dtype=torch.float32, device=device)
-        act_zp = torch.tensor(float(spec.act_zp), dtype=torch.float32, device=device)
+        act_scale = torch.full(lead, spec.act_scale, dtype=torch.float32, device=device)
+        act_zp = torch.full(lead, float(spec.act_zp), dtype=torch.float32, device=device)
     return PackedLinear(
         packed=packed,
         meta=meta,
         scale=scale,
         col_sums=q.sum(dim=-2, keepdim=True).to(torch.int32),
         spec=spec.leaf_spec(),
-        spec_arr=_spec_arr(spec, device),
+        spec_arr=_spec_arr(spec, device, lead),
         act_scale=act_scale,
         act_zp=act_zp,
         bias=bias,
@@ -253,9 +261,9 @@ def serving_params_from_quantized(qm):
                 rec = {"q": ql.q_int, "scale": ql.scale, "spec": ql.spec, "bias": ql.bias}
                 sites[site.path[-1]] = _site_rec_leaf(rec, site, name, ql.q_int.device)
             for name, v in comp.params.items():
-                if v is not None:
+                if v is not None:  # float leaves: an MoE router
                     sites[name] = Linear(v)
-            setattr(block, kind, _COMPONENTS[kind](**sites))
+            setattr(block, kind, _COMPONENTS[comp.adapter](**sites))
         layers.append(block)
     return Transformer(cfg, qm.embedding, layers, qm.final_norm)
 
@@ -267,10 +275,11 @@ def _np(t) -> np.ndarray:
 def export_quantized_artifact(qm) -> tuple[dict, dict]:
     """Flatten a calibrated QuantizedModel into the v2 on-disk artifact:
     {"layer{i}/{kind}.{site}/{q,scale,bias,spec}"} numpy leaves (codes raw
-    int8, scales and biases float32, the spec's float64 array) plus the
-    equalization-folded norms ``layer{i}/norm{1,2}/{w,b}``, and the meta
-    dict with the schema version — the keys, dtypes and meta of the
-    reference's exporter."""
+    int8, scales and biases float32, the spec's float64 array; an expert
+    stack's (E, K, C) codes and (E, 1, C) scales and biases) plus the
+    equalization-folded norms ``layer{i}/norm{1,2}/{w,b}`` and MoE routers
+    ``layer{i}/ffn.float/router``, and the meta dict with the schema
+    version — the keys, dtypes and meta of the reference's exporter."""
     artifact: dict[str, np.ndarray] = {}
     site_specs = []
     for name, ql in qm.quantized_linears():
@@ -289,6 +298,10 @@ def export_quantized_artifact(qm) -> tuple[dict, dict]:
             if nrm is not None:
                 for k, v in nrm.items():
                     artifact[f"layer{i}/{norm_name}/{k}"] = _np(v)
+        # the router consumes the equalized input: its folded weights
+        # travel with the artifact, or routing would differ at serving
+        if b.ffn is not None and b.ffn.params.get("router") is not None:
+            artifact[f"layer{i}/ffn.float/router"] = _np(b.ffn.params["router"])
     meta = {
         "artifact_version": ARTIFACT_VERSION,
         "arch": qm.cfg.name,
@@ -393,6 +406,9 @@ def packed_params_from_artifact(flat: dict, model, cfg: ModelConfig | None = Non
     out = _replace_sites(model, lambda i, kind, name, mod:
                          loaded.get((i, kind), {}).get(name))
     for i, block in enumerate(out.layers):
+        router = flat.get(f"layer{i}/ffn.float/router")
+        if router is not None and isinstance(block.ffn, MoE):
+            block.ffn.router = Linear(torch.as_tensor(np.asarray(router), device=device))
         for norm_name in ("norm1", "norm2"):
             key = f"layer{i}/{norm_name}/w"
             if key in flat and getattr(block, norm_name) is not None:

@@ -36,15 +36,23 @@ import torch
 from repro_torch.kernels.gpfq_solve import gpfq_solve
 from repro_torch.kernels.paged_attention import paged_decode_attention
 from repro_torch.kernels.quant_rmsnorm import quant_rmsnorm
-from repro_torch.kernels.w4a8_mm import w4a8_matmul, w4a8_sparse_matmul
+from repro_torch.kernels.w4a8_mm import (
+    w4a8_expert_matmul,
+    w4a8_matmul,
+    w4a8_sparse_expert_matmul,
+    w4a8_sparse_matmul,
+)
 
 #: every kernel wrapper's launch counter, as (wrapper, attribute, pattern
 #: of its kernel's mangled name); a wrapper adds one a launch, and each of
 #: these kernels is one launch. gpfq_solve's counters have no pattern: its
 #: solve is never captured, so a capture must not move them.
 COUNTERS = (
-    (w4a8_matmul, "launches", re.compile(r"w4a8_kernelILi\d+ELb[01]ELb0E")),
-    (w4a8_sparse_matmul, "launches", re.compile(r"w4a8_kernelILi\d+ELb[01]ELb1E")),
+    (w4a8_matmul, "launches", re.compile(r"w4a8_kernelILi\d+ELb[01]ELb0ELb0E")),
+    (w4a8_sparse_matmul, "launches", re.compile(r"w4a8_kernelILi\d+ELb[01]ELb1ELb0E")),
+    (w4a8_expert_matmul, "launches", re.compile(r"w4a8_kernelILi\d+ELb[01]ELb0ELb1E")),
+    (w4a8_sparse_expert_matmul, "launches",
+     re.compile(r"w4a8_kernelILi\d+ELb[01]ELb1ELb1E")),
     (paged_decode_attention, "launches", re.compile(r"paged_attn_float_kernel")),
     (paged_decode_attention, "int8_launches", re.compile(r"paged_attn_int8_kernel")),
     (quant_rmsnorm, "launches", re.compile(r"quant_rmsnorm_(rows|staged)")),

@@ -231,7 +231,9 @@ def test_quantize_launcher_then_serve_cpu(tmp_path, capsys):
     assert out.shape == (2, 12)
     printed = capsys.readouterr().out
     assert "[quantize] artifact v2" in printed and "tok/s" in printed
-    for flag in (["--ckpt-dir", str(tmp_path)], ["--arch", "tiny-moe"]):
-        argv = ["--arch", ARCH, "--device", "cpu"] + flag
-        with pytest.raises(SystemExit, match="not yet ported"):
-            quantize_launcher.main(argv)
+    # the MoE family is calibrated now (tests/test_torch_moe_calibration.py);
+    # checkpoint restore is still refused
+    with pytest.raises(SystemExit, match="not yet ported"):
+        quantize_launcher.main(["--arch", ARCH, "--device", "cpu", "--ckpt-dir", str(tmp_path)])
+    with pytest.raises(SystemExit, match="not yet ported"):
+        quantize_launcher.main(["--arch", "tiny-ssm", "--device", "cpu"])

@@ -370,8 +370,9 @@ def test_quantize_linear_refuses_what_the_reference_cannot_calibrate(rng):
     w = torch.randn(16, 8)
     with pytest.raises(TypeError, match="float32"):
         quantize_linear(w.to(torch.bfloat16), s, PTQConfig(tile=8))
-    with pytest.raises(NotImplementedError, match="MoE slice"):
-        check_weight(torch.zeros(2, 16, 8))
+    check_weight(torch.zeros(2, 16, 8))  # an (E, K, C) expert stack is calibrated
+    with pytest.raises(ValueError, match=r"\(E, K, C\)"):
+        check_weight(torch.zeros(2, 2, 16, 8))
     ql24 = quantize_linear(w, s, PTQConfig(tile=8, sparsity="2:4"))
     assert is_2to4(ql24.q_int) and ql24.cert.ok and ql24.cert.sparsity == "2:4"
     # the reference fails on bfloat16 weights as well

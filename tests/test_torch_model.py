@@ -197,10 +197,17 @@ def test_entry_points_default_to_the_card():
 
 
 def test_non_dense_patterns_raise():
+    """MoE FFNs are ported (tests/test_torch_moe.py) but need their MoE
+    config; the SSM and xLSTM mixers still raise."""
     cfg = get_config("tiny-lm-xs")
     moe = cfg.scaled(pattern=(dataclasses.replace(cfg.pattern[0], ffn="moe"),))
-    with pytest.raises(NotImplementedError, match="family slice"):
+    with pytest.raises(ValueError, match="moe config is None"):
         T.init_model(moe, device="cpu")
+    for mixer in ("mamba", "mlstm"):
+        other = cfg.scaled(pattern=(dataclasses.replace(cfg.pattern[0], mixer=mixer),))
+        with pytest.raises(NotImplementedError, match="SSM/xLSTM"):
+            T.init_model(other, device="cpu")
+    assert T.init_model(get_config("tiny-moe"), device="cpu").layers[0].spec.ffn == "moe"
 
 
 def _port_files():

@@ -138,9 +138,11 @@ def test_replay_span_runs_from_first_to_last_device_record():
 
 
 #: mangled names of the port's kernels as a graph's kernel nodes give them
-_W4A8 = "_ZN12_GLOBAL__N_111w4a8_kernelILi{}ELb{}ELb{}E{}EEvNS_7ProblemE"
-_NODES = [_W4A8.format(16, 0, 0, "f"), _W4A8.format(4, 1, 0, "13__nv_bfloat16"),
-          _W4A8.format(16, 0, 1, "13__nv_bfloat16"),
+_W4A8 = "_ZN12_GLOBAL__N_111w4a8_kernelILi{}ELb{}ELb{}ELb{}E{}EEvNS_7ProblemE"
+_NODES = [_W4A8.format(16, 0, 0, 0, "f"), _W4A8.format(4, 1, 0, 0, "13__nv_bfloat16"),
+          _W4A8.format(16, 0, 1, 0, "13__nv_bfloat16"),
+          _W4A8.format(16, 0, 0, 1, "13__nv_bfloat16"), _W4A8.format(4, 1, 0, 1, "f"),
+          _W4A8.format(16, 1, 1, 1, "13__nv_bfloat16"),
           "_ZN12_GLOBAL__N_123paged_attn_float_kernelI13__nv_bfloat16tLi3EEEvPKT_",
           "_ZN12_GLOBAL__N_122paged_attn_int8_kernelI13__nv_bfloat16Li3EEEvPKT_",
           "_ZN12_GLOBAL__N_118quant_rmsnorm_rowsILb1ELi8ELi1ELi128EEEvPKv",
@@ -152,11 +154,15 @@ _NODES = [_W4A8.format(16, 0, 0, "f"), _W4A8.format(4, 1, 0, "13__nv_bfloat16"),
 
 def test_graph_kernels_are_counted_by_name():
     """A graph's kernel nodes counted for each launch counter: B1 dense and
-    B4 2:4 apart by w4a8_kernel's Sparse argument, B2 and B3 apart, B6's two
-    forms and not its probe, and no library kernel or gpfq_solve kernel."""
+    B4 2:4 apart by w4a8_kernel's Sparse argument and both apart from their
+    expert-axis forms B1e and B4e by its Experts argument, B2 and B3 apart,
+    B6's two forms and not its probe, and no library kernel or gpfq_solve
+    kernel."""
     counts = dict(zip(((fn.__name__, attr) for fn, attr, _ in COUNTERS),
                       count_kernels(_NODES)))
     assert counts == {("w4a8_matmul", "launches"): 2, ("w4a8_sparse_matmul", "launches"): 1,
+                      ("w4a8_expert_matmul", "launches"): 2,
+                      ("w4a8_sparse_expert_matmul", "launches"): 1,
                       ("paged_decode_attention", "launches"): 1,
                       ("paged_decode_attention", "int8_launches"): 1,
                       ("quant_rmsnorm", "launches"): 2, ("gpfq_solve", "launches"): 0,
