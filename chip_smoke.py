@@ -178,19 +178,32 @@ result unless every phase passed):
    kernels B1e (``w4a8_expert_matmul``) and B4e
    (``w4a8_sparse_expert_matmul``), one launch for all E experts of a
    site, bit-equal to their plain versions (E calls of B1's and B4's) at E
-   in {8, 40} x M in {1, 4, 64, 80} rows an expert x (K, N) in {(1536,
-   512), (512, 1536)}, uint8 and int8 codes, one expert's input all zero,
-   and a ragged E=5, M=3, N=60 case; at E = 40 each shape's time beside
-   the plain versions', 40 ``torch._int_mm`` calls on the unpacked codes,
-   one bf16 ``torch.bmm`` on the dequantized stack and the byte bound; B1
-   at granite's dense sites (1536, 1536) and (1536, 512), M = 4 and 256.
+   in {8, 40} x M in {1, 4, 8, 9, 16, 17, 48, 49, 64, 65, 80} rows an
+   expert (each side of the tier boundaries: the decode tier up to 48 and
+   from 65 to 80, between them for wd only, its widths split at 16 | 17)
+   x (K, N) in {(1536, 512),
+   (512, 1536)}, uint8 and int8 codes, one expert's input all zero, and a
+   ragged E=5, M=3, N=60 case; at E = 40 each shape's plan (tier, grid, K
+   chunks) and time beside the time before the decode tier (a constant,
+   PREVIOUS_EXPERT_US), at M = 4 the kernels' device time by the profiler, the plain
+   versions', 40 ``torch._int_mm`` calls on the unpacked codes, one bf16
+   ``torch.bmm`` on the dequantized stack, one copy of the packed stack
+   (each byte read and written once) and the byte bound, and at M = 4
+   B1e after a flush by a read (a clean cold L2: no dirty line to write
+   back); B4e also on a hand-made meta of every position pair, equal ones
+   summed, at M = 4, 17, 64, 80; per M one layer's sums, and the decode
+   tier's targets printed met or missed (``[expert-target]``); B1 at
+   granite's dense sites (1536, 1536) and (1536, 512), M = 4 and 256.
    Then the slice at full width, bf16, seeded random init, RTN-packed:
    (a) ``GenerationEngine.generate`` of batch 4 x prompt 64 + 16 new,
    one capture: B1e exactly 96 launches a forward (3 sites x 32 layers)
    and B1 128 (4 attention sites x 32), a replay adding 96 and 128; greedy
    streams tie-limited against the eager host loop (the replays' logits
    recorded by ``FixedRecorder``); generate and decode step captured vs
-   eager in turns, tokens/s, peak memory and ``packed_weight_bytes``;
+   eager in turns, tokens/s, peak memory and ``packed_weight_bytes``; one
+   replayed step profiled on a complete trace (``[moe-profile]``: the
+   device's busy share of its span, B1e's and B1's device time and share,
+   counted by kernel name and held to 96 and 128);
    (b) ``PagedEngine``'s FIFO loop over phase 7's 12-request trace, float
    then int8 KV, its step captured by a warm-up request: B2/B3 32 a step,
    B1e 96 and B1 128 a forward, every page back on the free list, and the
@@ -308,13 +321,30 @@ TRACE_REQUESTS, PREFIX_LEN = 12, 128
 #: phase 11: granite-moe-3b-a800m, its expert sites (K, N) (wg and wu, then
 #: wd), its dense (attention) sites, the kernel cases' expert counts and
 #: rows an expert (1 and 4: decode; 64: a 4 x 64 prefill's capacity; 80: a
-#: paged admit's G x C), and the layers of the calibration cut
+#: paged admit's G x C; the rest on each side of B1e/B4e's tier
+#: boundaries, ``w4a8_mm.expert_tier``), and the layers of the calibration
+#: cut
 GRANITE = "granite-moe-3b-a800m"
 MOE_EXPERT_KN = [(1536, 512), (512, 1536)]
 MOE_LAYER_SITES = [(1536, 512), (1536, 512), (512, 1536)]  # wg, wu, wd
 GRANITE_DENSE_KN = [(1536, 1536), (1536, 512)]
-MOE_KERNEL_E, MOE_KERNEL_M = (8, 40), (1, 4, 64, 80)
+MOE_KERNEL_E, MOE_KERNEL_M = (8, 40), (1, 4, 8, 9, 16, 17, 48, 49, 64, 65, 80)
 MOE_CALIB_LAYERS = 4
+#: traces of one replayed granite step tried for a complete one (earlier
+#: traces in the process make a lost device record likelier)
+MOE_PROFILE_ATTEMPTS = 16
+#: B1e and B4e before the decode tier (the 64 x 64 tile kernel at every M,
+#: no K split at E = 40) at the timed E = 40 shapes (M, K, N), us, cold
+#: L2: chip_smoke.py phase 11 at commit 5bb4d0c, NVIDIA H100 80GB HBM3,
+#: 700.00 W; for the [expert] lines only
+PREVIOUS_EXPERT_US = {(1, 1536, 512): (24.26, 34.77), (1, 512, 1536): (23.49, 32.61),
+                      (4, 1536, 512): (24.16, 34.59), (4, 512, 1536): (23.58, 32.66),
+                      (64, 1536, 512): (25.92, 36.10), (64, 512, 1536): (26.85, 34.88),
+                      (80, 1536, 512): (38.06, 54.21), (80, 512, 1536): (40.32, 57.89)}
+#: the same kernels' sums over one granite MoE layer's 3 expert sites, us
+#: (the same run)
+PREVIOUS_EXPERT_LAYER_US = {1: (72.00, 102.14), 4: (71.90, 101.84), 64: (78.69, 107.07),
+                            80: (116.45, 166.30)}
 #: the largest logit difference between two runs of one model that the
 #: tie-limited comparison accepts as numerical noise (logits here are
 #: about unit variance)
@@ -414,17 +444,21 @@ def print_layer_sums(tag: str, who: str, rows) -> None:
               f"{'not measured' if old is None else f'{old:.5f} ms'}")
 
 
-def time_ms(torch, fn, reps: int = 30, flush=None) -> float:
+def time_ms(torch, fn, reps: int = 30, flush=None, clean: bool = False) -> float:
     """Median device time of ``fn`` over ``reps`` runs by CUDA events, with
     the L2 cache flushed before each run (a decode step finds each layer's
-    weights cold: 157 MB of packed codes do not fit the 50 MB L2). A
+    weights cold: 157 MB of packed codes do not fit the 50 MB L2): by
+    writing ``flush``, or with ``clean`` by reading it, which leaves no
+    dirty line in the L2 for ``fn``'s reads to write back first. A
     device-side sleep before the start event keeps the card busy while the
     host enqueues ``fn``, so the interval holds device time, not the host's
     launch overhead."""
     fn()
     times = []
     for _ in range(reps):
-        if flush is not None:
+        if flush is not None and clean:
+            flush.view(torch.int32).sum()
+        elif flush is not None:
             flush.zero_()
         torch.cuda._sleep(1_000_000)  # ~0.5 ms of device time
         start = torch.cuda.Event(enable_timing=True)
@@ -2726,13 +2760,62 @@ def moe_layer_sum(rows, m: int, key: str) -> float:
     return sum(by_shape[kn][key] for kn in MOE_LAYER_SITES)
 
 
+def kernel_device_us(torch, fn, attempts: int = 4):
+    """The device time of the one kernel ``fn`` launches, by the profiler
+    on a complete trace (without the event pair's floor), us; None when
+    ``attempts`` traces all lost the kernel's record."""
+    for _ in range(attempts):
+        prof, _, complete = traced(torch, fn)
+        if complete:
+            (kernel,) = traced_kernels(torch, prof.key_averages())
+            return kernel.self_device_time_total / kernel.count
+    return None
+
+
+def expert_targets(rows, layers) -> None:
+    """Print the decode tier's targets met or missed: B1e's layer at M = 4
+    30-40 us and at least 1.5x faster than before it (2x at M = 1 and 4, or
+    it missed), B4e within 1.15x B1e at decode, both no slower than one
+    bf16 bmm at M = 80, and neither slower than before at any shape."""
+    def verdict(ok):
+        return "met" if ok else "MISSED"
+
+    for m in (1, 4):
+        b1e, old = 1e3 * layers[m]["ms"], PREVIOUS_EXPERT_LAYER_US[m][0]
+        print(f"[expert-target] M={m} B1e layer {b1e:.2f} us against {old:.2f} before: "
+              f"{old / b1e:.2f}x faster; 2x: {verdict(old / b1e >= 2.0)}; 1.5x: "
+              f"{verdict(old / b1e >= 1.5)}"
+              + (f"; 30-40 us: {verdict(b1e <= 40.0)}" if m == 4 else "")
+              + f" (one copy of each site's packed stack, summed: "
+                f"{1e3 * layers[m]['copy_ms']:.2f} us"
+              + (f"; B1e after a read flush, a clean cold L2: "
+                 f"{1e3 * layers[m]['clean_ms']:.2f} us" if "clean_ms" in layers[m] else "")
+              + ")")
+        ratio = layers[m]["b4e_ms"] / layers[m]["ms"]
+        print(f"[expert-target] M={m} B4e layer {1e3 * layers[m]['b4e_ms']:.2f} us = "
+              f"{ratio:.3f}x B1e; at most 1.15x: {verdict(ratio <= 1.15)}")
+    for m in (64, 80):
+        bmm = layers[m]["library_ms"]
+        print(f"[expert-target] M={m} layer: B1e {1e3 * layers[m]['ms']:.2f} us, B4e "
+              f"{1e3 * layers[m]['b4e_ms']:.2f} us, bf16 bmm {1e3 * bmm:.2f} us; no slower "
+              f"than bmm: B1e {verdict(layers[m]['ms'] <= bmm)}, B4e "
+              f"{verdict(layers[m]['b4e_ms'] <= bmm)}")
+    timed = {(r["M"], r["K"], r["N"]): r for r in rows if "ms" in r}
+    slower = [(*shape, who) for shape, old in PREVIOUS_EXPERT_US.items() if shape in timed
+              for who, key, i in (("B1e", "ms", 0), ("B4e", "b4e_ms", 1))
+              if 1e3 * timed[shape][key] > old[i]]
+    print(f"[expert-target] no shape slower than before the decode tier: "
+          f"{verdict(not slower)}{'' if not slower else f' (slower: {slower})'}")
+
+
 def phase_expert_kernels(torch):
     """B1e and B4e against their plain versions (E calls of B1's and B4's)
     over E x M x granite's expert (K, N) x uint8/int8 codes, each with one
     expert's input all zero, and a ragged case; per (M, K, N) at E = 40 the
-    times of both kernels, the plain versions, E ``torch._int_mm`` calls on
-    the unpacked codes and bf16 ``torch.bmm`` on the dequantized stack; B1
-    at granite's dense sites."""
+    plan and times of both kernels (events, and at M = 4 the profiler's
+    device time), the plain versions, E ``torch._int_mm`` calls on the unpacked
+    codes, bf16 ``torch.bmm`` on the dequantized stack and one copy of the
+    packed stack; B1 at granite's dense sites."""
     from repro_torch.core.sparsity import mask_2to4
     from repro_torch.kernels import w4a8_mm as W
 
@@ -2771,7 +2854,15 @@ def phase_expert_kernels(torch):
             _, scorr = W._expert_epilogue(scale, scol, act_scale, zp, e, n)
             row["ms"] = time_ms(torch, lambda: W._launch(
                 "w4a8_expert_matmul", x, (wp,), sw, corr, torch.bfloat16, 2), flush=flush)
-            row.update(plan_fields(W.w4a8_plan(m, n, k, True, W._sm_count(0), e)))
+            plan = W.w4a8_expert_plan(m, n, k, e, True, W._sm_count(0))
+            row.update(plan_fields(plan))
+            row["tier"] = plan.tier
+            if plan.tier == "decode":
+                row["plan"] = (f"decode tier: grid {plan.grid} ({plan.blocks} blocks of 128 "
+                               f"columns), {plan.grid[2]} K chunk(s) of {plan.ck} rows, a ring "
+                               f"of {plan.ring} stages, {plan.vec}-byte loads")
+            else:
+                row["plan"] = "tile tier: " + row["plan"]
             row["b4e_ms"] = time_ms(torch, lambda: W._launch(
                 "w4a8_sparse_expert_matmul", x, (sp, meta), sw, scorr, torch.bfloat16, 4),
                 flush=flush)
@@ -2794,22 +2885,72 @@ def phase_expert_kernels(torch):
             xb = x.to(torch.bfloat16)
             wb = (w8.to(torch.bfloat16) * scale[:, None, :].to(torch.bfloat16)).contiguous()
             row["library_ms"] = time_ms(torch, lambda: torch.bmm(xb, wb), flush=flush)
+            copy = torch.empty_like(wp)
+            row["copy_ms"] = time_ms(torch, lambda: copy.copy_(wp), flush=flush)
+            # at decode, B1e again after a flush by a read: no dirty line of
+            # the flush to write back during the launch
+            row["clean_ms"] = time_ms(torch, lambda: W._launch(
+                "w4a8_expert_matmul", x, (wp,), sw, corr, torch.bfloat16, 2), flush=flush,
+                clean=True) if m == BATCH else None
+            # the profiler's device time at decode only: every trace in a
+            # process makes a later one likelier to lose device records
+            row["device_us"] = [kernel_device_us(torch, lambda: W._launch(
+                entry, x, weights, sw, cr, torch.bfloat16, rpk)) for entry, weights, cr, rpk in (
+                    ("w4a8_expert_matmul", (wp,), corr, 2),
+                    ("w4a8_sparse_expert_matmul", (sp, meta), scorr, 4))] if m == BATCH else None
             row["bound_ms"], row["bound_by"] = expert_bound_ms(e, m, k, n)
+            old = PREVIOUS_EXPERT_US.get((m, k, n))
             print(f"[expert] E={e} M={m:3d} K={k:5d} N={n:5d} B1e {row['ms']:.5f} ms  B4e "
-                  f"{row['b4e_ms']:.5f} ms  plain {row['plain_ms']:.5f} / "
+                  f"{row['b4e_ms']:.5f} ms  (before the decode tier, 5bb4d0c: "
+                  f"{'not measured' if old is None else f'{old[0]:.2f} / {old[1]:.2f} us'})  "
+                  f"plain {row['plain_ms']:.5f} / "
                   f"{row['b4e_plain_ms']:.5f} ms  {e} x _int_mm {row['int_mm_ms']:.5f} ms  "
-                  f"bf16 bmm {row['library_ms']:.5f} ms  bound {row['bound_ms']:.5f} ms "
-                  f"({row['bound_by']})  {row['plan']}")
+                  f"bf16 bmm {row['library_ms']:.5f} ms  copy of the stack "
+                  f"{row['copy_ms']:.5f} ms  bound {row['bound_ms']:.5f} ms "
+                  f"({row['bound_by']})  "
+                  + ("" if row["clean_ms"] is None else
+                     f"B1e after a read flush (clean cold L2) {row['clean_ms']:.5f} ms  ")
+                  + ("" if row["device_us"] is None else "profiler device time B1e / B4e "
+                     + " / ".join("not measured" if v is None else f"{v:.2f} us"
+                                  for v in row["device_us"]) + "  ") + row["plan"])
         rows.append(row)
+    # B4e on a hand-made meta of every position pair, equal positions in
+    # every third row (the reference sums them), in both tiers
+    for m in (4, 17, 64, 80):
+        k, n = MOE_EXPERT_KN[0]
+        e = max(MOE_KERNEL_E)
+        sp = torch.randint(-128, 128, (e, k // 4, n), generator=gen, device=dev).to(torch.int8)
+        meta = torch.randint(0, 16, (e, k // 4, n), generator=gen, device=dev)
+        meta[:, ::3] = torch.randint(0, 4, meta[:, ::3].shape, generator=gen, device=dev) * 5
+        meta = meta.to(torch.int8)
+        x = torch.randint(0, 256, (e, m, k), generator=gen, device=dev).to(torch.uint8)
+        scale = torch.rand((e, n), generator=gen, device=dev) * 0.05 + 1e-3
+        scol = W.unpack_sparse24(sp, meta).sum(1).to(torch.int32)
+        act_scale = torch.rand(e, generator=gen, device=dev) * 0.05 + 0.01
+        zp = torch.randint(0, 256, (e,), generator=gen, device=dev).float()
+        args = (x, sp, meta, scale, scol, act_scale, zp)
+        y = W.w4a8_sparse_expert_matmul(*args, out_dtype=torch.bfloat16)
+        r = W.w4a8_sparse_expert_matmul(*args, out_dtype=torch.bfloat16, reference=True)
+        torch.cuda.synchronize()
+        err["b4e"] = max(err["b4e"], (y.float() - r.float()).abs().max().item())
+        check(torch.equal(y, r), f"b4e != plain on a hand-made meta at E={e} M={m} K={k} N={n}")
     print(f"[expert] B1e and B4e bit-equal to their plain versions (E calls of B1 / B4) on "
-          f"{len(cases)} shapes x uint8/int8 codes, one all-zero expert each")
+          f"{len(cases)} shapes x uint8/int8 codes, one all-zero expert each; B4e also on a "
+          f"hand-made meta of every position pair (equal ones summed) at M = 4, 17, 64, 80")
+    layers = {}
     for m in MOE_KERNEL_M:
         sums = {key: moe_layer_sum(rows, m, key)
-                for key in ("ms", "b4e_ms", "plain_ms", "int_mm_ms", "library_ms", "bound_ms")}
+                for key in ("ms", "b4e_ms", "plain_ms", "int_mm_ms", "library_ms", "bound_ms",
+                            "copy_ms") + (("clean_ms",) if m == BATCH else ())}
+        layers[m] = sums
+        old = PREVIOUS_EXPERT_LAYER_US.get(m)
         print(f"[expert] M={m:3d} one granite MoE layer's 3 expert sites (E=40): B1e "
-              f"{sums['ms']:.5f} ms  B4e {sums['b4e_ms']:.5f} ms  plain {sums['plain_ms']:.5f} ms"
+              f"{sums['ms']:.5f} ms  B4e {sums['b4e_ms']:.5f} ms  (before the decode tier: "
+              f"{'not measured' if old is None else f'{old[0]:.2f} / {old[1]:.2f} us'})  "
+              f"plain {sums['plain_ms']:.5f} ms"
               f"  40 x _int_mm {sums['int_mm_ms']:.5f} ms  bf16 bmm {sums['library_ms']:.5f} ms"
-              f"  bound {sums['bound_ms']:.5f} ms")
+              f"  copies of the stacks {sums['copy_ms']:.5f} ms  bound {sums['bound_ms']:.5f} ms")
+    expert_targets(rows, layers)
     # B1 at granite's dense (attention) sites
     for m in (BATCH, BATCH * PROMPT):
         for k, n in GRANITE_DENSE_KN:
@@ -2867,6 +3008,69 @@ class FixedRecorder:
     def logits(self, row: int, start: int, n: int):
         host = self.buf[start:start + n, row].cpu()
         return [host[t] for t in range(n)]
+
+
+def moe_replay_profile(torch, program, n_layers: int, restart) -> dict:
+    """One replay of the captured granite decode step under the profiler, on
+    a complete trace (a device record for every node of the graph): the
+    device's busy share of the replay's device span, and B1e's and B1's
+    device time, share and count by kernel name, each held to the launch
+    counters' rise (96 and 128). ``restart`` (outside the trace) sets the
+    bucket back to its first decode position before each try. None, with a
+    line saying so, when none of MOE_PROFILE_ATTEMPTS traces is complete."""
+    from repro_torch.serving.graphs import COUNTERS
+    from repro_torch.trace import replay_spans_ns
+
+    def counted_replay():
+        reset_counts()
+        program.run(1)
+        torch.cuda.synchronize()
+        return read_counts()
+
+    for _ in range(MOE_PROFILE_ATTEMPTS):
+        restart()
+        prof, counts, complete = traced(torch, counted_replay, program.device_ops)
+        if complete:
+            break
+    else:  # the run goes on: the kernels are held to the counters elsewhere
+        print(f"[moe-profile] not measured: the profiler lost device kernel records in "
+              f"{MOE_PROFILE_ATTEMPTS} traces of one replay")
+        return None
+    kernels = traced_kernels(torch, prof.key_averages())
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    (span,) = replay_spans_ns(prof.profiler.kineto_results.events())
+    span /= 1e6
+    # the profiler's keys are demangled (template arguments as written:
+    # CP, code signedness, Sparse[, Experts]); graph nodes' names, which
+    # COUNTERS reads, are mangled: either form counts
+    mangled = {fn.__name__: pat for fn, attr, pat in COUNTERS if attr == "launches" and pat}
+    demangled = {
+        "w4a8_expert_matmul": re.compile(r"w4a8_expert_decode_kernel<\s*\d+\s*,\s*\w+\s*,\s*false\b"
+                                         r"|w4a8_kernel<\s*\d+\s*,\s*\w+\s*,\s*false\s*,\s*true\b"),
+        "w4a8_matmul": re.compile(r"w4a8_kernel<\s*\d+\s*,\s*\w+\s*,\s*false\s*,\s*false\b")}
+    out = {"busy_ms": busy, "span_ms": span, "device_ops": program.device_ops}
+    for name, want in (("w4a8_expert_matmul", 3 * n_layers), ("w4a8_matmul", 4 * n_layers)):
+        mine = [e for e in kernels if mangled[name].search(e.key) or demangled[name].search(e.key)]
+        seen = sum(e.count for e in mine)
+        if not seen == counts[name] == want:
+            print("[moe-profile] the replay's kernels by name: " + "; ".join(
+                f"{e.key[:160]} x{e.count}" for e in kernels))
+        check(seen == counts[name] == want,
+              f"a profiled MoE replay: {seen} {name} kernels by name, the counter "
+              f"{counts[name]}, expected {want}")
+        ms = sum(e.self_device_time_total for e in mine) / 1e3
+        out[name] = {"ms": ms, "launches": seen, "share_of_busy": ms / busy}
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    print(f"[moe-profile] one replayed granite decode step, a complete trace "
+          f"({program.device_ops} device operations): device busy {busy:.3f} ms = "
+          f"{100 * busy / span:.1f}% of its {span:.3f} ms device span; B1e "
+          f"{out['w4a8_expert_matmul']['ms']:.3f} ms in {out['w4a8_expert_matmul']['launches']} "
+          f"launches ({100 * out['w4a8_expert_matmul']['share_of_busy']:.1f}% of busy), B1 "
+          f"{out['w4a8_matmul']['ms']:.3f} ms in {out['w4a8_matmul']['launches']} "
+          f"({100 * out['w4a8_matmul']['share_of_busy']:.1f}%)")
+    print("[moe-profile] the replay's 8 largest kernels by device time: " + "; ".join(
+        f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in top))
+    return out
 
 
 def phase_moe_slice(torch):
@@ -2961,10 +3165,13 @@ def phase_moe_slice(torch):
         step_t = in_turns(torch, {"eager": lambda: T.decode_step(model, step_tok, caches,
                                                                   PROMPT),
                                   "replay": lambda: program.run(1)}, runs=6)
+        replay_profile = moe_replay_profile(torch, program, L,
+                                            lambda: engine._start(bucket, tokens))
     nbytes = packed_weight_bytes(cfg)
     fixed = {"wall_s": wall, "tok_s": BATCH * MAX_NEW / wall, "gen": gen_t, "step": step_t,
              "peak_mib": peak / 2**20, "capture_ms": 1e3 * program.capture_s,
-             "device_ops": program.device_ops, "cmp": cmp_a, "counts": counts}
+             "device_ops": program.device_ops, "cmp": cmp_a, "counts": counts,
+             "replay_profile": replay_profile}
     print(f"[moe] {GRANITE} full width ({L} layers, d_model {cfg.d_model}, {E} experts "
           f"top-{cfg.moe.top_k}, bf16, seeded random init) RTN-packed in {init_s:.3f} s: "
           f"packed_weight_bytes {nbytes['packed_bytes']} ({nbytes['packed_code_bytes']} code "
@@ -3133,10 +3340,12 @@ def expert_record(name, rows, err, launches, ms_key, plain_key, replaces, pallas
         "max_abs_err": err,
         **layer(BATCH),
         "m64": layer(PROMPT),
+        "m80": layer(80),
         "timed_as": "sum over the 3 expert sites of one granite-moe-3b-a800m layer (E=40; "
                     "(1536, 512) twice and (512, 1536)) at decode, M=4 rows an expert, cold "
-                    "L2; m64 the same at M=64; the library call is one bf16 torch.bmm on the "
-                    "dequantized stack, int_mm_ms 40 torch._int_mm calls on the unpacked codes",
+                    "L2; m64 and m80 the same at M=64 and 80; the library call is one bf16 "
+                    "torch.bmm on the dequantized stack, int_mm_ms 40 torch._int_mm calls on "
+                    "the unpacked codes",
         "shapes": rows,
     }
 

@@ -42,9 +42,12 @@ B1 on the dense-with-zeros codes.
 ``pallas_call`` that ``jax.vmap(packed_linear)`` makes of the same two
 Pallas kernels at ``repro/models/moe.py:122``: (E, M, K) codes against
 (E, K/2, N) stacks, each expert with its own scales and activation
-quantizer, in one launch (the same kernel source, its grid rows walking E
-problems), each with a launch counter of its own and a plain version of E
-calls of B1's or B4's.
+quantizer, in one launch, each with a launch counter of its own and a
+plain version of E calls of B1's or B4's. :func:`w4a8_expert_plan` picks
+the tier (:func:`expert_tier`): the decode tier (the product transposed,
+the tokens on the mma's n8 side, 128 columns of an expert a block) at
+the few rows an expert of decode and small admits, else the tile tier
+(B1/B4's kernel, its grid rows walking E problems).
 """
 
 from __future__ import annotations
@@ -195,16 +198,40 @@ MIN_STEPS, BLOCKS_PER_SM, MAX_CHUNKS = 2, 2, 8
 H100_SMS = 132
 
 
+#: the expert axis's decode tier (B1e, B4e): 128 output columns of one
+#: expert a block, its K chunk streamed through a ring of up to
+#: DECODE_RING stages of DECODE_STAGE_K rows (the kernel's kDecMaxRing:
+#: its shared-memory attribute is sized for it); K is split over a cluster of
+#: up to MAX_CHUNKS blocks where the experts' column tiles give fewer than
+#: DECODE_BLOCKS_PER_SM blocks an SM. It takes up to DECODE_MAX_M rows an
+#: expert: up to DECODE_NARROW_M in its narrow width (two token tiles of
+#: 8), above it in the wide one (ten). The tiers' times at granite's sites
+#: (scripts/torch_expert_tiers.py) set where each runs: the decode tier up
+#: to DECODE_M rows; from there to TILE_M (one row tile) the tile tier
+#: while its tiles fit one wave of TILE_BLOCKS_PER_SM blocks an SM (its
+#: shared memory allows three), else the decode tier; the decode tier
+#: again up to DECODE_MAX_M (where the tile tier takes a second row tile),
+#: the tile tier above
+DECODE_M, DECODE_MAX_M, DECODE_NARROW_M, TILE_BLOCKS_PER_SM = 48, 80, 16, 3
+DECODE_COLS, DECODE_STAGE_K, DECODE_RING, DECODE_BLOCKS_PER_SM = 128, 128, 2, 3
+#: the H100's shared memory a block may use (bytes)
+SMEM_LIMIT = 232_448
+
+
 @dataclass(frozen=True)
 class W4A8Plan:
-    """How one call of B1/B4 runs: its load width in bytes (16 where the
-    layout allows, else 4), K rows a chunk and the grid (column tiles, row
-    tiles, K chunks). A function of the shape alone, so a captured launch
-    replays unchanged."""
+    """How one call of B1/B4 (or B1e/B4e) runs: its load width in bytes (16
+    where the layout allows, else 4), K rows a chunk and the grid. The
+    ``tile`` tier's grid is (64-column tiles, row tiles, K chunks); the
+    expert axis's ``decode`` tier's is (128-column tiles, experts, K
+    chunks), each block keeping ``ring`` stages in flight. A function of the
+    shape alone, so a captured launch replays unchanged."""
 
     vec: int
     ck: int
     grid: tuple[int, int, int]
+    tier: str = "tile"
+    ring: int = 0
 
     @property
     def blocks(self) -> int:
@@ -229,6 +256,53 @@ def w4a8_plan(m: int, n: int, k: int, aligned: bool = True, n_sm: int = H100_SMS
     split = max(1, min(-(-BLOCKS_PER_SM * n_sm // tiles), steps // min_steps, MAX_CHUNKS))
     ck = STAGE_K * -(-steps // split)
     return W4A8Plan(vec, ck, (-(-n // TILE_N), experts * row_tiles, max(1, -(-k // ck))))
+
+
+def decode_smem_bytes(m: int, ring: int, chunks: int) -> int:
+    """Dynamic shared memory of one decode-tier block (``dec_smem_bytes``
+    in the kernel): the ring of stages (8192 bytes of weights and 16 or 80
+    rows of codes at a 144-byte pitch) and a K split's receive buffer of
+    the chunks' vectors (past the ring in the narrow width, in its place
+    in the wide one), then the 128 columns' sw and corr."""
+    narrow = m <= DECODE_NARROW_M
+    stage = DECODE_STAGE_K // 2 * DECODE_COLS + (16 if narrow else 80) * (DECODE_STAGE_K + 16)
+    rx = chunks * -(-m * DECODE_COLS // 4 // chunks) * 16 if chunks > 1 else 0
+    rings = ring * stage
+    return (rings + rx if narrow else max(rings, rx)) + 2 * DECODE_COLS * 4
+
+
+def expert_tier(m: int, n: int, experts: int, n_sm: int = H100_SMS) -> str:
+    """The tier of a B1e/B4e call of E problems with ``m`` rows an expert
+    and ``n`` columns: ``decode`` up to DECODE_M rows and from TILE_M + 1
+    to DECODE_MAX_M; in between (one row tile) ``tile`` while its E x
+    column tiles fit one wave, else ``decode``; ``tile`` above."""
+    if m > DECODE_MAX_M:
+        return "tile"
+    if m <= DECODE_M or m > TILE_M:
+        return "decode"
+    fits = experts * -(-n // TILE_N) <= TILE_BLOCKS_PER_SM * n_sm
+    return "tile" if fits else "decode"
+
+
+@functools.cache
+def w4a8_expert_plan(m: int, n: int, k: int, experts: int, aligned: bool = True,
+                     n_sm: int = H100_SMS) -> W4A8Plan:
+    """The plan of one B1e/B4e call: E problems of (M, N, K). In the
+    decode tier (:func:`expert_tier`): one block per 128 columns of an
+    expert, K split over a cluster until DECODE_BLOCKS_PER_SM blocks an
+    SM (chunks of whole 128-row stages, at most MAX_CHUNKS), a ring as deep
+    as the chunk up to DECODE_RING stages. In the tile tier:
+    :func:`w4a8_plan` over the experts' row tiles."""
+    if expert_tier(m, n, experts, n_sm) == "tile":
+        return w4a8_plan(m, n, k, aligned, n_sm, experts)
+    vec = 16 if aligned and n % 16 == 0 and k % 16 == 0 else 4
+    cols = -(-n // DECODE_COLS)
+    steps = -(-k // DECODE_STAGE_K)
+    split = max(1, min(-(-DECODE_BLOCKS_PER_SM * n_sm // (experts * cols)), steps, MAX_CHUNKS))
+    stages = max(1, -(-steps // split))
+    ring = min(DECODE_RING, stages)
+    ck = DECODE_STAGE_K * stages
+    return W4A8Plan(vec, ck, (cols, experts, max(1, -(-k // ck))), tier="decode", ring=ring)
 
 
 @functools.cache
@@ -274,14 +348,22 @@ def _launch(name: str, x, weights, sw, corr, out_dtype, rows_per_k: int):
     out = torch.empty((*lead, m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0 or experts == 0:
         return out, None
-    plan = w4a8_plan(m, n, k, all(t.data_ptr() % 16 == 0 for t in (x, *weights)),
-                     _sm_count(x.device.index), experts)
-    err = getattr(_library(), f"{name}_launch")(
-        x.data_ptr(), *(w.data_ptr() for w in weights), sw.data_ptr(), corr.data_ptr(),
-        out.data_ptr(), *lead, m, n, k, int(x.dtype == torch.int8),
-        int(out_dtype == torch.bfloat16), plan.vec, plan.ck, *plan.grid,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, *weights))
+    n_sm = _sm_count(x.device.index)
+    plan = (w4a8_expert_plan(m, n, k, experts, aligned, n_sm) if lead
+            else w4a8_plan(m, n, k, aligned, n_sm))
+    flags = (int(x.dtype == torch.int8), int(out_dtype == torch.bfloat16))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if plan.tier == "decode":
+        err = _library().w4a8_expert_decode_launch(
+            x.data_ptr(), weights[0].data_ptr(),
+            weights[1].data_ptr() if len(weights) > 1 else None, sw.data_ptr(),
+            corr.data_ptr(), out.data_ptr(), experts, m, n, k, *flags, plan.vec, plan.ck,
+            plan.ring, *plan.grid, stream)
+    else:
+        err = getattr(_library(), f"{name}_launch")(
+            x.data_ptr(), *(w.data_ptr() for w in weights), sw.data_ptr(), corr.data_ptr(),
+            out.data_ptr(), *lead, m, n, k, *flags, plan.vec, plan.ck, *plan.grid, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return out, plan
@@ -329,6 +411,9 @@ def _library() -> ctypes.CDLL:
     lib.w4a8_sparse_expert_matmul_launch.argtypes = (
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p])
     lib.w4a8_sparse_expert_matmul_launch.restype = ctypes.c_int
+    lib.w4a8_expert_decode_launch.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
+    lib.w4a8_expert_decode_launch.restype = ctypes.c_int
     return lib
 
 
@@ -587,6 +672,8 @@ __all__ = [
     "w4a8_decode_matmul",
     "w4a8_expert_matmul",
     "w4a8_expert_matmul_plain",
+    "expert_tier",
+    "w4a8_expert_plan",
     "w4a8_matmul",
     "w4a8_matmul_kernel",
     "w4a8_matmul_plain",

@@ -45,14 +45,18 @@ from repro_torch.kernels.w4a8_mm import (
 
 #: every kernel wrapper's launch counter, as (wrapper, attribute, pattern
 #: of its kernel's mangled name); a wrapper adds one a launch, and each of
-#: these kernels is one launch. gpfq_solve's counters have no pattern: its
-#: solve is never captured, so a capture must not move them.
+#: these kernels is one launch. B1e and B4e launch either tier of the
+#: expert axis: the tile kernel with ``Experts`` set, or the decode tier's
+#: ``w4a8_expert_decode_kernel``, its third argument ``Sparse``.
+#: gpfq_solve's counters have no pattern: its solve is never captured, so
+#: a capture must not move them.
 COUNTERS = (
     (w4a8_matmul, "launches", re.compile(r"w4a8_kernelILi\d+ELb[01]ELb0ELb0E")),
     (w4a8_sparse_matmul, "launches", re.compile(r"w4a8_kernelILi\d+ELb[01]ELb1ELb0E")),
-    (w4a8_expert_matmul, "launches", re.compile(r"w4a8_kernelILi\d+ELb[01]ELb0ELb1E")),
-    (w4a8_sparse_expert_matmul, "launches",
-     re.compile(r"w4a8_kernelILi\d+ELb[01]ELb1ELb1E")),
+    (w4a8_expert_matmul, "launches", re.compile(
+        r"w4a8_kernelILi\d+ELb[01]ELb0ELb1E|w4a8_expert_decode_kernelILi\d+ELb[01]ELb0E")),
+    (w4a8_sparse_expert_matmul, "launches", re.compile(
+        r"w4a8_kernelILi\d+ELb[01]ELb1ELb1E|w4a8_expert_decode_kernelILi\d+ELb[01]ELb1E")),
     (paged_decode_attention, "launches", re.compile(r"paged_attn_float_kernel")),
     (paged_decode_attention, "int8_launches", re.compile(r"paged_attn_int8_kernel")),
     (quant_rmsnorm, "launches", re.compile(r"quant_rmsnorm_(rows|staged)")),
