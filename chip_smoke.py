@@ -217,7 +217,32 @@ result unless every phase passed):
    (a)'s path with tokens identical to the reference backend and the host
    loop; (d) the same cut RTN-packed at ``DatapathSpec(sparsity="2:4")``:
    B4e 3 and B4 4 a layer a forward, 0 B1e and 0 B1. The kernels line
-   gains B1e's launches from (a) and B4e's from (d).
+   gains B1e's launches from (a) and B4e's from (d);
+12. the mixed-precision search on smollm-360m at full width (float32
+   copy, phase 5's batches). (a) ``repro_torch.launch.search`` at the
+   uniform P_I = 20, T = 128 with ``--kv-static``: exactly 224 B5 solves,
+   224 sites certified before and after the P_I-only re-spec, the searched
+   perplexity bit-identical to the uniform one, savings rate >= 1; it
+   prints both accumulator budgets, the floor per slot site and the wall
+   time. (b) ``repro_torch.launch.serve --artifact --plan --packed --paged
+   --kv-dtype int8`` (its ``plan validated`` line counting all 224 packed
+   sites), then phase 7's 12-request trace through ``PagedEngine`` with the
+   plan's static KV scales and with dynamic int8 pages, each step captured
+   once: B3 32 a step inside P_qk / P_pv, B1 224 a forward, the static
+   engine's installs all through the static quantizer (no per-page max:
+   counted by a spy on the engine's two install quantizers), fewer device
+   operations in its replay; it prints per path the replayed step in
+   turns (median and spread of 6), the device operations of a replay,
+   admit time and tok/s, and how far the greedy streams agree before they
+   part with each parting's top-2 gap (tie-limited: no gate). (c) the
+   launcher with ``--sparsify 2 --promote-w8 1``: 2 x 224 B5 solves, 64 of
+   them masked (the re-calibration's 2:4 slot sites), every int4 site
+   certified, a second re-calibration from ``plan.json`` bit-identical,
+   served through ``GenerationEngine``: B4 64 and B1 128 a forward, none
+   for the float w8 site, tokens equal to the reference backend. Each of
+   phase 12's lines carries the card's name and power limit as
+   ``nvidia-smi`` prints them. The kernels line gains each kernel's
+   ``search_launches``.
 
 Before driving a path, every launch counter is set to 0, and the counts are
 read just after it. Phase 3 ends with a ``torch.profiler`` breakdown of one
@@ -3315,6 +3340,303 @@ def phase_moe_slice(torch):
             "b4e_launches": serve_d["w4a8_sparse_expert_matmul"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the mixed-precision search slice on smollm-360m
+# ---------------------------------------------------------------------------
+#: phase 12: the uniform baseline register the search tightens (the
+#: reference launcher's default), and the code-changing moves of (c)
+SEARCH_P_BITS, SEARCH_SPARSIFY, SEARCH_PROMOTE = 20, 2, 1
+
+
+def quiet(fn, *args):
+    """``fn(*args)`` with its standard output captured; returns (result,
+    the captured lines)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue().splitlines()
+
+
+def search_args(out: str, *extra) -> list:
+    """The search launcher's arguments: the f32 copy of smollm-360m, phase
+    5's batches, P_I = 20, T = 128."""
+    return ["--arch", "smollm-360m", "--float32", "--p-bits", str(SEARCH_P_BITS), "--tile",
+            "128", "--calib-batches", str(CALIB_BATCHES), "--calib-batch-size",
+            str(CALIB_BATCH), "--seq", str(CALIB_SEQ), "--eval-batches", str(EVAL_BATCHES),
+            "--device", "cuda", "--out", out, *extra]
+
+
+def install_spy():
+    """Counts the paged engine's install quantizers (dynamic per-page max
+    and static stamp) until the returned restore is called."""
+    from repro_torch.serving import paged_engine as PE
+
+    calls = {"dynamic": 0, "static": 0}
+    orig = PE.quantize_kv_pages, PE.quantize_kv_pages_static
+
+    def dynamic(*a, **kw):
+        calls["dynamic"] += 1
+        return orig[0](*a, **kw)
+
+    def static(*a, **kw):
+        calls["static"] += 1
+        return orig[1](*a, **kw)
+
+    PE.quantize_kv_pages, PE.quantize_kv_pages_static = dynamic, static
+
+    def restore():
+        PE.quantize_kv_pages, PE.quantize_kv_pages_static = orig
+
+    return calls, restore
+
+
+def partings(specs, a, rec_a, b, rec_b, vocab) -> dict:
+    """How far pairs of greedy streams agree before they part, and at each
+    parting the top-1/top-2 gap of both runs' logits; no gate (the streams
+    are tie-limited: static and dynamic pages quantize differently)."""
+    import torch
+
+    agree = total = 0
+    parts = []
+    for u, p, n in specs:
+        x, y = a[u][p.size:], b[u][p.size:]
+        first = next((t for t in range(n) if x[t] != y[t]), None)
+        agree += n if first is None else first
+        total += n
+        if first is not None:
+            gaps = [float((lambda v: v[0] - v[1])(torch.topk(r[(u, first)][:vocab], 2).values))
+                    for r in (rec_a, rec_b)]
+            parts.append({"uid": u, "step": first, "gap_static": gaps[0],
+                          "gap_dynamic": gaps[1]})
+    return {"agree": agree, "total": total, "partings": parts}
+
+
+def phase_search_slice(torch, smi: str):
+    import tempfile
+
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.axe import PTQConfig
+    from repro_torch.data import DataConfig, TokenBatcher
+    from repro_torch.launch import search as S
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import transformer as T
+    from repro_torch.quant.observe import MixedPrecisionPlan
+    from repro_torch.quant.pipeline import calibrate_and_quantize
+    from repro_torch.quant.serve_packed import load_flat_artifact, packed_params_from_artifact
+    from repro_torch.serving import GenerationEngine, PagedConfig, PagedEngine, Request
+    from repro_torch.serving import SamplerConfig
+
+    t_phase = time.perf_counter()
+    cfg = S.f32_config(get_config("smollm-360m"))
+    sites = 7 * cfg.n_layers
+    greedy = SamplerConfig(temperature=0.0)
+    tmp = tempfile.mkdtemp(prefix="search_", dir=os.environ.get("TMPDIR"))
+    out_a, out_c = os.path.join(tmp, "a"), os.path.join(tmp, "c")
+
+    # (a) calibrate -> observe -> search -> export, through the launcher
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    rep, lines = quiet(S.main, search_args(out_a, "--kv-static"))
+    torch.cuda.synchronize()
+    wall_a = time.perf_counter() - t0
+    counts_a = read_counts()
+    uni, srch = rep["uniform"], rep["searched"]
+    check(counts_a["gpfq_solve"] == sites and counts_a["gpfq_solve_masked"] == 0,
+          f"search: {counts_a['gpfq_solve']} B5 solves, expected {sites}")
+    for name, cert in (("uniform", uni["cert"]), ("searched", srch["cert"])):
+        check(cert["ok"] and cert["n_certified"] == sites, f"{name} certificates {cert}")
+    check(srch["ppl"] == uni["ppl"] and math.isfinite(uni["ppl"]),
+          f"searched ppl {srch['ppl']!r} != uniform {uni['ppl']!r} (a P_I-only plan)")
+    check(rep["savings_rate"] >= 1 and srch["kv_static"], f"search report {rep}")
+    plan = MixedPrecisionPlan.load(os.path.join(out_a, "plan.json"))
+    # the default budget is the floor: each planned site sits at its floor
+    floors = {k: spec.p_inner for k, spec in plan.sites.items()}
+    obs = rep["observe"]
+    print(f"[search] [{smi}] (a) smollm-360m full width in float32, {CALIB_BATCHES} x "
+          f"{CALIB_BATCH} x {CALIB_SEQ} tokens, uniform P_I={SEARCH_P_BITS} T=128: "
+          f"{counts_a['gpfq_solve']} B5 solves, {counts_a['w4a8_matmul']} B1 launches (the "
+          f"static KV ranges' prefills); uniform {uni['accumulator_bits']} accumulator bits, "
+          f"searched "
+          f"{srch['accumulator_bits']} (floor {obs['floor_accumulator_bits']}), savings rate "
+          f"{rep['savings_rate']:.6f}; {obs['n_sites']} slot sites x {cfg.n_layers} repeats, "
+          f"binding {obs['binding_site']}; ppl uniform {uni['ppl']!r} == searched "
+          f"{srch['ppl']!r}; {sites} sites certified before and after (min headroom "
+          f"{uni['cert']['min_headroom_bits']:.4f} -> {srch['cert']['min_headroom_bits']:.4f} "
+          f"bits); wall {wall_a:.3f} s")
+    print(f"[search] [{smi}] (a) P_I floors per slot site (each of its 32 layers): " + ", ".join(
+        f"{k} {p}" for k, p in floors.items())
+        + f"; unlisted sites stay at {SEARCH_P_BITS}")
+
+    # (b) serve the artifact with its plan: the launcher, then phase 7's
+    # trace through static and dynamic int8 pages
+    _, lines = quiet(SV.main, ["--arch", "smollm-360m", "--float32", "--artifact",
+                               os.path.join(out_a, "quantized"), "--plan",
+                               os.path.join(out_a, "plan.json"), "--packed", "--paged",
+                               "--kv-dtype", "int8", "--block-size", str(PAGED_BLOCK),
+                               "--batch", str(BATCH), "--prompt-len", str(PROMPT),
+                               "--max-new", str(MAX_NEW), "--device", "cuda"])
+    for line in lines:
+        print(f"[search] [{smi}] (b) launcher: {line}")
+    validated = next((ln for ln in lines if "plan validated" in ln), "")
+    check(f"plan validated: {sites} per-site datapaths match" in validated,
+          f"serve --plan: {validated!r}")
+    flat, meta = load_flat_artifact(os.path.join(out_a, "quantized"))
+    served = packed_params_from_artifact(flat, T.init_model(cfg, 0, device="cuda"), cfg,
+                                         meta=meta)
+    specs, _ = trace_specs(cfg)
+
+    def trace():
+        return [Request(uid=u, prompt=p, max_new=n) for u, p, n in specs]
+
+    def engine(kv):
+        return PagedEngine(served, cfg, PagedConfig(
+            block_size=PAGED_BLOCK, num_blocks=PAGED_BLOCKS, max_concurrency=PAGED_SLOTS,
+            chunk_max=PAGED_CHUNK, attn_impl="auto", kv_dtype="int8"), greedy, device="cuda",
+            assert_bounds=True, kv_scales=plan.kv if kv == "static" else None)
+
+    runs, engines = {}, {}
+    for kv in ("static", "dynamic"):
+        eng = engines[kv] = engine(kv)
+        warm_paged(eng, specs[0][1])
+        calls, restore = install_spy()
+        try:
+            run = driven(torch, cfg, eng, trace(), "int8")
+        finally:
+            restore()
+        installs = 2 * cfg.n_layers * run["ran"]["admits"]
+        want = {"static": installs, "dynamic": 0} if kv == "static" else {
+            "static": 0, "dynamic": installs}
+        check(calls == want, f"{kv}: install quantizer calls {calls}, expected {want}")
+        spec = eng.attn_spec
+        qk, pv = run["watermarks"]
+        check(0 < qk <= 2 ** (spec.p_qk - 1) - 1 and 0 < pv <= 2 ** (spec.p_pv - 1) - 1,
+              f"{kv}: B3 watermarks {qk}, {pv} against {spec.describe()}")
+        check(eng.datapath_fingerprint.endswith("+kv-static") == (kv == "static"),
+              f"{kv}: fingerprint {eng.datapath_fingerprint}")
+        run.update(calls=calls, device_ops=eng._program.device_ops,
+                   admit_ms=1e3 * run["spent"]["admit"] / run["ran"]["admits"])
+        runs[kv] = run
+    check(runs["static"]["device_ops"] < runs["dynamic"]["device_ops"],
+          f"device operations a replay: static {runs['static']['device_ops']}, dynamic "
+          f"{runs['dynamic']['device_ops']}")
+
+    # the replayed decode step over PAGED_SLOTS live slots, static and
+    # dynamic in turns
+    prompts = TokenBatcher(DataConfig(vocab=cfg.vocab, seq_len=PROMPT, global_batch=BATCH,
+                                      seed=0)).batch(0)["tokens"]
+    from repro_torch.models.layers import use_packed_backend
+
+    with torch.inference_mode(), use_packed_backend("kernel"):
+        for kv, eng in engines.items():
+            sched = eng._make_scheduler()
+            for b in range(PAGED_SLOTS):
+                sched.submit(Request(uid=30_000 + b, prompt=np.asarray(prompts[b % BATCH]),
+                                     max_new=2 * 6 * PAGED_CHUNK + 1))
+            adm = sched.try_admit()
+            while adm is not None:
+                eng._do_admit(adm)
+                adm = sched.try_admit()
+            check(len(sched.active) == PAGED_SLOTS, f"{kv}: timing slots not all admitted")
+        turns = in_turns(torch, {kv: (lambda e=eng: e._chunk(PAGED_CHUNK))
+                                 for kv, eng in engines.items()}, runs=6, scale=PAGED_CHUNK)
+
+    # how far the greedy streams agree (logits recorded through the replays)
+    rec = {kv: recorded(engine(kv), trace(), specs[0][1]) for kv in ("static", "dynamic")}
+    for kv in rec:
+        check(all((rec[kv][0][u] == runs[kv]["res"][u]).all() for u, _, _ in specs),
+              f"{kv}: the recorded run's streams differ from the timed run's")
+    agree = partings(specs, rec["static"][0], rec["static"][1], rec["dynamic"][0],
+                     rec["dynamic"][1], cfg.vocab)
+    for kv, run in runs.items():
+        print(f"[search] [{smi}] (b) {kv} int8 KV "
+              f"({'plan.kv' if kv == 'static' else 'per-page max'}): {TRACE_REQUESTS} "
+              f"requests, {run['ran']['steps']} decode steps, {run['ran']['admits']} admits; "
+              f"launches B1 {run['counts']['w4a8_matmul']} (224 a forward), B3 "
+              f"{run['counts']['paged_decode_attention_int8']} (32 a step); "
+              f"install quantizer calls {run['calls']}; one capture, {run['device_ops']} device "
+              f"operations a replay; replayed step in turns {fmt_spread(turns[kv])}; decode "
+              f"step in the trace {run['step_ms']:.3f} ms, admit {run['admit_ms']:.3f} ms "
+              f"(host clock), {run['tok_s']:.1f} tok/s, wall {run['wall']:.3f} s; B3 "
+              f"watermarks |QK^T| {run['watermarks'][0]}, |PV| {run['watermarks'][1]}")
+    print(f"[search] [{smi}] (b) static vs dynamic greedy streams: {agree['agree']} of "
+          f"{agree['total']} tokens agree before they part; partings (uid, step, top-2 gap "
+          f"static / dynamic): "
+          + ("none" if not agree["partings"] else "; ".join(
+              f"({p['uid']}, {p['step']}, {p['gap_static']:.4f} / {p['gap_dynamic']:.4f})"
+              for p in agree["partings"])))
+
+    # (c) code-changing moves: 2:4 on the most headroomed slot sites, w8 on
+    # the most binding one, a masked re-calibration, the fixed-slot engine
+    reset_counts()
+    t0 = time.perf_counter()
+    rep_c, _ = quiet(S.main, search_args(out_c, "--sparsify", str(SEARCH_SPARSIFY),
+                                         "--promote-w8", str(SEARCH_PROMOTE)))
+    torch.cuda.synchronize()
+    wall_c = time.perf_counter() - t0
+    counts_c = read_counts()
+    sc = rep_c["searched"]
+    n_sparse, n_w8 = len(sc["sparsified"]), len(sc["promoted_w8"])
+    check((n_sparse, n_w8) == (SEARCH_SPARSIFY, SEARCH_PROMOTE), f"moves {sc}")
+    check(counts_c["gpfq_solve"] == 2 * sites
+          and counts_c["gpfq_solve_masked"] == cfg.n_layers * n_sparse,
+          f"(c): B5 {counts_c['gpfq_solve']} solves ({counts_c['gpfq_solve_masked']} masked), "
+          f"expected {2 * sites} ({cfg.n_layers * n_sparse} masked)")
+    n_int4 = 7 - n_w8
+    check(sc["cert"]["ok"] and sc["cert"]["n_certified"] == n_int4 * cfg.n_layers,
+          f"(c) certificates {sc['cert']}")
+    plan_c = MixedPrecisionPlan.load(os.path.join(out_c, "plan.json"))
+    flat_c, meta_c = load_flat_artifact(os.path.join(out_c, "quantized"))
+    # a second run of the re-calibration from plan.json: bit-identical codes
+    model = T.init_model(cfg, 0, device="cuda")
+    data = TokenBatcher(DataConfig(vocab=cfg.vocab, seq_len=CALIB_SEQ,
+                                   global_batch=CALIB_BATCH, seed=0))
+    calib = [data.batch(10_000 + i) for i in range(CALIB_BATCHES)]
+    ptq = PTQConfig(w_bits=4, act_bits=8, p_bits=SEARCH_P_BITS, tile=128)
+    again = calibrate_and_quantize(model, cfg, calib, ptq, plan=plan_c, device="cuda")
+    for name, ql in again.quantized_linears():
+        check(np.array_equal(ql.q_int.cpu().numpy().astype(np.int8), flat_c[f"{name}/q"]),
+              f"(c): a second re-calibration's codes differ at {name}")
+    served_c = packed_params_from_artifact(flat_c, model, cfg, meta=meta_c)
+    eng_c = GenerationEngine(served_c, cfg, greedy, device="cuda")
+    eng_c.generate(prompts, MAX_NEW)  # warm-up: the bucket's capture
+    reset_counts()
+    out = eng_c.generate(prompts, MAX_NEW)
+    serve_counts = read_counts()
+    per_forward = {"w4a8_sparse_matmul": cfg.n_layers * n_sparse,
+                   "w4a8_matmul": cfg.n_layers * (n_int4 - n_sparse)}
+    for counter, n in per_forward.items():
+        check(serve_counts[counter] == n * MAX_NEW,
+              f"(c) serving: {counter} {serve_counts[counter]}, expected {n} x {MAX_NEW}")
+    check((out == GenerationEngine(served_c, cfg, greedy, device="cuda",
+                                   backend="reference").generate(prompts, MAX_NEW)).all(),
+          "(c): kernel and reference backends disagree on the mixed artifact")
+    print(f"[search] [{smi}] (c) --sparsify {SEARCH_SPARSIFY} --promote-w8 {SEARCH_PROMOTE}: "
+          f"sparsified {sc['sparsified']}, promoted {sc['promoted_w8']}; B5 "
+          f"{counts_c['gpfq_solve']} solves ({counts_c['gpfq_solve_masked']} masked: the "
+          f"re-calibration's 2:4 sites); "
+          f"{sc['cert']['n_certified']} int4 sites certified (min headroom "
+          f"{sc['cert']['min_headroom_bits']:.4f} bits); ppl uniform "
+          f"{rep_c['uniform']['ppl']:.4f}, re-calibrated {sc['ppl']:.4f}; a second "
+          f"re-calibration from plan.json gives bit-identical codes; wall {wall_c:.3f} s")
+    print(f"[search] [{smi}] (c) served greedy batch {BATCH} x prompt {PROMPT} + {MAX_NEW} new "
+          f"through the captured step: B4 {serve_counts['w4a8_sparse_matmul']} "
+          f"({per_forward['w4a8_sparse_matmul']} a forward), B1 {serve_counts['w4a8_matmul']} "
+          f"({per_forward['w4a8_matmul']} a forward), none for the w8 site (float Linear); "
+          f"tokens identical to the reference backend")
+    print(f"[search] [{smi}] phase 12 wall {time.perf_counter() - t_phase:.3f} s")
+    return {"b5": counts_a["gpfq_solve"] + counts_c["gpfq_solve"],
+            "b5_masked": counts_c["gpfq_solve_masked"],
+            "b1": runs["static"]["counts"]["w4a8_matmul"] + serve_counts["w4a8_matmul"],
+            "b3": runs["static"]["counts"]["paged_decode_attention_int8"],
+            "b4": serve_counts["w4a8_sparse_matmul"], "turns": turns, "runs": runs,
+            "agree": agree, "floors": floors}
+
+
 def expert_record(name, rows, err, launches, ms_key, plain_key, replaces, pallas):
     """One record for B1e or B4e: times summed over the 3 expert sites of
     one granite MoE layer at decode (M = 4, E = 40); the same at M = 64 (a
@@ -3520,7 +3842,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
 
-    phase_card(torch)
+    smi = phase_card(torch)
     rows, max_err, host = phase_kernel(torch)
     b6_host = rmsnorm_host_us(torch, torch.Generator(device="cuda").manual_seed(0))
     launches = phase_slice(torch)
@@ -3534,6 +3856,7 @@ def main() -> int:
     throughput = phase_throughput_slice(torch, paged)
     expert_rows, expert_err = phase_expert_kernels(torch)
     moe = phase_moe_slice(torch)
+    search = phase_search_slice(torch, smi)
     records = [
         kernel_record(rows, max_err, launches, host),
         paged_record("paged_decode_attention", paged_rows["float"], paged_err["float"],
@@ -3554,6 +3877,12 @@ def main() -> int:
         rec["throughput_launches"] = [throughput[k]["thr"]["counts"][counter]
                                       for k in ("act", "int8")] + [
             throughput["b"]["run"]["counts"][counter]]
+    # phase 12's launches on the search slice: B5 in (a) and (c), B1 and B3
+    # serving (b)'s static-KV trace and (c)'s artifact, B4 serving (c)
+    for rec, n in zip(records, (search["b1"], None, search["b3"], search["b4"], search["b5"])):
+        if n is not None:
+            rec["search_launches"] = n
+    records[4]["masked"]["search_launches"] = search["b5_masked"]
     print(json.dumps({"kernels": records}))
     # one card: every phase runs on cuda:0
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

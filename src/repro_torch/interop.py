@@ -14,12 +14,21 @@ expert stacks (E, K, C) sites. Packed leaves become
 (the reference's static ``spec`` node is not an array and is ignored); a
 2:4 leaf's ``meta`` rides along.
 
+:func:`quantized_model_from_numpy` carries a calibrated reference
+``QuantizedModel`` (``repro.quant.pipeline``) into the port's
+:class:`~repro_torch.quant.pipeline.QuantizedModel`: per site the integer
+codes, scales, corrected bias, activation quantizer, spec, certificate,
+solver config and activation-observer state, so that the port's
+mixed-precision search runs over the *same* codes as the reference's.
+
 :func:`paged_cache_from_numpy` carries the reference's paged cache
 (``repro.models.transformer.init_paged_cache``, arrays as numpy) into the
 port's layout: one pool per layer, plus the write-sink page.
 """
 
 from __future__ import annotations
+
+from dataclasses import fields
 
 import numpy as np
 import torch
@@ -94,6 +103,85 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, *, device="cuda") -> Transfo
             block.ffn = ffn(**{n: _site(v, r, dev) for n, v in slot["ffn"].items()})
         layers.append(block)
     return Transformer(cfg, embedding, layers, _norm(tree["final_norm"], None, dev))
+
+
+def _cert(c):
+    """A reference certificate (or per-expert stack of them) as the port's."""
+    from repro_torch.core.overflow import CertReport, StackedCertReport
+
+    if c is None:
+        return None
+    if hasattr(c, "reports"):
+        return StackedCertReport(reports=tuple(_cert(r) for r in c.reports))
+    return CertReport(**{f.name: getattr(c, f.name) for f in fields(CertReport)})
+
+
+def _quantized_linear(ql, device):
+    from repro_torch.core.axe import PTQConfig, QuantizedLinear
+    from repro_torch.core.calibration import ActObserver
+    from repro_torch.core.quantizers import ActQuantParams
+
+    def f32(a):
+        return None if a is None else torch.from_numpy(np.array(a, np.float32)).to(device)
+
+    aux = {}
+    obs = ql.aux.get("observer") if isinstance(ql.aux, dict) else None
+    if obs is not None:
+        aux["observer"] = ActObserver(
+            **{f.name: getattr(obs, f.name) for f in fields(ActObserver) if f.name != "dim_absmax"},
+            dim_absmax=np.array(obs.dim_absmax, np.float64))
+    spec = None
+    if ql.spec is not None:
+        spec = DatapathSpec(**{f.name: getattr(ql.spec, f.name) for f in fields(DatapathSpec)})
+    return QuantizedLinear(
+        q_int=f32(ql.q_int), scale=f32(ql.scale),
+        act=ActQuantParams(scale=float(ql.act.scale), zero_point=int(ql.act.zero_point),
+                           bits=int(ql.act.bits), signed=bool(ql.act.signed)),
+        bias=f32(ql.bias), cert=_cert(ql.cert),
+        cfg=PTQConfig(**{f.name: getattr(ql.cfg, f.name) for f in fields(PTQConfig)}),
+        spec=spec, aux=aux)
+
+
+def quantized_model_from_numpy(qm, cfg: ModelConfig, *, device="cuda"):
+    """The port's :class:`~repro_torch.quant.pipeline.QuantizedModel` for a
+    calibrated reference ``QuantizedModel`` whose arrays are numpy (anything
+    ``np.asarray`` converts is taken). Codes become f32 code carriers,
+    scales and biases f32 tensors on ``device``; certificates, specs, the
+    solver config and the observers' state are copied field by field;
+    sites, norms and embedding keep the reference's names and values."""
+    from repro_torch.core.axe import PTQConfig
+    from repro_torch.quant.families import get_adapter
+    from repro_torch.quant.pipeline import QuantizedBlock, QuantizedComponent, QuantizedModel
+
+    dev = resolve_device(device)
+
+    def norm_dict(d):
+        return None if d is None else {k: to_tensor(np.asarray(v), dev) for k, v in d.items()}
+
+    emb = qm.embedding
+    embedding = Embedding(to_tensor(emb["embed"], dev),
+                          to_tensor(emb["head"], dev) if "head" in emb else None)
+    fn = qm.final_norm
+    final_norm = Norm(to_tensor(fn["w"], dev), to_tensor(fn["b"], dev) if "b" in fn else None)
+    blocks = []
+    for i, b in enumerate(qm.blocks):
+        nb = QuantizedBlock(spec=cfg.layer_spec(i), norm1=norm_dict(b.norm1),
+                            norm2=norm_dict(b.norm2))
+        for kind in ("mixer", "ffn"):
+            comp = getattr(b, kind)
+            if comp is None:
+                continue
+            specs = {s.name: s for s in get_adapter(kind, comp.adapter).enumerate_sites(cfg)}
+            params = {k: None if v is None or k in specs else to_tensor(np.asarray(v), dev)
+                      for k, v in comp.params.items()}
+            setattr(nb, kind, QuantizedComponent(
+                adapter=comp.adapter, kind=comp.kind, params=params,
+                linears={n: _quantized_linear(ql, dev) for n, ql in comp.linears.items()},
+                specs=specs))
+        blocks.append(nb)
+    ptq = PTQConfig(**{f.name: getattr(qm.ptq, f.name) for f in fields(PTQConfig)})
+    return QuantizedModel(cfg=cfg, ptq=ptq, embedding=embedding, final_norm=final_norm,
+                          blocks=blocks)
 
 
 def paged_cache_from_numpy(cache: dict, cfg: ModelConfig, *, device="cuda") -> dict:

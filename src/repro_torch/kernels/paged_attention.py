@@ -75,6 +75,20 @@ def quantize_kv_pages(pages: torch.Tensor, kv_bits: int = 8):
     return codes.to(torch.int8), scales
 
 
+def quantize_kv_pages_static(pages: torch.Tensor, scales: torch.Tensor):
+    """Quantize float KV pages under calibrated static per-kv-head scales
+    (``scales`` broadcastable to the pages' (..., nkv) page-scale shape; see
+    :mod:`repro_torch.quant.observe.kv`). No per-page max reduction runs:
+    the scale is a constant, codes hard-clip at the int8 container limit,
+    and the returned scales are the broadcast stamp, so pool readers are
+    unchanged. Plain tensor code, as in the reference."""
+    qmax = 127
+    xf = pages.to(torch.float32)
+    stamp = torch.broadcast_to(scales.to(torch.float32), (*pages.shape[:-3], pages.shape[-2]))
+    codes = torch.clamp(torch.round(xf / stamp[..., None, :, None]), -qmax, qmax)
+    return codes.to(torch.int8), stamp
+
+
 def dequantize_kv_pages(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """Inverse of :func:`quantize_kv_pages`, always f32."""
     return codes.to(torch.float32) * scales[..., None, :, None]
@@ -461,5 +475,6 @@ __all__ = [
     "paged_attention_reference",
     "paged_decode_attention",
     "quantize_kv_pages",
+    "quantize_kv_pages_static",
     "split_plan",
 ]

@@ -34,8 +34,21 @@ prefill, watermark growth and preemption)::
         --smoke --packed --paged --admit-batch 2 --prefill-chunk 16 \
         --block-size 8 --device cpu
 
-``--plan``, ``--mesh``, ``--observe`` and ``--ckpt-dir`` are accepted and
-refused, each naming the slice that brings it.
+``--plan DIR/plan.json`` (written by ``repro_torch.launch.search --out
+DIR``, or by the reference's) validates the artifact's per-site datapaths
+against the plan and prints ``[serve] plan validated: ...``; with
+``--paged --kv-dtype int8`` the plan's calibrated static KV page scales go
+to the engine (no requantize-on-append)::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch tiny-lm-xs \
+        --artifact /tmp/mixed/quantized --plan /tmp/mixed/plan.json \
+        --paged --block-size 8 --kv-dtype int8 --device cpu
+
+``--float32`` serves an f32 copy of the configuration (the form a
+calibrated bfloat16 architecture was calibrated in).
+
+``--mesh``, ``--observe`` and ``--ckpt-dir`` are accepted and refused, each
+naming the slice that brings it.
 """
 
 from __future__ import annotations
@@ -54,7 +67,7 @@ from repro_torch.quant.serve_packed import (
     pack_decode_params,
     packed_params_from_artifact,
 )
-from repro_torch.quant.spec import tree_datapath_fingerprint
+from repro_torch.quant.spec import DatapathSpec, tree_datapath_fingerprint, validate_datapath
 from repro_torch.serving import (
     GenerationEngine,
     PagedConfig,
@@ -66,8 +79,9 @@ from repro_torch.serving.scheduler import blocks_for_budget, kv_pool_bytes
 
 #: flags of the reference launcher that belong to slices not ported yet
 _UNPORTED = {
-    "--plan": "mixed-precision plans (static KV scales, observers and search)",
-    "--mesh": "multi-device serving", "--observe": "serving observers",
+    "--mesh": "multi-device serving",
+    "--observe": "serving observers (saturation counters and the serving taps, the "
+                 "observers slice)",
     "--ckpt-dir": "checkpoint restore of trained params",
 }
 
@@ -121,6 +135,13 @@ def main(argv=None):
                     help="free-page watermarks (--paged): admit against a LOW-page "
                          "reserve, grow pages on demand and preempt on exhaustion; "
                          "after a preemption fresh arrivals wait for HIGH free pages")
+    ap.add_argument("--plan", type=str, default=None,
+                    help="mixed-precision plan.json (repro_torch.launch.search --out): "
+                         "validates the artifact's per-site datapaths against the plan "
+                         "and, with --paged --kv-dtype int8, gives the engine the plan's "
+                         "calibrated static KV page scales")
+    ap.add_argument("--float32", action="store_true",
+                    help="an f32 copy of the configuration (as calibration takes it)")
     for flag, what in _UNPORTED.items():
         ap.add_argument(flag, nargs="*", default=None,
                         help=f"not yet ported ({what})")
@@ -132,6 +153,10 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    if args.float32:
+        from repro_torch.launch.search import f32_config
+
+        cfg = f32_config(cfg)
     model = init_model(cfg, args.seed, device=device)
     if args.artifact:
         flat, meta = load_flat_artifact(args.artifact)
@@ -142,6 +167,8 @@ def main(argv=None):
     elif args.packed:
         model = pack_decode_params(model, cfg)
         print("[serve] packed int4 serving params (RTN fallback, dynamic act)")
+
+    plan = _validated_plan(args, model, cfg) if args.plan else None
 
     data = TokenBatcher(DataConfig(vocab=cfg.vocab, seq_len=args.prompt_len,
                                    global_batch=args.batch, seed=args.seed))
@@ -158,7 +185,8 @@ def main(argv=None):
     if args.paged:
         if args.host_loop:
             raise SystemExit("--host-loop applies to the fixed-slot engine only")
-        engine = _paged_engine(args, model, cfg, sampler, device)
+        engine = _paged_engine(args, model, cfg, sampler, device,
+                               kv_scales=plan.kv if plan is not None else None)
         gen = engine.generate
     else:
         engine = GenerationEngine(model, cfg, sampler, device=device,
@@ -176,7 +204,30 @@ def main(argv=None):
     return out
 
 
-def _paged_engine(args, model, cfg, sampler, device) -> PagedEngine:
+def _validated_plan(args, model, cfg):
+    """Load ``--plan`` and check every packed site of the loaded artifact
+    against it (its entry, else the uniform base spec in its meta); prints
+    the reference's ``[serve] plan validated`` line, with the packed sites
+    checked (every layer's) and the slot-granular sites they fold into."""
+    from repro_torch.quant.observe import MixedPrecisionPlan
+    from repro_torch.quant.serve_packed import plan_expected_specs
+
+    if not args.artifact:
+        raise SystemExit("--plan validates a calibrated artifact's per-site datapaths "
+                         "(add --artifact DIR)")
+    plan = MixedPrecisionPlan.load(args.plan)
+    base_d = plan.meta.get("base_spec")
+    if base_d is None:
+        raise SystemExit(f"{args.plan} carries no base_spec meta — re-export with "
+                         f"repro_torch.launch.search")
+    expected = plan_expected_specs(cfg, plan, DatapathSpec(**base_d))
+    n = validate_datapath(model, expected)
+    print(f"[serve] plan validated: {n} per-site datapaths match ({len(expected)} slot "
+          f"sites, {len(plan.sites)} searched, kv={'static' if plan.kv else 'dynamic'})")
+    return plan
+
+
+def _paged_engine(args, model, cfg, sampler, device, kv_scales=None) -> PagedEngine:
     """The paged engine the flags describe; prints the reference's
     ``[serve] paged engine: ...`` line (pool MB, policy, attention
     datapath)."""
@@ -205,13 +256,14 @@ def _paged_engine(args, model, cfg, sampler, device) -> PagedEngine:
             PagedConfig(block_size=args.block_size, num_blocks=num_blocks,
                         max_concurrency=args.max_concurrency, kv_dtype=args.kv_dtype,
                         prefix_cache=args.prefix_cache, sched=policy),
-            sampler, device=device, backend=args.packed_backend)
+            sampler, device=device, backend=args.packed_backend, kv_scales=kv_scales)
     except ValueError as e:
         raise SystemExit(f"paged engine: {e}") from None
     pool_mb = kv_pool_bytes(cfg, num_blocks, args.block_size, args.kv_dtype) / 2**20
     attn_dp = (f" attn_datapath=[{engine.attn_spec.describe()}]"
                if engine.attn_spec else "")
     pc = " prefix_cache=on" if args.prefix_cache else ""
+    pc += " kv_scales=static" if engine._kv_scales_seq is not None else ""
     pol = ("" if policy.is_legacy else
            f" policy=(window={policy.admit_window} batch={policy.batch_max} "
            f"chunk={policy.prefill_chunk} watermark={policy.watermark})")

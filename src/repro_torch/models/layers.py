@@ -438,9 +438,26 @@ def _append_kv_page_quant(pages, scales, page, off, x, kv_bits: int = 8):
     scales[page] = new
 
 
+def _append_kv_page_static(pages, scales, page, off, x, scale_static):
+    """Append into an int8 page pool under calibrated static per-kv-head
+    scales (``scale_static`` (nkv,) f32; see
+    :mod:`repro_torch.quant.observe.kv`), in place. The requantize-on-append
+    of :func:`_append_kv_page_quant` is gone: no scale growth, no rescale of
+    a page's codes, every code rounded once. The page's scale row is stamped
+    with the static value, so pool readers (B3 included) read it as they
+    read a dynamic one. Codes hard-clip at the int8 container limit. Idle
+    rows carry the sentinel page ``nb``, the pool's write sink."""
+    qmax = 127  # the int8 container (a demoted head's alphabet is coarser by its scale)
+    tok_codes = torch.clamp(torch.round(x.to(torch.float32) / scale_static[None, :, None]),
+                            -qmax, qmax)  # (B, nkv, hd)
+    pages[page, off] = tok_codes.to(pages.dtype)
+    scales[page] = scale_static[None, :].expand(x.shape[0], x.shape[1])
+
+
 def paged_attention_decode(p: Attention, x, cfg: ModelConfig, pool: dict, block_table,
                            seq_lens, active, *, impl: str = "auto", attn_spec=None,
-                           assert_bounds: bool = False, watermarks=None):
+                           assert_bounds: bool = False, watermarks=None,
+                           static_kv_scales=None):
     """Single-token decode against one layer's paged KV pool.
 
     x: (B, 1, d), B the engine's slot count. ``pool`` holds ``k_pages`` /
@@ -455,6 +472,10 @@ def paged_attention_decode(p: Attention, x, cfg: ModelConfig, pool: dict, block_
     page; their outputs are garbage the engine discards. ``attn_spec`` is a
     request checked against the pool's record on every impl.
     ``assert_bounds``/``watermarks`` go to the int8 kernel (B3).
+    ``static_kv_scales``, ``{"k": (nkv,), "v": (nkv,)}`` f32 from a
+    mixed-precision plan, makes an int8 pool's appends take
+    :func:`_append_kv_page_static` (no requantize-on-append); a float pool
+    given them raises.
 
     The pool is updated in place (the reference returns a new one).
     Returns (y, pool)."""
@@ -473,9 +494,18 @@ def paged_attention_decode(p: Attention, x, cfg: ModelConfig, pool: dict, block_
     page = torch.where(active, block_table[torch.arange(B, device=x.device), col].long(),
                        torch.full_like(lens, nb))
     off = lens % bs
+    if static_kv_scales is not None and not quantized:
+        raise ValueError("static KV scales need an int8 page pool (a float pool carries "
+                         "no scale leaves)")
     if quantized:
-        _append_kv_page_quant(k_pages, pool["k_scales"], page, off, k[:, 0])
-        _append_kv_page_quant(v_pages, pool["v_scales"], page, off, v[:, 0])
+        if static_kv_scales is not None:
+            _append_kv_page_static(k_pages, pool["k_scales"], page, off, k[:, 0],
+                                   static_kv_scales["k"])
+            _append_kv_page_static(v_pages, pool["v_scales"], page, off, v[:, 0],
+                                   static_kv_scales["v"])
+        else:
+            _append_kv_page_quant(k_pages, pool["k_scales"], page, off, k[:, 0])
+            _append_kv_page_quant(v_pages, pool["v_scales"], page, off, v[:, 0])
         scale_kw = {"k_scales": pool["k_scales"][:nb], "v_scales": pool["v_scales"][:nb]}
     else:
         k_pages[page, off] = k[:, 0].to(k_pages.dtype)

@@ -330,7 +330,8 @@ def init_paged_cache(cfg: ModelConfig, num_slots: int, num_blocks: int, block_si
 
 
 def decode_step_paged(model: Transformer, tokens, cache: dict, *, attn_impl: str = "auto",
-                      attn_spec=None, assert_bounds: bool = False, watermarks=None):
+                      attn_spec=None, assert_bounds: bool = False, watermarks=None,
+                      kv_scales=None):
     """One decode step over the paged cache. tokens: (num_slots, 1) int.
 
     Every slot advances at its own ``cache["seq_lens"]`` position; idle
@@ -338,16 +339,25 @@ def decode_step_paged(model: Transformer, tokens, cache: dict, *, attn_impl: str
     not advance. ``attn_spec`` is an optional
     :class:`~repro_torch.quant.spec.AttnDatapathSpec` request.
     ``assert_bounds``/``watermarks`` reach the int8 attention kernel (B3).
+    ``kv_scales``: calibrated static KV page scales, a sequence aligned with
+    ``cfg.pattern`` (attention slots ``{"k": (R, nkv), "v": (R, nkv)}`` f32,
+    others ``{}``), as in the reference; layer ``r * period + s`` appends
+    under row ``r`` of slot ``s`` (a view, no device work). None keeps the
+    dynamic requantize-on-append.
     Updates the cache in place; returns (logits (num_slots, 1, V), cache)."""
     cfg = model.cfg
     x = embed(model.embedding, tokens.long(), cfg)
     table, lens, active = cache["block_table"], cache["seq_lens"], cache["active"]
-    for block, pool in zip(model.layers, cache["pools"]):
+    for i, (block, pool) in enumerate(zip(model.layers, cache["pools"])):
         if block.mixer is not None:
             h = norm(block.norm1, x, cfg.norm)
+            r, s = divmod(i, cfg.period)
+            sks = kv_scales[s] if kv_scales is not None and kv_scales[s] else None
             y, _ = paged_attention_decode(block.mixer, h, cfg, pool, table, lens, active,
                                           impl=attn_impl, attn_spec=attn_spec,
-                                          assert_bounds=assert_bounds, watermarks=watermarks)
+                                          assert_bounds=assert_bounds, watermarks=watermarks,
+                                          static_kv_scales=None if sks is None else
+                                          {"k": sks["k"][r], "v": sks["v"][r]})
             x = x + y
         if block.ffn is not None:
             x = _ffn(block, cfg, x)

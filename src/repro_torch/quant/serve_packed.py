@@ -58,6 +58,7 @@ __all__ = [
     "packable_sites",
     "packed_params_from_artifact",
     "packed_weight_bytes",
+    "plan_expected_specs",
     "serving_params_from_quantized",
     "upgrade_packed_params",
 ]
@@ -417,6 +418,39 @@ def packed_params_from_artifact(flat: dict, model, cfg: ModelConfig | None = Non
                     torch.as_tensor(np.asarray(flat[key]), device=device),
                     None if b is None else torch.as_tensor(np.asarray(b), device=device)))
     return out
+
+
+def plan_expected_specs(cfg: ModelConfig, plan, base: DatapathSpec) -> dict:
+    """The total ``site-key -> DatapathSpec`` map
+    :func:`~repro_torch.quant.spec.validate_datapath` takes: every *packed*
+    site the model enumerates, valued by the mixed-precision plan's entry
+    when it has one, else the uniform ``base``. Sites without an int4
+    container (w_bits > 4, such as a plan's w8-promoted sites, an odd
+    reduction depth, or a 2:4 spec at K % 4 != 0) serve float ``Linear``
+    modules and are left out, as :func:`_site_rec_leaf` builds them. A plan
+    key naming no site of the model raises here, before anything serves."""
+    expected: dict[str, DatapathSpec] = {}
+    known: set[str] = set()
+    plan = plan if plan is not None else {}
+    for s, pattern_spec in enumerate(cfg.pattern):
+        for kind, fam in (("mixer", pattern_spec.mixer), ("ffn", pattern_spec.ffn)):
+            if fam == "none":
+                continue
+            for site in get_adapter(kind, fam).enumerate_sites(cfg):
+                key = f"slot{s}/{kind}.{site.name}"
+                known.add(key)
+                spec = plan.get(key)
+                spec = base if spec is None else spec
+                if spec.w_bits > 4 or site.k % 2 != 0 or (
+                        spec.sparsity is not None and site.k % 4 != 0):
+                    continue
+                expected[key] = spec
+    unknown = sorted(set(plan) - known)
+    if unknown:
+        raise DatapathMismatchError(
+            f"mixed-precision plan names sites this model does not enumerate: "
+            f"{unknown}; model sites: {sorted(known)}")
+    return expected
 
 
 # ---------------------------------------------------------------------------

@@ -62,8 +62,19 @@ Sampling is per-request deterministic: a row's step-t draw is a Gumbel-max
 over a counter hash of (seed, uid, t), so co-batching cannot change a
 sampled stream. Greedy decode takes the argmax, as the fixed-slot engine.
 
-Left for later slices, raising ``NotImplementedError``: static KV page
-scales from a mixed-precision plan (``kv_scales``), ``mesh`` and
+Static KV page scales from a mixed-precision plan (``kv_scales``: a
+plan's ``kv`` section, or its tensors from
+:func:`~repro_torch.quant.observe.plan_kv_scales`) make an int8 engine
+quantize against calibrated constants: every install scatter (cold,
+suffix and batched admits, prefill chunks) through
+:func:`~repro_torch.kernels.paged_attention.quantize_kv_pages_static`,
+with no per-page max reduction, and every decode append through
+:func:`~repro_torch.models.layers._append_kv_page_static`, with no
+requantize-on-append. The scales are device tensors made once, before the
+decode step is captured, and never rebound, so the captured step reads
+them at fixed addresses.
+
+Left for later slices, raising ``NotImplementedError``: ``mesh`` and
 ``observe``.
 """
 
@@ -77,7 +88,11 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.kernels.paged_attention import check_bounds, quantize_kv_pages
+from repro_torch.kernels.paged_attention import (
+    check_bounds,
+    quantize_kv_pages,
+    quantize_kv_pages_static,
+)
 from repro_torch.models.layers import (
     _PACKED_BACKENDS,
     resolve_paged_attn_impl,
@@ -161,7 +176,10 @@ class PagedEngine:
     has none, so any attention request raises). ``backend`` is the packed
     matmul backend. ``assert_bounds`` (int8 pools) accumulates the B3
     register watermarks on the device and checks them against P_qk and
-    P_pv after every :meth:`serve` (one host read)."""
+    P_pv after every :meth:`serve` (one host read). ``kv_scales`` holds
+    calibrated static KV page scales (a plan's ``kv`` section, or
+    ``{slot: {"k": (R, nkv), "v": (R, nkv)}}``); they need an int8 pool and
+    name attention slots only."""
 
     def __init__(self, model, cfg=None, paged: PagedConfig = PagedConfig(),
                  sampler: SamplerConfig = SamplerConfig(), datapath=None,
@@ -169,11 +187,9 @@ class PagedEngine:
                  assert_bounds: bool = False, observe: bool = False, kv_scales=None,
                  mesh=None):
         if observe:
-            raise NotImplementedError("serving observers arrive with the observers "
-                                      "slice of the port (ROADMAP Queue A)")
-        if kv_scales is not None:
-            raise NotImplementedError("static KV page scales from a mixed-precision plan "
-                                      "arrive with the static-KV slice of the port")
+            raise NotImplementedError("serving observers (saturation counters and the "
+                                      "serving taps) arrive with the observers slice of "
+                                      "the port (ROADMAP Queue A item 3)")
         if mesh is not None:
             raise NotImplementedError("mesh-native serving arrives with the multi-device "
                                       "slice of the port")
@@ -190,6 +206,11 @@ class PagedEngine:
         if datapath is not None:
             validate_datapath(self.model, datapath)
         self.datapath_fingerprint = tree_datapath_fingerprint(self.model)
+        #: pattern-aligned static KV page scales (attention slots {"k", "v"}
+        #: (R, nkv) f32 on the device, others {}), or None: dynamic scales
+        self._kv_scales_seq = self._static_kv_scales(kv_scales, cfg, paged.kv_dtype)
+        if self._kv_scales_seq is not None:
+            self.datapath_fingerprint += "+kv-static"
         self.sampler = sampler
         self.backend = backend
         max_pages = paged.max_pages_per_seq or -(-cfg.max_seq_len // paged.block_size)
@@ -233,6 +254,33 @@ class PagedEngine:
         #: decode-step captures (step builds on the CPU): one per engine
         self.chunk_traces = 0
         self._program = None
+
+    def _static_kv_scales(self, kv_scales, cfg, kv_dtype: str):
+        """The engine's static KV scales, one entry per pattern slot, as f32
+        tensors on its device, made once here; None without ``kv_scales``."""
+        from repro_torch.quant.observe.kv import plan_kv_scales
+
+        if kv_scales is not None and "slots" in kv_scales:
+            kv_scales = plan_kv_scales(kv_scales, device=self.device)
+        if not kv_scales:
+            return None
+        if kv_dtype != "int8":
+            raise ValueError("static kv_scales need kv_dtype='int8' (float pools carry no "
+                             "scale leaves)")
+        shape = (cfg.repeats, cfg.n_kv_heads)
+        for slot, sec in kv_scales.items():
+            if not (0 <= slot < len(cfg.pattern) and cfg.pattern[slot].mixer == "attn"):
+                raise ValueError(f"kv_scales names slot {slot}, which is not an attention "
+                                 f"slot of the {len(cfg.pattern)}-slot pattern")
+            for side in ("k", "v"):
+                if tuple(sec[side].shape) != shape:
+                    raise ValueError(f"kv_scales slot {slot} {side}: shape "
+                                     f"{tuple(sec[side].shape)}, expected {shape}")
+        return tuple(
+            {side: torch.as_tensor(kv_scales[i][side], dtype=torch.float32)
+             .to(self.device).contiguous() for side in ("k", "v")}
+            if i in kv_scales else {}
+            for i in range(len(cfg.pattern)))
 
     # ------------------------------------------------------------------
     # Programs
@@ -289,18 +337,26 @@ class PagedEngine:
         ``keep`` indexes (a batched prefill's rows hold different page
         counts). Int8 pools quantize on scatter, codes and per-(page, head)
         scales together; padded tail positions are zeros and cannot raise
-        a page's max."""
+        a page's max. With static KV scales the codes quantize against the
+        layer's calibrated row and the scales are its stamp (no per-page
+        max reduction)."""
         idx = self._dev(pages, torch.long)
         sel = None if keep is None else self._dev(keep, torch.long)
-        bs = self.paged.block_size
-        for pool, d in zip(self.cache["pools"], dense):
+        bs, period = self.paged.block_size, self.cfg.period
+        for i, (pool, d) in enumerate(zip(self.cache["pools"], dense)):
             if not pool:
                 continue
+            r, s = divmod(i, period)
+            static = self._kv_scales_seq[s] if self._kv_scales_seq else None
             for name in ("k", "v"):
                 x = d[name].reshape(-1, bs, *d[name].shape[2:])
                 if sel is not None:
                     x = x[sel]
-                if "k_scales" in pool:
+                if static:
+                    codes, scales = quantize_kv_pages_static(x, static[name][r][None, :])
+                    pool[f"{name}_pages"][idx] = codes
+                    pool[f"{name}_scales"][idx] = scales
+                elif "k_scales" in pool:
                     codes, scales = quantize_kv_pages(x)
                     pool[f"{name}_pages"][idx] = codes
                     pool[f"{name}_scales"][idx] = scales
@@ -436,7 +492,8 @@ class PagedEngine:
         cache, samp = self.cache, self.sampler
         logits, _ = decode_step_paged(
             self.model, cache["last_tok"][:, None], cache, attn_impl=self.paged.attn_impl,
-            attn_spec=self.attn_spec, watermarks=self.watermarks)
+            attn_spec=self.attn_spec, watermarks=self.watermarks,
+            kv_scales=self._kv_scales_seq)
         nxt = sample_rows(logits[:, -1], samp.temperature, samp.seed, cache["uids"],
                           cache["steps"])
         active = cache["active"]

@@ -426,6 +426,12 @@ def test_datapath_requests_and_refusals(setup):
         _paged(model, sched=SchedulerPolicy(prefill_chunk=12))
     with pytest.raises(ValueError, match="admission could never resume"):
         _paged(model, num_blocks=4, sched=SchedulerPolicy(watermark=(1, 8)))
-    for kw in (dict(observe=True), dict(kv_scales={}), dict(mesh=object())):
+    for kw in (dict(observe=True), dict(mesh=object())):
         with pytest.raises(NotImplementedError):
             PagedEngine(model, None, PagedConfig(**BASE), device="cpu", **kw)
+    # static KV page scales are ported (tests/test_torch_search.py); a float
+    # pool refuses them, as in the reference
+    scales = np.ones((cfg.repeats, cfg.n_kv_heads), np.float32).tolist()
+    kv = {"kv_bits_default": 8, "slots": {"0": {"k_scale": scales, "v_scale": scales}}}
+    with pytest.raises(ValueError, match="int8"):
+        PagedEngine(model, None, PagedConfig(**BASE), device="cpu", kv_scales=kv)

@@ -229,8 +229,11 @@ def test_serve_launcher_cpu(capsys):
                       "--prompt-len", "8", "--max-new", "4", "--device", "cpu"])
     assert out.shape == (2, 12)
     assert "tok/s" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="not yet ported"):
+    # --plan is ported (tests/test_torch_search.py): it validates an artifact
+    with pytest.raises(SystemExit, match="add --artifact"):
         serve.main(["--arch", ARCH, "--paged", "--plan", "plan.json", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="not yet ported"):
+        serve.main(["--arch", ARCH, "--paged", "--observe", "--device", "cpu"])
 
 
 def test_kernel_launch_counter_counts_only_launches(setup):
