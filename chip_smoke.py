@@ -242,7 +242,30 @@ result unless every phase passed):
    for the float w8 site, tokens equal to the reference backend. Each of
    phase 12's lines carries the card's name and power limit as
    ``nvidia-smi`` prints them. The kernels line gains each kernel's
-   ``search_launches``.
+   ``search_launches``;
+13. the serving observers on smollm-360m at full width, reusing phase
+   12's static-act artifact and ``plan.json`` (nothing calibrates). (a)
+   Phase 7's 12-request trace through two ``PagedEngine``s alike but for
+   ``observe``, with the plan's static KV scales on int8 pages, in turns
+   (plain, observed, observed, plain): greedy streams identical, one
+   capture each, B1 224 a forward and B3 32 a step in both (the taps
+   ride inside the observed engine's captured step), the saturation
+   report's 7 labels with ``n_calls`` = 32 x decode steps, ``clip_total``
+   = ``n_calls`` x rows x K, ``clip_count <= clip_total``, every
+   watermark inside its P_I (headroom = P_I - bits within 1e-3) and every
+   KV head's inside P_qk / P_pv; ``assert_observation_transparent`` on
+   the card's graph nodes; it prints the replayed step observed against
+   bare in turns (median and spread of 6), the device operations a replay
+   adds, tok/s, the fold's host time and per site the clip fraction, code
+   range, watermark and headroom, per KV head the watermark bits. (b) A
+   drift trace (another seed, ids below 256) through the same observed
+   engine: per-site clip fractions beside (a)'s (a measurement, no
+   gate). (c) Phase 7's bf16 RTN model with dynamic activations on float
+   pages, observed: no clip at any site, no KV section, streams equal to
+   phase 7's; then ``launch/serve.py --artifact --plan --packed --paged
+   --kv-dtype int8 --observe`` must print its ``observed 7 sites;
+   binding watermark:`` line. The kernels line gains B1's, B2's and B3's
+   ``observe_launches``.
 
 Before driving a path, every launch counter is set to 0, and the counts are
 read just after it. Phase 3 ends with a ``torch.profiler`` breakdown of one
@@ -3634,7 +3657,230 @@ def phase_search_slice(torch, smi: str):
             "b1": runs["static"]["counts"]["w4a8_matmul"] + serve_counts["w4a8_matmul"],
             "b3": runs["static"]["counts"]["paged_decode_attention_int8"],
             "b4": serve_counts["w4a8_sparse_matmul"], "turns": turns, "runs": runs,
-            "agree": agree, "floors": floors}
+            "agree": agree, "floors": floors, "served": served, "plan": plan,
+            "artifact": os.path.join(out_a, "quantized"),
+            "plan_path": os.path.join(out_a, "plan.json")}
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the serving observers
+# ---------------------------------------------------------------------------
+#: phase 13 (b): the drift trace's seed and token range (the calibration
+#: batches draw the whole vocabulary from TokenBatcher's seed 0)
+DRIFT_SEED, DRIFT_TOKENS = 13, (0, 256)
+#: phase 13: the observed sites' K (rows x K values a call reach the tap)
+OBSERVED_K = {"mixer.wq": 960, "mixer.wk": 960, "mixer.wv": 960, "mixer.wo": 960,
+              "ffn.wg": 960, "ffn.wu": 960, "ffn.wd": 2560}
+
+
+def drift_specs(cfg):
+    """Phase 13 (b)'s trace: TRACE_REQUESTS prompts of phase 7's lengths
+    from another seed and only the first DRIFT_TOKENS ids."""
+    import numpy as np
+
+    rng = np.random.default_rng(DRIFT_SEED)
+    return [(40_000 + u, rng.integers(*DRIFT_TOKENS, size=int(rng.integers(8, 301))),
+             int(rng.integers(4, 33))) for u in range(TRACE_REQUESTS)]
+
+
+def check_report(rep, engine, cfg, smi: str, tag: str, static: bool, steps: int) -> None:
+    """Phase 13's gates on a saturation report of ``steps`` decode steps:
+    the reference's 7 labels, n_calls = layers x steps, clip_total =
+    n_calls x rows x K,
+    clip_count <= clip_total (0 for the dynamic quantizer), every
+    watermark inside its P_I with headroom = P_I - bits, every KV head's
+    inside P_qk / P_pv (an int8 pool) or no KV section (a float pool)."""
+    want = {f"slot0/{k}" for k in OBSERVED_K}
+    check(set(rep["sites"]) == want, f"{tag}: labels {sorted(rep['sites'])}")
+    n_calls = cfg.n_layers * steps
+    for label, sec in rep["sites"].items():
+        k = OBSERVED_K[label.split("/", 1)[1]]
+        check(sec["n_calls"] == n_calls and sec["clip_total"] == n_calls * PAGED_SLOTS * k,
+              f"{tag} {label}: n_calls {sec['n_calls']}, clip_total {sec['clip_total']}; "
+              f"expected {n_calls}, {n_calls * PAGED_SLOTS * k}")
+        check(sec["clip_count"] <= sec["clip_total"] and (static or sec["clip_count"] == 0),
+              f"{tag} {label}: clip_count {sec['clip_count']}")
+        if static:
+            check(sec["watermark_bits"] <= sec["p_inner"]
+                  and abs(sec["headroom_bits_observed"]
+                          - (sec["p_inner"] - sec["watermark_bits"])) <= 1e-3,
+                  f"{tag} {label}: watermark {sec['watermark_bits']} bits, P_I "
+                  f"{sec['p_inner']}, headroom {sec['headroom_bits_observed']}")
+    if engine.attn_spec is None:
+        check("kv_heads" not in rep, f"{tag}: a float pool reports KV heads")
+        return
+    for slot, heads in rep["kv_heads"].items():
+        for h, sec in heads.items():
+            check(sec["qk_watermark_bits"] <= sec["p_qk"]
+                  and sec["pv_watermark_bits"] <= sec["p_pv"],
+                  f"{tag} {slot}/{h}: {sec}")
+    print(f"[observe] [{smi}] {tag} KV heads (int8 pages, P_qk {engine.attn_spec.p_qk}, P_pv "
+          f"{engine.attn_spec.p_pv}): " + "; ".join(
+              f"{slot}/{h} k {sec['k_code_max']:.0f} v {sec['v_code_max']:.0f} -> QK "
+              f"{sec['qk_watermark_bits']:.4f} / PV {sec['pv_watermark_bits']:.4f} bits"
+              for slot, heads in rep["kv_heads"].items() for h, sec in heads.items()))
+
+
+def print_sites(smi: str, tag: str, rep, other=None) -> None:
+    """Per site: clip fraction (beside ``other``'s), code range, watermark
+    bits and observed headroom."""
+    parts = []
+    for label, sec in rep["sites"].items():
+        wm = (f", watermark {sec['watermark_bits']:.4f} bits of P_I {sec['p_inner']}, "
+              f"headroom {sec['headroom_bits_observed']:.4f}") if "watermark_bits" in sec else ""
+        vs = f" (trace (a) {other['sites'][label]['clip_frac']:.6f})" if other else ""
+        parts.append(f"{label} clips {sec['clip_count']}/{sec['clip_total']} = "
+                     f"{sec['clip_frac']:.6f}{vs}, codes [{sec['code_min']:.0f}, "
+                     f"{sec['code_max']:.0f}]{wm}")
+    print(f"[observe] [{smi}] {tag} per site: " + "; ".join(parts))
+
+
+def phase_observe_slice(torch, smi: str, search: dict, paged: dict):
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch import search as S
+    from repro_torch.launch import serve as SV
+    from repro_torch.models.layers import use_packed_backend
+    from repro_torch.serving import PagedConfig, PagedEngine, Request, SamplerConfig
+
+    t_phase = time.perf_counter()
+    cfg = S.f32_config(get_config("smollm-360m"))
+    greedy = SamplerConfig(temperature=0.0)
+    served, plan = search["served"], search["plan"]
+    specs, _ = trace_specs(cfg)
+
+    def engine(observe, model=served, kv_dtype="int8", kv_scales=plan.kv):
+        return PagedEngine(model, None, PagedConfig(
+            block_size=PAGED_BLOCK, num_blocks=PAGED_BLOCKS, max_concurrency=PAGED_SLOTS,
+            chunk_max=PAGED_CHUNK, attn_impl="auto", kv_dtype=kv_dtype), greedy,
+            device="cuda", observe=observe, kv_scales=kv_scales)
+
+    def reqs(spec_list):
+        return [Request(uid=u, prompt=p, max_new=n) for u, p, n in spec_list]
+
+    # (a) observed against plain on phase 12's static-act artifact with its
+    # static KV scales, int8 pages; the engines run in turns
+    engines = {"plain": engine(False), "observed": engine(True)}
+    for eng in engines.values():
+        warm_paged(eng, specs[0][1])
+    obs = engines["observed"]
+    obs.observer.reset()  # the report covers the trace alone
+    runs = {"plain": [], "observed": []}
+    for name in ("plain", "observed", "observed", "plain"):
+        runs[name].append(driven(torch, cfg, engines[name], reqs(specs), "int8"))
+    check(obs.datapath_fingerprint == engines["plain"].datapath_fingerprint.replace(
+        "+kv-static", "+obs+kv-static"), f"fingerprint {obs.datapath_fingerprint}")
+    want = runs["plain"][0]["res"]
+    for run in runs["plain"][1:] + runs["observed"]:
+        for r in want:
+            check((run["res"][r] == want[r]).all(),
+                  f"(a) observed and plain greedy streams differ at request {r}")
+    t0 = time.perf_counter()
+    rep_a = obs.saturation_report()
+    report_s = time.perf_counter() - t0
+    check_report(rep_a, obs, cfg, smi, "(a)", static=True,
+                 steps=sum(r["ran"]["steps"] for r in runs["observed"]))
+    ops = {n: e._program.device_ops for n, e in engines.items()}
+    per_engine = []
+    for n, rs in runs.items():
+        tok_s = " / ".join(f"{r['tok_s']:.1f}" for r in rs)
+        step_ms = " / ".join(f"{r['step_ms']:.3f}" for r in rs)
+        per_engine.append(
+            f"{n}: one capture, {ops[n]} device operations a replay, B1 "
+            f"{rs[0]['counts']['w4a8_matmul']} (224 a forward), B3 "
+            f"{rs[0]['counts']['paged_decode_attention_int8']} (32 a step) over "
+            f"{rs[0]['ran']['steps']} steps a run, {tok_s} tok/s, decode step {step_ms} ms "
+            f"in the trace (host clock)")
+    print(f"[observe] [{smi}] (a) phase 12's static-act artifact (f32) with plan.kv, int8 "
+          f"pages, phase 7's {TRACE_REQUESTS} requests, twice an engine in turns (plain, "
+          f"observed, observed, plain): every observed stream identical to the plain one's; "
+          + "; ".join(per_engine)
+          + f"; the observed replay adds {ops['observed'] - ops['plain']} device operations "
+          f"({len(obs.observer.block.labels) * cfg.n_layers} taps); saturation_report {1e3 * report_s:.3f} ms (host clock)")
+    print_sites(smi, "(a)", rep_a)
+
+    # (b) drift: the same observed engine, a trace unlike the calibration
+    obs.observer.reset()
+    run_b = driven(torch, cfg, obs, reqs(drift_specs(cfg)), "int8")
+    rep_b = obs.saturation_report()
+    check_report(rep_b, obs, cfg, smi, "(b)", static=True, steps=run_b["ran"]["steps"])
+    print(f"[observe] [{smi}] (b) drift: {TRACE_REQUESTS} prompts of seed {DRIFT_SEED}, ids "
+          f"in [{DRIFT_TOKENS[0]}, {DRIFT_TOKENS[1]}), {run_b['ran']['steps']} steps, "
+          f"{run_b['tok_s']:.1f} tok/s")
+    print_sites(smi, "(b)", rep_b, rep_a)
+
+    # the replayed step, observed against bare, in turns over PAGED_SLOTS
+    # live slots; the fold's host time
+    from repro_torch.data import DataConfig, TokenBatcher
+
+    prompts = TokenBatcher(DataConfig(vocab=cfg.vocab, seq_len=PROMPT, global_batch=BATCH,
+                                      seed=0)).batch(0)["tokens"]
+    with torch.inference_mode(), use_packed_backend("kernel"):
+        for name, eng in engines.items():
+            sched = eng._make_scheduler()
+            for b in range(PAGED_SLOTS):
+                sched.submit(Request(uid=50_000 + b, prompt=np.asarray(prompts[b % BATCH]),
+                                     max_new=2 * 6 * PAGED_CHUNK + 1))
+            adm = sched.try_admit()
+            while adm is not None:
+                eng._do_admit(adm)
+                adm = sched.try_admit()
+            check(len(sched.active) == PAGED_SLOTS, f"{name}: timing slots not all admitted")
+        turns = in_turns(torch, {"bare": lambda: engines["plain"]._chunk(PAGED_CHUNK),
+                                 "observed": lambda: obs._chunk(PAGED_CHUNK)},
+                         runs=6, scale=PAGED_CHUNK)
+    folds = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        obs.observer.fold()
+        folds.append(1e3 * (time.perf_counter() - t0))
+    fold = spread_ms(folds)
+    t0 = time.perf_counter()
+    obs.assert_observation_transparent()
+    transparent_s = time.perf_counter() - t0
+    print(f"[observe] [{smi}] replayed step in turns over {PAGED_SLOTS} live slots: bare "
+          f"{fmt_spread(turns['bare'])}, observed {fmt_spread(turns['observed'])}, ratio "
+          f"{turns['observed']['median'] / turns['bare']['median']:.4f}; fold (one read of "
+          f"the {len(obs.observer.block.labels)} x 32-byte block, zeroed in place) "
+          f"{fmt_spread(fold)} (host clock); assert_observation_transparent on the card's "
+          f"graph nodes (three throwaway captures) passed in {transparent_s:.3f} s")
+
+    # (c) the float pool: phase 7's bf16 RTN model, dynamic activations,
+    # observed; then the launcher with --observe
+    eng_c = engine(True, model=paged["model"], kv_dtype="act", kv_scales=None)
+    warm_paged(eng_c, specs[0][1])
+    eng_c.observer.reset()
+    run_c = driven(torch, paged["model"].cfg, eng_c, reqs(specs), "act")
+    check(all((run_c["res"][u] == paged["runs"]["act"]["res"][u]).all() for u, _, _ in specs),
+          "(c): the observed float-KV streams differ from phase 7's plain run")
+    rep_c = eng_c.saturation_report()
+    check_report(rep_c, eng_c, cfg, smi, "(c)", static=False, steps=run_c["ran"]["steps"])
+    print(f"[observe] [{smi}] (c) phase 7's bf16 RTN model (dynamic activations), float "
+          f"pages, observed: streams equal phase 7's plain run; B1 "
+          f"{run_c['counts']['w4a8_matmul']}, B2 {run_c['counts']['paged_decode_attention']} "
+          f"(32 a step) over {run_c['ran']['steps']} steps; {eng_c._program.device_ops} device "
+          f"operations a replay (phase 7's plain float replay: "
+          f"{paged['runs']['act']['device_ops']}); "
+          f"{run_c['tok_s']:.1f} tok/s; no clip at any site, no KV section")
+    print_sites(smi, "(c)", rep_c)
+    _, lines = quiet(SV.main, ["--arch", "smollm-360m", "--float32", "--artifact",
+                               search["artifact"], "--plan", search["plan_path"], "--packed",
+                               "--paged", "--kv-dtype", "int8", "--block-size",
+                               str(PAGED_BLOCK), "--batch", str(BATCH), "--prompt-len",
+                               str(PROMPT), "--max-new", str(MAX_NEW), "--device", "cuda",
+                               "--observe"])
+    observed_line = next((ln for ln in lines if "binding watermark:" in ln), "")
+    check(observed_line.startswith("[serve] observed 7 sites; binding watermark: slot0/"),
+          f"serve --observe: {observed_line!r}")
+    for line in lines:
+        if line.startswith("[serve]") and "saturation report" not in line:
+            print(f"[observe] [{smi}] (c) launcher: {line}")
+    print(f"[observe] [{smi}] phase 13 wall {time.perf_counter() - t_phase:.3f} s")
+    return {"b1": sum(r["counts"]["w4a8_matmul"] for r in runs["observed"]),
+            "b3": sum(r["counts"]["paged_decode_attention_int8"] for r in runs["observed"]),
+            "b2": run_c["counts"]["paged_decode_attention"], "turns": turns, "fold": fold,
+            "ops": ops}
 
 
 def expert_record(name, rows, err, launches, ms_key, plain_key, replaces, pallas):
@@ -3857,6 +4103,7 @@ def main() -> int:
     expert_rows, expert_err = phase_expert_kernels(torch)
     moe = phase_moe_slice(torch)
     search = phase_search_slice(torch, smi)
+    observe = phase_observe_slice(torch, smi, search, paged)
     records = [
         kernel_record(rows, max_err, launches, host),
         paged_record("paged_decode_attention", paged_rows["float"], paged_err["float"],
@@ -3883,6 +4130,10 @@ def main() -> int:
         if n is not None:
             rec["search_launches"] = n
     records[4]["masked"]["search_launches"] = search["b5_masked"]
+    # phase 13's launches on the observed engines: B1 and B3 in (a)'s
+    # observed trace, B2 in (c)'s float-KV trace
+    for rec, n in zip(records[:3], (observe["b1"], observe["b2"], observe["b3"])):
+        rec["observe_launches"] = n
     print(json.dumps({"kernels": records}))
     # one card: every phase runs on cuda:0
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

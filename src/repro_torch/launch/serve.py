@@ -47,13 +47,21 @@ to the engine (no requantize-on-append)::
 ``--float32`` serves an f32 copy of the configuration (the form a
 calibrated bfloat16 architecture was calibrated in).
 
-``--mesh``, ``--observe`` and ``--ckpt-dir`` are accepted and refused, each
-naming the slice that brings it.
+``--observe`` (with ``--paged``) attaches the serving saturation
+counters; after the timed run the launcher asserts the observer
+transparent, prints the binding watermark and the JSON report::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
+        --smoke --packed --paged --block-size 8 --kv-dtype int8 --observe --device cpu
+
+``--mesh`` and ``--ckpt-dir`` are accepted and refused, each naming the
+slice that brings it.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import time
 
 import numpy as np
@@ -80,8 +88,6 @@ from repro_torch.serving.scheduler import blocks_for_budget, kv_pool_bytes
 #: flags of the reference launcher that belong to slices not ported yet
 _UNPORTED = {
     "--mesh": "multi-device serving",
-    "--observe": "serving observers (saturation counters and the serving taps, the "
-                 "observers slice)",
     "--ckpt-dir": "checkpoint restore of trained params",
 }
 
@@ -142,6 +148,11 @@ def main(argv=None):
                          "calibrated static KV page scales")
     ap.add_argument("--float32", action="store_true",
                     help="an f32 copy of the configuration (as calibration takes it)")
+    ap.add_argument("--observe", action="store_true",
+                    help="attach serving saturation counters (--paged): static-quantizer "
+                         "clip counts and per-site / per-head accumulator watermarks, "
+                         "reported after generation; the decode step gains only the taps "
+                         "(structurally asserted)")
     for flag, what in _UNPORTED.items():
         ap.add_argument(flag, nargs="*", default=None,
                         help=f"not yet ported ({what})")
@@ -182,6 +193,8 @@ def main(argv=None):
                            or args.prefill_chunk is not None or args.watermark is not None):
         raise SystemExit("--admit-window/--admit-batch/--prefill-chunk/--watermark apply "
                          "to the paged engine only (add --paged)")
+    if args.observe and not args.paged:
+        raise SystemExit("--observe applies to the paged engine only (add --paged)")
     if args.paged:
         if args.host_loop:
             raise SystemExit("--host-loop applies to the fixed-slot engine only")
@@ -201,7 +214,25 @@ def main(argv=None):
     print(f"[serve] device={device} batch={args.batch} new_tokens={n_new} {loop} "
           f"{dt:.4f}s  {args.batch * n_new / dt:.1f} tok/s")
     print("[serve] sample:", out[0, -min(16, out.shape[1]):].tolist())
+    if args.observe:
+        _print_observation(engine)
     return out
+
+
+def _print_observation(engine: PagedEngine) -> None:
+    """The reference's observation lines: the transparency check, the
+    binding watermark (least observed headroom) and the JSON report."""
+    engine.assert_observation_transparent()
+    rep = engine.saturation_report()
+    worst = None
+    for name, sec in rep["sites"].items():
+        h = sec.get("headroom_bits_observed")
+        if h is not None and (worst is None or h < worst[1]):
+            worst = (name, h)
+    print(f"[serve] observed {len(rep['sites'])} sites; binding watermark: "
+          f"{worst[0] if worst else '-'}"
+          f"{f' ({worst[1]:.2f} headroom bits)' if worst else ''}")
+    print("[serve] saturation report:", json.dumps(rep, indent=2, default=float))
 
 
 def _validated_plan(args, model, cfg):
@@ -256,7 +287,8 @@ def _paged_engine(args, model, cfg, sampler, device, kv_scales=None) -> PagedEng
             PagedConfig(block_size=args.block_size, num_blocks=num_blocks,
                         max_concurrency=args.max_concurrency, kv_dtype=args.kv_dtype,
                         prefix_cache=args.prefix_cache, sched=policy),
-            sampler, device=device, backend=args.packed_backend, kv_scales=kv_scales)
+            sampler, device=device, backend=args.packed_backend, kv_scales=kv_scales,
+            observe=args.observe)
     except ValueError as e:
         raise SystemExit(f"paged engine: {e}") from None
     pool_mb = kv_pool_bytes(cfg, num_blocks, args.block_size, args.kv_dtype) / 2**20

@@ -1,7 +1,9 @@
 """Core layers (port of ``repro/models/layers.py``, dense serving path):
 norms, RoPE, GQA attention (full, online-softmax chunked, decode, paged
-decode), the SwiGLU/GELU MLP, embedding and LM head, and the packed-weight
-matmul dispatch that routes every quantized site onto the W4A8 datapath.
+decode), the SwiGLU/GELU MLP, embedding and LM head, the packed-weight
+matmul dispatch that routes every quantized site onto the W4A8 datapath,
+and the serving observer's taps on it (``attach_observer``,
+``site_scope``).
 
 Parameters are ``nn.Module``s: :class:`Linear` (a float (K, N) weight),
 :class:`PackedLinear` (a packed-int4 serving site) and the component
@@ -160,15 +162,21 @@ def dequant_weight(leaf: PackedLinear) -> torch.Tensor:
     return site_codes(leaf).to(leaf.scale.dtype) * leaf.scale
 
 
-def _static_act_codes(x2, leaf: PackedLinear, spec: DatapathSpec):
-    """Activation codes from the site's calibrated static quantizer: pure
-    elementwise ops, codes in the certificate's alphabet."""
+def _static_act_raw(x2, leaf: PackedLinear):
+    """``rint(x / scale) + zp`` under the site's calibrated static quantizer,
+    before the clip (f32), with the scale and zero point."""
     shape = (-1, 1, 1) if leaf.stacked else ()  # one quantizer an expert
     scale = leaf.act_scale.to(torch.float32).reshape(shape)
     zp = leaf.act_zp.to(torch.float32).reshape(shape)
+    return torch.round(x2.to(torch.float32) / scale) + zp, scale, zp
+
+
+def _static_act_codes(x2, leaf: PackedLinear, spec: DatapathSpec):
+    """Activation codes from the site's calibrated static quantizer: pure
+    elementwise ops, codes in the certificate's alphabet."""
+    raw, scale, zp = _static_act_raw(x2, leaf)
     alpha = act_alphabet(spec.act_bits, signed=spec.act_signed)
-    codes = torch.clamp(torch.round(x2.to(torch.float32) / scale) + zp,
-                        alpha.qmin, alpha.qmax)
+    codes = torch.clamp(raw, alpha.qmin, alpha.qmax)
     return codes.to(torch.int8 if spec.act_signed else torch.uint8), scale, zp
 
 
@@ -239,8 +247,94 @@ def packed_linear(x, leaf: PackedLinear, *, spec: DatapathSpec | None = None,
 
 def pmm(p: nn.Module, name: str, x):
     """``x @ p.<name>`` through whichever site module sits there: the seam
-    every quantizable-site matmul goes through."""
-    return getattr(p, name)(x)
+    every quantizable-site matmul goes through, and where the serving
+    observer taps a packed site's input."""
+    site = getattr(p, name)
+    obs = active_observer()
+    if obs is not None and isinstance(site, PackedLinear) and not site.stacked:
+        scope = getattr(_observe_state, "scope", None)
+        if scope is not None:
+            _record_site_observation(obs, f"{scope}.{name}", x, site)
+    return site(x)
+
+
+# ---------------------------------------------------------------------------
+# Serving-side observation (saturation counters)
+# ---------------------------------------------------------------------------
+# The observer seam: when an observer is attached (attach_observer) AND a
+# site scope is active (site_scope: the paged decode step sets one per
+# pattern slot), pmm taps each packed, non-stacked site's input and writes
+# its static-quantizer clip count and activation-code extrema into the
+# observer's device counter block, in place (the reference reports them
+# through jax.debug.callback; a captured CUDA graph cannot call the host).
+# With no observer attached (the default) the checks are Python None tests
+# and the step is op for op the plain one: asserted by
+# PagedEngine.assert_observation_transparent. Prefill and admit programs
+# set no scope, so they stay unobserved while observing. MoE expert stacks
+# are never tapped: the reference's experts bypass pmm.
+_observe_state = threading.local()
+
+
+def active_observer():
+    """The attached observer (a
+    :class:`~repro_torch.quant.observe.SaturationCounters` with a device
+    block), or None."""
+    return getattr(_observe_state, "observer", None)
+
+
+@contextmanager
+def attach_observer(obs):
+    """Attach a serving observer for the enclosed calls."""
+    prev = getattr(_observe_state, "observer", None)
+    _observe_state.observer = obs
+    try:
+        yield
+    finally:
+        _observe_state.observer = prev
+
+
+@contextmanager
+def site_scope(label: str):
+    """Name the current component ("slot0/mixer") so packed sites report
+    under slot-granular labels matching the mixed-precision plan's keys."""
+    prev = getattr(_observe_state, "scope", None)
+    _observe_state.scope = label
+    try:
+        yield
+    finally:
+        _observe_state.scope = prev
+
+
+def tapping() -> bool:
+    """True while a tap's ops are being dispatched (how a program recorder
+    tells the taps' ops from the step's own)."""
+    return getattr(_observe_state, "tapping", False)
+
+
+def _record_site_observation(obs, label: str, x, leaf: PackedLinear) -> None:
+    """One site's observation, written into ``obs``'s device block: the
+    static quantizer's clip count (values of ``rint(x/scale) + zp`` outside
+    the alphabet; a NaN counts as clipped) and the extrema of its clipped
+    codes, or, for the dynamic quantizer, the extrema of
+    ``quantize_activations``' codes and no clip. ``clip_total`` counts
+    every row, idle ones included, as the reference does. Reads ``x``
+    only: what the site's matmul receives is untouched."""
+    _observe_state.tapping = True
+    try:
+        spec = leaf.spec if leaf.spec is not None else DatapathSpec()
+        x2 = x.reshape(-1, x.shape[-1])
+        if spec.static_act and leaf.act_scale is not None:
+            raw, _, _ = _static_act_raw(x2, leaf)
+            alpha = act_alphabet(spec.act_bits, signed=spec.act_signed)
+            codes = torch.clamp(raw, alpha.qmin, alpha.qmax)
+            n_clip = torch.sum(codes != raw)
+        else:
+            codes, _, _ = quantize_activations(x2)
+            n_clip = None
+        lo, hi = torch.aminmax(codes)
+        obs.write(label, x2.numel(), n_clip, lo, hi)
+    finally:
+        _observe_state.tapping = False
 
 
 # ---------------------------------------------------------------------------

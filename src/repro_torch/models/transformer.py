@@ -34,6 +34,7 @@ from .layers import (
     mlp,
     norm,
     paged_attention_decode,
+    site_scope,
     torch_dtype,
 )
 
@@ -344,23 +345,30 @@ def decode_step_paged(model: Transformer, tokens, cache: dict, *, attn_impl: str
     others ``{}``), as in the reference; layer ``r * period + s`` appends
     under row ``r`` of slot ``s`` (a view, no device work). None keeps the
     dynamic requantize-on-append.
+    Layer ``i``'s attention and FFN run under the site scopes
+    ``slot{i % period}/mixer`` and ``/ffn``, so an attached serving
+    observer (:func:`~repro_torch.models.layers.attach_observer`) taps
+    their packed sites, as in the reference; no other program sets one.
     Updates the cache in place; returns (logits (num_slots, 1, V), cache)."""
     cfg = model.cfg
     x = embed(model.embedding, tokens.long(), cfg)
     table, lens, active = cache["block_table"], cache["seq_lens"], cache["active"]
     for i, (block, pool) in enumerate(zip(model.layers, cache["pools"])):
+        r, s = divmod(i, cfg.period)
         if block.mixer is not None:
             h = norm(block.norm1, x, cfg.norm)
-            r, s = divmod(i, cfg.period)
             sks = kv_scales[s] if kv_scales is not None and kv_scales[s] else None
-            y, _ = paged_attention_decode(block.mixer, h, cfg, pool, table, lens, active,
-                                          impl=attn_impl, attn_spec=attn_spec,
-                                          assert_bounds=assert_bounds, watermarks=watermarks,
-                                          static_kv_scales=None if sks is None else
-                                          {"k": sks["k"][r], "v": sks["v"][r]})
+            with site_scope(f"slot{s}/mixer"):
+                y, _ = paged_attention_decode(block.mixer, h, cfg, pool, table, lens, active,
+                                              impl=attn_impl, attn_spec=attn_spec,
+                                              assert_bounds=assert_bounds,
+                                              watermarks=watermarks,
+                                              static_kv_scales=None if sks is None else
+                                              {"k": sks["k"][r], "v": sks["v"][r]})
             x = x + y
         if block.ffn is not None:
-            x = _ffn(block, cfg, x)
+            with site_scope(f"slot{s}/ffn"):
+                x = _ffn(block, cfg, x)
     x = norm(model.final_norm, x, cfg.norm)
     lens.add_(active.to(lens.dtype))
     return lm_logits(model.embedding, x, cfg), cache

@@ -12,20 +12,24 @@ mixed-precision search (port of ``repro/quant/observe``).
   P_I)`` under a global accumulator budget) and :func:`apply_plan`
   (certificate-exact re-spec: same codes, tighter registers, re-issued
   certificates);
+* :mod:`.saturation` — :class:`SaturationCounters`, the serving-side
+  observer (static-quantizer clip counts and code extrema counted on the
+  device inside the captured decode step, per-site and per-KV-head
+  accumulator watermarks at report time); see
+  ``repro_torch.models.layers.attach_observer``;
 * :mod:`.kv` — :func:`observe_kv_ranges` (calibrated static KV page
   scales, which drop requantize-on-append) and per-head KV bits.
-
-The serving saturation counters (the reference's ``saturation.py``) come
-with the observers slice of the port.
 """
 
 from .kv import observe_kv_ranges, plan_kv_scales, search_kv_bits
 from .records import MixedPrecisionPlan, ObserverReport, SiteObservation, collect_observations
+from .saturation import SaturationCounters
 from .search import apply_plan, plan_accumulator_bits, search_plan
 
 __all__ = [
     "MixedPrecisionPlan",
     "ObserverReport",
+    "SaturationCounters",
     "SiteObservation",
     "apply_plan",
     "collect_observations",

@@ -22,16 +22,25 @@ wrappers' rise, and each replay adds it, so a counter still says how many
 times its kernel ran on the device.
 
 A failed capture or replay raises; nothing falls back to eager on CUDA.
+
+:func:`record_step` builds one step's program text without replaying
+anything (``PagedEngine.decode_step_program``): a throwaway capture on
+CUDA, read and freed, or one eager run on the CPU, with the aten ops
+dispatched during it recorded by a :class:`ProgramRecorder`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import gc
 import re
 import time
+from contextlib import nullcontext
+from dataclasses import dataclass
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.kernels.gpfq_solve import gpfq_solve
 from repro_torch.kernels.paged_attention import paged_decode_attention
@@ -42,6 +51,7 @@ from repro_torch.kernels.w4a8_mm import (
     w4a8_sparse_expert_matmul,
     w4a8_sparse_matmul,
 )
+from repro_torch.models.layers import tapping
 
 #: every kernel wrapper's launch counter, as (wrapper, attribute, pattern
 #: of its kernel's mangled name); a wrapper adds one a launch, and each of
@@ -152,10 +162,11 @@ class StepProgram:
 
     After the first CUDA run: ``rise`` is what one replay adds to each of
     :data:`COUNTERS`, counted by name in the graph, ``device_ops`` the
-    device operations one replay runs, ``capture_s`` the host seconds of
-    the first run (the real warm-up step, the capture, the walk of the
-    graph's nodes and its instantiation) and ``walk_s`` those of the walk.
-    :meth:`close` frees the graph."""
+    device operations one replay runs, ``names`` its kernel nodes' names,
+    ``capture_s`` the host seconds of the first run (the real warm-up
+    step, the capture, the walk of the graph's nodes and its
+    instantiation) and ``walk_s`` those of the walk. :meth:`close` frees
+    the graph."""
 
     def __init__(self, step, device):
         self.step = step
@@ -163,6 +174,7 @@ class StepProgram:
         self.graph = None
         self.rise = [0] * len(COUNTERS)
         self.device_ops = 0
+        self.names: list[str] = []
         self.capture_s = self.walk_s = None
         self.replays = 0
 
@@ -179,7 +191,9 @@ class StepProgram:
         _add_counts(self.rise, n)
         self.replays += n
 
-    def _capture(self) -> None:
+    def _capture(self, during=None) -> None:
+        """The warm-up step, then the capture (inside ``during``, a context
+        such as a :class:`ProgramRecorder`, when given)."""
         t0 = time.perf_counter()
         current = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
@@ -188,13 +202,23 @@ class StepProgram:
             self.step()  # the warm-up is a real step
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         before = _counts()
-        with torch.cuda.graph(graph, stream=side):
-            self.step()
+        # an unreachable graph that the cyclic collector frees mid-capture
+        # frees device memory, which invalidates the capture: collect first,
+        # and not during it
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, stream=side), during or nullcontext():
+                self.step()
+        finally:
+            if collecting:
+                gc.enable()
         counted = [a - b for a, b in zip(_counts(), before)]
         _add_counts(counted, -1)  # the capture ran nothing
         t1 = time.perf_counter()
-        self.device_ops, names = graph_contents(graph)
-        self.rise = count_kernels(names)
+        self.device_ops, self.names = graph_contents(graph)
+        self.rise = count_kernels(self.names)
         self.walk_s = time.perf_counter() - t1
         if self.rise != counted:
             raise RuntimeError(f"the captured step holds {self.rise} of the counted kernels "
@@ -213,4 +237,81 @@ class StepProgram:
         self.graph = self.step = None
 
 
-__all__ = ["COUNTERS", "StepProgram", "count_kernels", "graph_contents"]
+class ProgramRecorder(TorchDispatchMode):
+    """Records the aten ops dispatched inside it, in order, each as (name,
+    dispatched by a serving tap (:func:`~repro_torch.models.layers.tapping`),
+    the storages of the arguments its schema marks as written, by data
+    pointer). A write is recognised by the op's schema alone; kernels
+    called through ``ctypes`` are not ops and are not recorded."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops: list[tuple[str, bool, frozenset]] = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        written = set()
+        for i, arg in enumerate(func._schema.arguments):
+            if arg.alias_info is None or not arg.alias_info.is_write:
+                continue
+            v = args[i] if i < len(args) else kwargs.get(arg.name)
+            for t in v if isinstance(v, (list, tuple)) else (v,):
+                if isinstance(t, torch.Tensor):
+                    written.add(t.untyped_storage().data_ptr())
+        self.ops.append((str(func), tapping(), frozenset(written)))
+        return func(*args, **kwargs)
+
+
+@dataclass(frozen=True)
+class ProgramText:
+    """One step's program: ``ops`` as a :class:`ProgramRecorder` saw them;
+    on CUDA ``nodes``, the kernel nodes' names of its captured graph, and
+    ``device_ops``, the graph's device operations."""
+
+    ops: tuple
+    nodes: tuple | None = None
+    device_ops: int | None = None
+
+    @property
+    def op_names(self) -> tuple:
+        return tuple(n for n, _, _ in self.ops)
+
+    @property
+    def text(self) -> tuple:
+        """The kernel nodes' names on CUDA, the ops' names on the CPU."""
+        return self.nodes if self.nodes is not None else self.op_names
+
+    def untapped(self) -> tuple:
+        """The names of the ops no tap dispatched."""
+        return tuple(n for n, tap, _ in self.ops if not tap)
+
+    def taps(self) -> int:
+        return sum(tap for _, tap, _ in self.ops)
+
+    def writes(self, storage: int) -> bool:
+        """Whether an op writes the storage at data pointer ``storage``."""
+        return any(storage in w for _, _, w in self.ops)
+
+
+def record_step(step, device) -> ProgramText:
+    """The program of one ``step`` on ``device``, replaying nothing: on CUDA
+    a throwaway :class:`StepProgram` whose warm-up is a real step (its
+    launches count) and whose capture is recorded, read and freed (its
+    counted rise taken back, as for any capture); on the CPU one eager
+    step, recorded."""
+    device = torch.device(device)
+    rec = ProgramRecorder()
+    if device.type != "cuda":
+        with rec:
+            step()
+        return ProgramText(tuple(rec.ops))
+    program = StepProgram(step, device)
+    try:
+        program._capture(during=rec)
+        return ProgramText(tuple(rec.ops), tuple(program.names), program.device_ops)
+    finally:
+        program.close()
+
+
+__all__ = ["COUNTERS", "ProgramRecorder", "ProgramText", "StepProgram", "count_kernels",
+           "graph_contents", "record_step"]

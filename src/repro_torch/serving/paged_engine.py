@@ -74,14 +74,25 @@ requantize-on-append. The scales are device tensors made once, before the
 decode step is captured, and never rebound, so the captured step reads
 them at fixed addresses.
 
-Left for later slices, raising ``NotImplementedError``: ``mesh`` and
-``observe``.
+``observe=True`` attaches the serving observer
+(:class:`~repro_torch.quant.observe.SaturationCounters`) around both
+loops: the decode step's taps count each packed site's static-quantizer
+clips and code extrema into a device counter block, allocated here,
+before the step is captured, and never rebound, so the taps live inside
+the captured graph and a chunk keeps its one host read. The block is
+folded into the host counters once at the end of each :meth:`serve` and
+in :meth:`saturation_report`; counts accumulate across serves until the
+observer's ``reset()``. :meth:`assert_observation_transparent` holds the
+observer off the plain step, structurally.
+
+Left for a later slice, raising ``NotImplementedError``: ``mesh``.
 """
 
 from __future__ import annotations
 
 import time
 from collections import deque
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass
 
 import numpy as np
@@ -95,10 +106,12 @@ from repro_torch.kernels.paged_attention import (
 )
 from repro_torch.models.layers import (
     _PACKED_BACKENDS,
+    attach_observer,
     resolve_paged_attn_impl,
     use_packed_backend,
 )
 from repro_torch.models.transformer import decode_step_paged, init_paged_cache, prefill
+from repro_torch.quant.observe.saturation import SaturationCounters, observed_labels
 from repro_torch.quant.serve_packed import upgrade_packed_params
 from repro_torch.quant.spec import (
     AttnDatapathSpec,
@@ -107,7 +120,7 @@ from repro_torch.quant.spec import (
     validate_datapath,
 )
 from repro_torch.serving.engine import SamplerConfig, sample_rows
-from repro_torch.serving.graphs import StepProgram
+from repro_torch.serving.graphs import ProgramText, StepProgram, count_kernels, record_step
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.scheduler import PoolState, Request, Scheduler, SchedulerPolicy
 
@@ -179,17 +192,14 @@ class PagedEngine:
     P_pv after every :meth:`serve` (one host read). ``kv_scales`` holds
     calibrated static KV page scales (a plan's ``kv`` section, or
     ``{slot: {"k": (R, nkv), "v": (R, nkv)}}``); they need an int8 pool and
-    name attention slots only."""
+    name attention slots only. ``observe`` attaches the serving saturation
+    counters (:meth:`saturation_report`)."""
 
     def __init__(self, model, cfg=None, paged: PagedConfig = PagedConfig(),
                  sampler: SamplerConfig = SamplerConfig(), datapath=None,
                  attn_datapath=None, *, device="cuda", backend: str = "kernel",
                  assert_bounds: bool = False, observe: bool = False, kv_scales=None,
                  mesh=None):
-        if observe:
-            raise NotImplementedError("serving observers (saturation counters and the "
-                                      "serving taps) arrive with the observers slice of "
-                                      "the port (ROADMAP Queue A item 3)")
         if mesh is not None:
             raise NotImplementedError("mesh-native serving arrives with the multi-device "
                                       "slice of the port")
@@ -209,6 +219,14 @@ class PagedEngine:
         #: pattern-aligned static KV page scales (attention slots {"k", "v"}
         #: (R, nkv) f32 on the device, others {}), or None: dynamic scales
         self._kv_scales_seq = self._static_kv_scales(kv_scales, cfg, paged.kv_dtype)
+        #: the serving observer, its device block made here, before any
+        #: capture, one row per label the decode step can report; None
+        #: (the default) leaves the step tap-free
+        self.observer = None
+        if observe:
+            self.observer = SaturationCounters()
+            self.observer.allocate(observed_labels(self.model), self.device)
+            self.datapath_fingerprint += "+obs"
         if self._kv_scales_seq is not None:
             self.datapath_fingerprint += "+kv-static"
         self.sampler = sampler
@@ -235,9 +253,7 @@ class PagedEngine:
         #: B3's (|QK^T|, |PV|) watermarks since construction
         self.watermarks = (torch.zeros(2, dtype=torch.int32, device=self.device)
                            if self.assert_bounds else None)
-        self.cache = init_paged_cache(
-            cfg, paged.max_concurrency, paged.num_blocks, paged.block_size, max_pages,
-            kv_dtype="int8" if paged.kv_dtype == "int8" else None, device=self.device)
+        self.cache = self._new_cache()
         #: program runs since construction
         self.admits = self.suffix_admits = self.cached_admits = 0
         self.chunks = self.releases = self.decode_steps = 0
@@ -254,6 +270,14 @@ class PagedEngine:
         #: decode-step captures (step builds on the CPU): one per engine
         self.chunk_traces = 0
         self._program = None
+
+    def _new_cache(self) -> dict:
+        """A zeroed paged cache of this engine's shapes on its device."""
+        paged = self.paged
+        return init_paged_cache(
+            self.cfg, paged.max_concurrency, paged.num_blocks, paged.block_size,
+            paged.max_pages_per_seq, kv_dtype="int8" if paged.kv_dtype == "int8" else None,
+            device=self.device)
 
     def _static_kv_scales(self, kv_scales, cfg, kv_dtype: str):
         """The engine's static KV scales, one entry per pattern slot, as f32
@@ -582,13 +606,17 @@ class PagedEngine:
         pass once, after all its programs ran); ``_late(sched, pass_idx)``
         once per scheduler pass, and may submit mid-flight arrivals."""
         run = _Run(self, requests, arrivals, metrics, _probe)
-        with use_packed_backend(self.backend):
+        observing = (attach_observer(self.observer) if self.observer is not None
+                     else nullcontext())
+        with use_packed_backend(self.backend), observing:
             if self.paged.sched.is_legacy:
                 self._serve_legacy(run, _late)
             else:
                 self._serve_throughput(run, _late)
         if self.assert_bounds:
             self.watermark_values = check_bounds(self.watermarks, self.attn_spec)
+        if self.observer is not None:
+            self.observer.fold()  # the serve's one read of the counter block
         return run.results
 
     def _serve_legacy(self, run: "_Run", _late) -> None:
@@ -692,6 +720,104 @@ class PagedEngine:
             if _late is not None:
                 _late(sched, pass_idx)
             pass_idx += 1
+
+    # ------------------------------------------------------------------
+    # Observation: the saturation report and structural transparency
+    # ------------------------------------------------------------------
+    def saturation_report(self) -> dict:
+        """The serving observer's report (``repro_torch.quant.observe.
+        saturation``), the device block folded in first: per site the
+        static-quantizer clip counts, code extrema and accumulator
+        watermarks against the packed codes; per KV head of an int8 pool
+        the attention watermarks. Requires ``observe=True``."""
+        if self.observer is None:
+            raise ValueError("engine was built with observe=False — no counters to report; "
+                             "rebuild with PagedEngine(..., observe=True)")
+        self.observer.fold()
+        return self.observer.report(params=self.model, pools=self.cache["pools"],
+                                    attn_spec=self.attn_spec)
+
+    @contextmanager
+    def _scratch_state(self):
+        """Swap in a fresh cache, token buffer, column and watermarks (the
+        state a decode step writes) for the enclosed calls, so a step run
+        to build its program moves nothing of the engine's."""
+        kept = self.cache, self._buf, self._col, self.watermarks
+        self.cache = self._new_cache()
+        self._buf, self._col = torch.zeros_like(self._buf), torch.zeros_like(self._col)
+        if self.watermarks is not None:
+            self.watermarks = torch.zeros_like(self.watermarks)
+        try:
+            yield
+        finally:
+            self.cache, self._buf, self._col, self.watermarks = kept
+
+    @torch.inference_mode()
+    def decode_step_program(self, observer=None) -> ProgramText:
+        """The program of one decode step, built fresh on scratch state
+        (the engine's cache, buffers, counters and counter block do not
+        move; the port's ``decode_chunk_jaxpr``): on CUDA the kernel nodes
+        of a throwaway capture (its warm-up a real step on the scratch
+        state, whose kernel launches count), read and freed; on the CPU
+        the aten ops of one eager step. Both record each op's written
+        storages. Default: no observer attached, the plain serving step.
+        ``observer`` (a :class:`SaturationCounters`; one without a device
+        block gets one for this engine's labels) builds the observing
+        step."""
+        if observer is not None and observer.block is None:
+            observer.allocate(observed_labels(self.model), self.device)
+        observing = attach_observer(observer) if observer is not None else nullcontext()
+        with self._scratch_state(), use_packed_backend(self.backend), observing:
+            return record_step(self._decode_step, self.device)
+
+    def assert_observation_transparent(self) -> None:
+        """Observation is free when off, and reads only when on:
+
+        * the plain step (no observer attached) of this engine is, op for
+          op and on CUDA kernel node for kernel node, that of an
+          ``observe=False`` engine on the same model;
+        * no op of the plain step writes the counter block;
+        * with an observer attached to a model with packed sites, the
+          step writes the observer's block, and without the taps' ops it
+          is the plain step, launching the same B1/B3 (every counted)
+          kernels.
+
+        A write to the block is recognised by storage: an op whose schema
+        marks an argument written, that argument's storage the block's
+        (:class:`~repro_torch.serving.graphs.ProgramRecorder`). Raises
+        AssertionError otherwise."""
+        bare = self.decode_step_program()
+        if self.observer is not None:
+            twin = PagedEngine(
+                self.model, None, self.paged, self.sampler, device=self.device,
+                backend=self.backend, assert_bounds=self.assert_bounds,
+                kv_scales=None if self._kv_scales_seq is None else
+                {i: sec for i, sec in enumerate(self._kv_scales_seq) if sec})
+            plain = twin.decode_step_program()
+            if bare.op_names != plain.op_names or bare.nodes != plain.nodes:
+                raise AssertionError("the plain decode step of an observe=True engine "
+                                     "differs from an observe=False engine's")
+            if bare.writes(self.observer.block.buf.untyped_storage().data_ptr()):
+                raise AssertionError("the plain decode step writes the counter block")
+        if bare.taps():
+            raise AssertionError(f"the plain decode step holds {bare.taps()} tap ops "
+                                 "with no observer attached")
+        if self.observer is None or not self.observer.block.labels:
+            return
+        probe = SaturationCounters()
+        probe.allocate(self.observer.block.labels, self.device)
+        tapped = self.decode_step_program(probe)
+        if not tapped.writes(probe.block.buf.untyped_storage().data_ptr()):
+            raise AssertionError("observer attached but the decode step writes nothing "
+                                 "into its counter block")
+        if tapped.untapped() != bare.untapped():
+            raise AssertionError("the observing decode step, without its taps, differs "
+                                 "from the plain step")
+        if tapped.nodes is not None and count_kernels(tapped.nodes) != count_kernels(
+                bare.nodes):
+            raise AssertionError(f"the observing step launches {count_kernels(tapped.nodes)} "
+                                 f"counted kernels, the plain step "
+                                 f"{count_kernels(bare.nodes)}")
 
     def generate(self, prompts: np.ndarray, max_new_tokens: int) -> np.ndarray:
         """Fixed-slot-compatible entry: prompts (B, S0) -> (B, S0 + max_new),

@@ -12,12 +12,12 @@ packages observe, search and re-spec the *same* integer codes: integers
 (floors, repeats, plans, accumulator bits, certificates) must match
 exactly, floats within the reference tests' tolerances.
 
-Left for later slices, with the reference tests they mirror:
-``test_two_site_overrides_roundtrip_hybrid`` (``tests/test_observe.py:432``)
-waits for the SSM family (ROADMAP Queue A item 4);
-``test_observer_structurally_transparent`` and
+Left for a later slice: ``test_two_site_overrides_roundtrip_hybrid``
+(``tests/test_observe.py:432``) waits for the SSM family (ROADMAP Queue A
+item 4). ``test_observer_structurally_transparent`` and
 ``test_observed_serving_bit_identical_with_report`` (``:487``, ``:502``)
-wait for the serving observers (Queue A item 3).
+are mirrored in ``tests/test_torch_saturation.py``, with the serving
+observers.
 """
 
 import dataclasses

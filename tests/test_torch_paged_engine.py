@@ -426,9 +426,13 @@ def test_datapath_requests_and_refusals(setup):
         _paged(model, sched=SchedulerPolicy(prefill_chunk=12))
     with pytest.raises(ValueError, match="admission could never resume"):
         _paged(model, num_blocks=4, sched=SchedulerPolicy(watermark=(1, 8)))
-    for kw in (dict(observe=True), dict(mesh=object())):
-        with pytest.raises(NotImplementedError):
-            PagedEngine(model, None, PagedConfig(**BASE), device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        PagedEngine(model, None, PagedConfig(**BASE), device="cpu", mesh=object())
+    # the serving observers are ported (tests/test_torch_saturation.py): the
+    # counter block is made with the engine, one row per packed slot site
+    observed = PagedEngine(model, None, PagedConfig(**BASE), device="cpu", observe=True)
+    assert observed.datapath_fingerprint == _paged(model).datapath_fingerprint + "+obs"
+    assert observed.observer.block.labels == ()  # float weights: no packed site
     # static KV page scales are ported (tests/test_torch_search.py); a float
     # pool refuses them, as in the reference
     scales = np.ones((cfg.repeats, cfg.n_kv_heads), np.float32).tolist()

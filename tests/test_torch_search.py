@@ -193,8 +193,9 @@ def test_static_kv_engine_matches_reference(trained):
 def test_static_kv_plan_roundtrip_and_refusals(trained, tmp_path):
     """The plan's kv section drives the packed engine; its JSON round trip
     gives the same streams bit for bit (and the materialized tensors the
-    same); float pools and non-attention slots refuse, and serving
-    observers still refuse, naming their slice."""
+    same); float pools and non-attention slots refuse, and the serving
+    observers ride on static pages (fingerprint ``+obs+kv-static``, the
+    reference's order)."""
     c = trained
     pmodel = pack_decode_params(c["model"])
     kv = P.search_kv_bits(P.observe_kv_ranges(pmodel, c["cfg"], [{"tokens": c["prompts"]}]),
@@ -213,8 +214,10 @@ def test_static_kv_plan_roundtrip_and_refusals(trained, tmp_path):
     bad = {"slots": {"99": kv["slots"]["0"]}, "kv_bits_default": 8}
     with pytest.raises(ValueError, match="not an attention slot"):
         _paged(pmodel, kv_dtype="int8", kv_scales=bad)
-    with pytest.raises(NotImplementedError, match="observers slice"):
-        PagedEngine(pmodel, None, PagedConfig(**BASE), device="cpu", observe=True)
+    observed = PagedEngine(pmodel, None, PagedConfig(**BASE, kv_dtype="int8"), GREEDY,
+                           device="cpu", observe=True, kv_scales=kv)
+    assert observed.datapath_fingerprint.endswith("+obs+kv-static")
+    np.testing.assert_array_equal(observed.generate(c["prompts"], 8), out_a)
     assert P.plan_kv_scales(None) is None
 
 
@@ -319,7 +322,8 @@ def test_search_launcher_end_to_end(searched):
 
 def test_serve_launcher_with_plan(searched, capsys):
     """``serve.py --plan``: every packed site validated, the static scales
-    reach the int8 paged engine; the refusals of the reference launcher."""
+    reach the int8 paged engine, also observed (``--observe``); the
+    refusals of the reference launcher."""
     _, out = searched
     args = ["--arch", "tiny-lm-xs", "--artifact", str(out / "quantized"), "--plan",
             str(out / "plan.json"), "--batch", "2", "--prompt-len", "8", "--max-new", "4",
@@ -335,8 +339,10 @@ def test_serve_launcher_with_plan(searched, capsys):
     with pytest.raises(SystemExit, match="add --artifact"):
         serve.main(["--arch", "tiny-lm-xs", "--plan", str(out / "plan.json"), "--device",
                     "cpu"])
-    with pytest.raises(SystemExit, match="observers slice"):
-        serve.main([*args, "--paged", "--observe"])
+    serve.main([*args, "--paged", "--block-size", "8", "--kv-dtype", "int8", "--observe"])
+    printed = capsys.readouterr().out
+    assert "kv_scales=static" in printed
+    assert "[serve] observed 7 sites; binding watermark: slot0/" in printed
     with pytest.raises(SystemExit, match="not yet ported"):
         search_launcher.main([*SEARCH_ARGS, "--ckpt-dir", str(out)])
 

@@ -232,8 +232,11 @@ def test_serve_launcher_cpu(capsys):
     # --plan is ported (tests/test_torch_search.py): it validates an artifact
     with pytest.raises(SystemExit, match="add --artifact"):
         serve.main(["--arch", ARCH, "--paged", "--plan", "plan.json", "--device", "cpu"])
+    # --observe is ported (tests/test_torch_saturation.py): the paged engine's
+    with pytest.raises(SystemExit, match="--observe applies to the paged engine only"):
+        serve.main(["--arch", ARCH, "--observe", "--device", "cpu"])
     with pytest.raises(SystemExit, match="not yet ported"):
-        serve.main(["--arch", ARCH, "--paged", "--observe", "--device", "cpu"])
+        serve.main(["--arch", ARCH, "--paged", "--mesh", "1,1", "--device", "cpu"])
 
 
 def test_kernel_launch_counter_counts_only_launches(setup):
