@@ -15,7 +15,11 @@ result unless every phase passed):
    the paged engine's largest prompt, and 512, phase 10's batched
    admit) x (K, N) in {(960, 960),
    (960, 320), (960, 2560), (2560, 960)}, uint8 and int8 activation codes,
-   bf16 output, plus a ragged M=3, N=100 case — all bit-equal; the P_I
+   bf16 output, plus a ragged M=3, N=100 case and the ragged-N shapes
+   (N % 4 != 0, the kernel's byte loader: xlstm-350m's sLSTM ``up`` at
+   (M, K, N) = (4, 1024, 1365), (64, 1024, 1365), (256, 1024, 1365),
+   tiny-xlstm's (4, 64, 85) and N = 1), each launching once with the
+   ragged plan — all bit-equal; the P_I
    certificate check on an l1-budgeted weight; per shape the kernel's plan
    (path, grid, K chunks), its time, the plain version's, the
    ``torch._int_mm`` yardstick's and the byte/operation bound, per M the
@@ -265,7 +269,38 @@ result unless every phase passed):
    phase 7's; then ``launch/serve.py --artifact --plan --packed --paged
    --kv-dtype int8 --observe`` must print its ``observed 7 sites;
    binding watermark:`` line. The kernels line gains B1's, B2's and B3's
-   ``observe_launches``.
+   ``observe_launches``;
+14. the recurrent families. (a) xlstm-350m at full width (24 layers: 21
+   mLSTM, 3 sLSTM; d_model 1024, bf16, seeded random init), RTN-packed:
+   111 packed sites, the three sLSTM ``down`` projections (K = 1365, odd)
+   float as in the reference; B1 bit-equal to its plain version at each
+   of the model's packed (K, N) at M = 4 and 256, with plan, time and
+   bound; ``GenerationEngine.generate`` of batch 4 x
+   prompt 64 + 16 new on the captured step (the recurrent states are
+   written in place): B1 exactly 111 a forward (the counter, and a
+   replay's nodes by name), streams tie-limited against the eager host
+   loop, generate and decode step captured vs eager in turns, prefill
+   time, a replay profiled on a complete trace (B1's share of busy); the
+   state MiB a slot, peak memory and packed weight bytes; then phase 7's
+   12 requests through ``PagedEngine``'s FIFO loop in 4 slots (B1 111 a
+   forward, every page back on the free list, streams and digest equal to
+   the eager chunk's, a chunk replayed vs eager in turns). (b) AXE-GPFQ
+   calibration of a float32 copy at full depth on phase 5's batches: one
+   B5 solve a site (114), every site certified; the v2 artifact saved,
+   loaded strictly and served (B1 111 a forward, tokens identical to the
+   reference backend and the host loop). (c) One Mamba block at
+   jamba-1.5-large-398b's widths (d_model 8192, d_in 16384, d_state 16,
+   dt_rank 512), bf16, RTN-packed: B1 bit-equal to its plain version at
+   the block's four (K, N) (K up to 16384) at M = 4 and 256; for each
+   input seed of MAMBA_SEEDS a parallel prefill of 4 x 64 and 16 decode
+   steps from its state (B1 4 a step), against the block run step by step
+   from zero, through the dequantized weights and through B1 with one
+   static activation quantizer a site (MAMBA_STEP_TOL); its scan against the f32 step-by-step recurrence
+   (MAMBA_SCAN_TOL). (d) tiny-hybrid RTN-packed
+   through the paged FIFO loop, float and int8 pages: B1 11 and B1e 3 a
+   forward, B2/B3 1 a step, streams and digest equal to the eager
+   chunk's. The kernels line gains ``recurrent_launches`` on B1, B2, B3,
+   B5 and B1e.
 
 Before driving a path, every launch counter is set to 0, and the counts are
 read just after it. Phase 3 ends with a ``torch.profiler`` breakdown of one
@@ -301,6 +336,11 @@ SHAPES_KN = [(960, 960), (960, 320), (960, 2560), (2560, 960)]
 LAYER_SITES = [(960, 960), (960, 320), (960, 320), (960, 960),
                (960, 2560), (960, 2560), (2560, 960)]
 BATCH, PROMPT, MAX_NEW = 4, 64, 16
+#: phase 2's ragged-N shapes (N % 4 != 0: the byte-loading kernel), (M, K,
+#: N): xlstm-350m's sLSTM ``up`` site (N = int(1024 * 4/3)) at decode, a
+#: prefill chunk and a batched prefill, tiny-xlstm's (N = 85), and N = 1
+RAGGED_MKN = [(4, 1024, 1365), (64, 1024, 1365), (256, 1024, 1365), (4, 64, 85),
+              (4, 1024, 1)]
 #: phases 2 and 8: M at one layer's shapes, from decode (1-8: K split over
 #: a cluster of blocks) to the paged engine's largest prompt (the FIFO loop
 #: admits prompts of 8-300 tokens one at a time) and its largest batched
@@ -691,7 +731,7 @@ def phase_kernel(torch):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
-    cases = [(m, k, n) for m in W4A8_M for k, n in SHAPES_KN] + [(3, 960, 100)]
+    cases = [(m, k, n) for m in W4A8_M for k, n in SHAPES_KN] + [(3, 960, 100)] + RAGGED_MKN
     rows, max_err = [], 0.0
     for m, k, n in cases:
         q = torch.randint(-8, 8, (k, n), generator=gen, device=dev)
@@ -713,8 +753,12 @@ def phase_kernel(torch):
                 return w4a8_matmul(x, wp, scale, act_scale, zp, col_sums=col_sums,
                                    out_dtype=torch.bfloat16, reference=True)
 
+            before = w4a8_matmul.launches
             y, r = kern(), plain()
             torch.cuda.synchronize()
+            check(w4a8_matmul.launches == before + 1 and w4a8_matmul.last_plan.vec == (
+                1 if n % 4 else w4a8_matmul.last_plan.vec), f"M={m} K={k} N={n}: the kernel did "
+                f"not launch once (or not with the ragged loader)")
             err = (y.float() - r.float()).abs().max().item()
             max_err = max(max_err, err)
             check(torch.equal(y, r), f"kernel != plain at M={m} K={k} N={n} {act}")
@@ -730,15 +774,18 @@ def phase_kernel(torch):
                 row["plain_ms"] = time_ms(torch, lambda: w4a8_matmul_plain(
                     x, wp, sw, corr, torch.bfloat16), flush=flush)
                 row["library_ms"] = None
-                if k % 8 == 0 and n % 8 == 0:
+                if k % 8 == 0:
                     # yardstick: cuBLASLt int8 GEMM on pre-unpacked weights,
                     # activations shifted by -128 (128 * col_sums folds back
-                    # into the correction); it needs M > 16, so rows pad to 32
-                    mp = max(m, 32)
+                    # into the correction); it needs M > 16, so rows pad to
+                    # 32, and N a multiple of 8, so a ragged N pads with
+                    # zero columns
+                    mp, n8 = max(m, 32), -(-n // 8) * 8
                     xs = torch.zeros((mp, k), dtype=torch.int8, device=dev)
                     xs[:m] = (x.to(torch.int16) - 128).to(torch.int8)
-                    w8 = unpack_int4(wp).contiguous()
-                    acc = torch._int_mm(xs, w8)[:m] + 128 * col_sums
+                    w8 = torch.zeros((k, n8), dtype=torch.int8, device=dev)
+                    w8[:, :n] = unpack_int4(wp)
+                    acc = torch._int_mm(xs, w8)[:m, :n] + 128 * col_sums
                     exact = x.to(torch.float64) @ q.to(torch.float64)
                     check(torch.equal(acc.to(torch.float64), exact),
                           "the _int_mm yardstick disagrees with the exact product")
@@ -2081,7 +2128,8 @@ def driven(torch, cfg, engine, reqs, kv, per_forward=None) -> dict:
     ran = {k: v - before[k] for k, v in program_counts(engine).items()}
     key = "paged_decode_attention" if kv == "act" else "paged_decode_attention_int8"
     other = "paged_decode_attention_int8" if kv == "act" else "paged_decode_attention"
-    check(counts[key] == cfg.n_layers * ran["steps"] and counts[other] == 0,
+    n_attn = sum(cfg.layer_spec(i).mixer == "attn" for i in range(cfg.n_layers))
+    check(counts[key] == n_attn * ran["steps"] and counts[other] == 0,
           f"{kv}: attention launches {counts} for {ran['steps']} decode steps")
     forwards = ran["steps"] + ran["admits"] + ran["suffix"] + ran["batch"] + ran["chunks"]
     for counter, n in (per_forward or {"w4a8_matmul": 7 * cfg.n_layers}).items():
@@ -2302,7 +2350,7 @@ def phase_sparse_kernels(torch, gpfq_rows):
     # B4 at phase 2's shapes: bit-equal to its plain version and to B1 on
     # the expanded codes
     b4_rows, b4_err = [], 0.0
-    cases = [(m, k, n) for m in W4A8_M for k, n in SHAPES_KN] + [(3, 960, 100)]
+    cases = [(m, k, n) for m in W4A8_M for k, n in SHAPES_KN] + [(3, 960, 100)] + RAGGED_MKN
     for m, k, n in cases:
         q = torch.randint(-8, 8, (k, n), generator=gen, device=dev)
         q = q * mask_2to4(q.float()).to(q.dtype)
@@ -3058,14 +3106,15 @@ class FixedRecorder:
         return [host[t] for t in range(n)]
 
 
-def moe_replay_profile(torch, program, n_layers: int, restart) -> dict:
-    """One replay of the captured granite decode step under the profiler, on
-    a complete trace (a device record for every node of the graph): the
-    device's busy share of the replay's device span, and B1e's and B1's
-    device time, share and count by kernel name, each held to the launch
-    counters' rise (96 and 128). ``restart`` (outside the trace) sets the
-    bucket back to its first decode position before each try. None, with a
-    line saying so, when none of MOE_PROFILE_ATTEMPTS traces is complete."""
+def replay_profile(torch, program, restart, want: dict, tag: str, what: str) -> dict:
+    """One replay of a captured decode step (``what``) under the profiler,
+    on a complete trace (a device record for every node of the graph): the
+    device's busy share of the replay's device span, and each ``want``
+    kernel's (counter -> launches a replay) device time, share and count by
+    kernel name, each held to the launch counters' rise. ``restart``
+    (outside the trace) sets the bucket back to its first decode position
+    before each try. None, with a line under ``[tag]`` saying so, when none
+    of MOE_PROFILE_ATTEMPTS traces is complete."""
     from repro_torch.serving.graphs import COUNTERS
     from repro_torch.trace import replay_spans_ns
 
@@ -3081,7 +3130,7 @@ def moe_replay_profile(torch, program, n_layers: int, restart) -> dict:
         if complete:
             break
     else:  # the run goes on: the kernels are held to the counters elsewhere
-        print(f"[moe-profile] not measured: the profiler lost device kernel records in "
+        print(f"[{tag}] not measured: the profiler lost device kernel records in "
               f"{MOE_PROFILE_ATTEMPTS} traces of one replay")
         return None
     kernels = traced_kernels(torch, prof.key_averages())
@@ -3097,26 +3146,25 @@ def moe_replay_profile(torch, program, n_layers: int, restart) -> dict:
                                          r"|w4a8_kernel<\s*\d+\s*,\s*\w+\s*,\s*false\s*,\s*true\b"),
         "w4a8_matmul": re.compile(r"w4a8_kernel<\s*\d+\s*,\s*\w+\s*,\s*false\s*,\s*false\b")}
     out = {"busy_ms": busy, "span_ms": span, "device_ops": program.device_ops}
-    for name, want in (("w4a8_expert_matmul", 3 * n_layers), ("w4a8_matmul", 4 * n_layers)):
+    for name, n_want in want.items():
         mine = [e for e in kernels if mangled[name].search(e.key) or demangled[name].search(e.key)]
         seen = sum(e.count for e in mine)
-        if not seen == counts[name] == want:
-            print("[moe-profile] the replay's kernels by name: " + "; ".join(
+        if not seen == counts[name] == n_want:
+            print(f"[{tag}] the replay's kernels by name: " + "; ".join(
                 f"{e.key[:160]} x{e.count}" for e in kernels))
-        check(seen == counts[name] == want,
-              f"a profiled MoE replay: {seen} {name} kernels by name, the counter "
-              f"{counts[name]}, expected {want}")
+        check(seen == counts[name] == n_want,
+              f"a profiled {what} replay: {seen} {name} kernels by name, the counter "
+              f"{counts[name]}, expected {n_want}")
         ms = sum(e.self_device_time_total for e in mine) / 1e3
         out[name] = {"ms": ms, "launches": seen, "share_of_busy": ms / busy}
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
-    print(f"[moe-profile] one replayed granite decode step, a complete trace "
+    label = {"w4a8_expert_matmul": "B1e", "w4a8_matmul": "B1"}
+    print(f"[{tag}] one replayed {what} decode step, a complete trace "
           f"({program.device_ops} device operations): device busy {busy:.3f} ms = "
-          f"{100 * busy / span:.1f}% of its {span:.3f} ms device span; B1e "
-          f"{out['w4a8_expert_matmul']['ms']:.3f} ms in {out['w4a8_expert_matmul']['launches']} "
-          f"launches ({100 * out['w4a8_expert_matmul']['share_of_busy']:.1f}% of busy), B1 "
-          f"{out['w4a8_matmul']['ms']:.3f} ms in {out['w4a8_matmul']['launches']} "
-          f"({100 * out['w4a8_matmul']['share_of_busy']:.1f}%)")
-    print("[moe-profile] the replay's 8 largest kernels by device time: " + "; ".join(
+          f"{100 * busy / span:.1f}% of its {span:.3f} ms device span; " + ", ".join(
+              f"{label[name]} {out[name]['ms']:.3f} ms in {out[name]['launches']} launches "
+              f"({100 * out[name]['share_of_busy']:.1f}% of busy)" for name in want))
+    print(f"[{tag}] the replay's 8 largest kernels by device time: " + "; ".join(
         f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}" for e in top))
     return out
 
@@ -3213,13 +3261,14 @@ def phase_moe_slice(torch):
         step_t = in_turns(torch, {"eager": lambda: T.decode_step(model, step_tok, caches,
                                                                   PROMPT),
                                   "replay": lambda: program.run(1)}, runs=6)
-        replay_profile = moe_replay_profile(torch, program, L,
-                                            lambda: engine._start(bucket, tokens))
+        profile = replay_profile(torch, program, lambda: engine._start(bucket, tokens),
+                                 {"w4a8_expert_matmul": 3 * L, "w4a8_matmul": 4 * L},
+                                 "moe-profile", "granite")
     nbytes = packed_weight_bytes(cfg)
     fixed = {"wall_s": wall, "tok_s": BATCH * MAX_NEW / wall, "gen": gen_t, "step": step_t,
              "peak_mib": peak / 2**20, "capture_ms": 1e3 * program.capture_s,
              "device_ops": program.device_ops, "cmp": cmp_a, "counts": counts,
-             "replay_profile": replay_profile}
+             "replay_profile": profile}
     print(f"[moe] {GRANITE} full width ({L} layers, d_model {cfg.d_model}, {E} experts "
           f"top-{cfg.moe.top_k}, bf16, seeded random init) RTN-packed in {init_s:.3f} s: "
           f"packed_weight_bytes {nbytes['packed_bytes']} ({nbytes['packed_code_bytes']} code "
@@ -3883,6 +3932,502 @@ def phase_observe_slice(torch, smi: str, search: dict, paged: dict):
             "ops": ops}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the recurrent families (xlstm-350m, a Mamba block at Jamba's
+# widths, tiny-hybrid)
+# ---------------------------------------------------------------------------
+XLSTM, JAMBA = "xlstm-350m", "jamba-1.5-large-398b"
+#: phase 14 (c): the Mamba block's stated tolerances. Its parallel scan
+#: against the f32 step-by-step recurrence on the same (xin, dt, B, C), as
+#: a share of the largest |y| and |h| (MAMBA_SCAN_TOL). Its prefill and 16
+#: decode steps from the prefill's state against the block run step by
+#: step from zero through all 80 positions, as the relative L2 error of
+#: the outputs and of the final SSM state, for each input seed of
+#: MAMBA_SEEDS (MAMBA_STEP_TOL): through the dequantized weights, where
+#: only bf16 rounding of the conv and the scan parts the two runs; and
+#: through B1 with one static activation quantizer a site, so that both
+#: runs quantize a row alike and part only where that rounding moves an
+#: activation code by a step
+MAMBA_SCAN_TOL, MAMBA_STEP_TOL = 1e-4, 1e-3
+MAMBA_SEEDS = (14, 15, 16)
+#: phase 14 (d): tiny-hybrid's paged trace (the rung's 256-token context)
+HYBRID_REQUESTS, HYBRID_BLOCK = 12, 8
+
+
+def state_bytes(cfg, batch: int = 1) -> int:
+    """Bytes of every recurrent layer's decode state for ``batch`` sequences."""
+    import torch
+    from repro_torch.models.transformer import recurrent_state_shapes
+
+    total = 0
+    for i in range(cfg.n_layers):
+        for shape, dt in recurrent_state_shapes(cfg.layer_spec(i), cfg, batch).values():
+            total += math.prod(shape) * torch.empty((), dtype=dt).element_size()
+    return total
+
+
+def eager_paged_run(engine, specs, warm):
+    """The same trace through ``engine`` with its decode chunks run eagerly
+    (the reference loop), its step captured first by the warm-up."""
+    from repro_torch.serving import Request
+
+    warm_paged(engine, warm)
+    chunk = engine._chunk
+    engine._chunk = lambda k, _c=chunk: _c(k, eager=True)
+    return engine.serve([Request(uid=u, prompt=p, max_new=n) for u, p, n in specs])
+
+
+def packed_site_shapes(model) -> list[tuple[int, int]]:
+    """The distinct (K, N) of a model's packed sites, in module order."""
+    from repro_torch.models.layers import PackedLinear
+
+    shapes = [(2 * m.packed.shape[0], m.packed.shape[1]) for m in model.modules()
+              if isinstance(m, PackedLinear)]
+    return list(dict.fromkeys(shapes))
+
+
+def b1_site_check(torch, what: str, shapes, smi: str) -> list[dict]:
+    """B1 bit-equal to its plain version at a model's packed (K, N), at the
+    decode and the prefill M of phase 14, with its plan, time (cold L2) and
+    bound at each."""
+    from repro_torch.kernels import w4a8_mm as W
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(25)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    rows = []
+    for m in (BATCH, BATCH * PROMPT):
+        for k, n in shapes:
+            q = torch.randint(-8, 8, (k, n), generator=gen, device=dev, dtype=torch.int8)
+            x = torch.randint(0, 256, (m, k), generator=gen, device=dev).to(torch.uint8)
+            wp, col = W.pack_int4(q), q.sum(0, dtype=torch.int32)
+            scale = torch.rand(n, generator=gen, device=dev) * 0.05 + 1e-3
+            args = (x, wp, scale, col, 0.0213, 131.0)
+            y = W.w4a8_decode_matmul(*args, out_dtype=torch.bfloat16)
+            r = W.w4a8_decode_matmul(*args, out_dtype=torch.bfloat16, reference=True)
+            check(torch.equal(y, r), f"B1 != plain at {what}'s M={m} K={k} N={n}")
+            plan = plan_fields(W.w4a8_matmul.last_plan)["plan"]
+            sw, corr = scale * 0.0213, col.float() * 131.0
+            ms = time_ms(torch, lambda: W.w4a8_matmul_kernel(x, wp, sw, corr, torch.bfloat16),
+                         flush=flush)
+            b, by = bound_ms(m, k, n)
+            rows.append({"m": m, "k": k, "n": n, "ms": ms, "bound_ms": b, "bound_by": by,
+                         "plan": plan})
+            print(f"[recurrent] B1 at {what}'s site M={m:3d} K={k:5d} N={n:5d}: bit-equal, "
+                  f"{ms:.5f} ms, bound {b:.5f} ms ({by}), {plan}; {smi}")
+            del q, x, wp, y, r
+    return rows
+
+
+def mamba_block_check(torch, smi: str) -> dict:
+    """(c): one Mamba block at Jamba's widths, bf16, RTN-packed: B1 at its
+    site shapes; a parallel prefill and 16 decode steps from its state,
+    through the dequantized weights and through B1 with static activation
+    quantizers, each against the block run step by step, for each input
+    seed of MAMBA_SEEDS."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ops import quantize_activations
+    from repro_torch.models import ssm as S
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import LayerSpec
+    from repro_torch.models.layers import PackedLinear, use_packed_backend
+    from repro_torch.quant.serve_packed import pack_decode_params, packed_weight_bytes
+
+    jcfg = get_config(JAMBA)
+    cfg = replace(jcfg, name="jamba-mamba-block", n_layers=1, moe=None, vocab=128,
+                  pattern=(LayerSpec("mamba", "none"),))
+    model = pack_decode_params(T.init_model(cfg, 0, device="cuda"))
+    p = model.layers[0].mixer
+    sites = {n: getattr(p, n) for n in ("in_proj", "x_proj", "dt_proj", "out_proj")}
+    check(all(isinstance(s, PackedLinear) for s in sites.values()),
+          "a Mamba site at Jamba's widths is not packed")
+    b1_rows = b1_site_check(torch, "the Jamba-width Mamba block", packed_site_shapes(model),
+                            smi)
+    d, d_in, n_st = cfg.d_model, cfg.ssm.expand * cfg.d_model, cfg.ssm.d_state
+    total = PROMPT + MAX_NEW
+
+    def rel(a, b):
+        return (torch.linalg.vector_norm((a - b).float())
+                / torch.linalg.vector_norm(b.float())).item()
+
+    def run(backend, x):
+        """Prefill + decode from its state, and the block step by step from
+        zero through every position; relative L2 errors and timings."""
+        with torch.inference_mode(), use_packed_backend(backend):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            y_pre, st = S.mamba(p, x[:, :PROMPT], cfg, return_state=True)
+            torch.cuda.synchronize()
+            pre_ms = 1e3 * (time.perf_counter() - t0)
+            pre_b1 = read_counts()["w4a8_matmul"]
+            conv, ssm = st["conv"].clone(), st["ssm"].clone()
+            reset_counts()
+            ys, step_ms = [], []
+            for t in range(PROMPT, total):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ys.append(S.mamba_decode(p, x[:, t:t + 1], cfg, conv, ssm)[0])
+                torch.cuda.synchronize()
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+            dec_b1 = read_counts()["w4a8_matmul"]
+            conv0, ssm0 = torch.zeros_like(conv), torch.zeros_like(ssm)
+            y_step = torch.cat([S.mamba_decode(p, x[:, t:t + 1], cfg, conv0, ssm0)[0]
+                                for t in range(total)], dim=1)
+        return {"prefill_ms": pre_ms, "step": spread_ms(step_ms[1:]), "b1": (pre_b1, dec_b1),
+                "prefill_err": rel(y_pre, y_step[:, :PROMPT]),
+                "decode_err": rel(torch.cat(ys, dim=1), y_step[:, PROMPT:]),
+                "ssm_err": rel(ssm, ssm0)}
+
+    def set_static_quantizers(x):
+        """Each site's static activation quantizer: the dynamic one's scale
+        and zero point over what reaches the site in a dequantized forward
+        of all 80 positions."""
+        seen = {}
+        hooks = [s.register_forward_pre_hook(lambda mod, a, n=n: seen.__setitem__(n, a[0]))
+                 for n, s in sites.items()]
+        with torch.inference_mode(), use_packed_backend("dequant"):
+            S.mamba(p, x, cfg)
+        for h in hooks:
+            h.remove()
+        for n, s in sites.items():
+            _, scale, zp = quantize_activations(seen[n].reshape(-1, seen[n].shape[-1]))
+            s.act_scale, s.act_zp = scale.clone(), zp.clone()
+            s.spec = replace(s.spec, static_act=True)
+
+    runs = {"dequant": [], "kernel": []}
+    for seed in MAMBA_SEEDS:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        x = torch.randn((BATCH, total, d), generator=gen, device="cuda").to(torch.bfloat16)
+        runs["dequant"].append(run("dequant", x))
+        set_static_quantizers(x)
+        runs["kernel"].append(run("kernel", x))
+    for backend in runs:
+        for seed, r in zip(MAMBA_SEEDS, runs[backend]):
+            errs = (r["prefill_err"], r["decode_err"], r["ssm_err"])
+            check(r["b1"] == ((4, 4 * MAX_NEW) if backend == "kernel" else (0, 0)),
+                  f"B1 launches (prefill, decode) {r['b1']} through {backend} (seed {seed})")
+            check(all(math.isfinite(v) and v <= MAMBA_STEP_TOL for v in errs),
+                  f"the Mamba block ({backend}, seed {seed}): prefill {errs[0]:.3e}, decode "
+                  f"{errs[1]:.3e}, SSM state {errs[2]:.3e} against its stepwise run (relative "
+                  f"L2, tolerance {MAMBA_STEP_TOL})")
+    # the scan alone against the f32 step-by-step recurrence on its inputs
+    with torch.inference_mode(), use_packed_backend("kernel"):
+        xz = p.in_proj(x[:, :PROMPT])
+        xin = torch.nn.functional.silu(S._causal_conv(xz[..., :d_in], p.conv_w, p.conv_b)[0])
+        dt, b_ssm, c_ssm, a = S._ssm_params(p, xin, cfg)
+        y_scan, h_scan = S.selective_scan(xin, dt, b_ssm, c_ssm, a, p.D, n_st,
+                                          return_state=True)
+        h = torch.zeros((BATCH, d_in, n_st), dtype=torch.float32, device="cuda")
+        y_ref = []
+        for t in range(PROMPT):
+            dtf = dt[:, t].float()
+            h = torch.exp(dtf[..., None] * a) * h + (dtf * xin[:, t].float())[..., None] * \
+                b_ssm[:, t].float()[:, None, :]
+            y_ref.append(torch.einsum("bdn,bn->bd", h, c_ssm[:, t].float())
+                         + p.D.float() * xin[:, t].float())
+        y_ref = torch.stack(y_ref, dim=1)
+    scan_err = ((y_scan - y_ref).abs().max() / y_ref.abs().max()).item()
+    state_err = ((h_scan - h).abs().max() / h.abs().max()).item()
+    check(scan_err <= MAMBA_SCAN_TOL and state_err <= MAMBA_SCAN_TOL,
+          f"the parallel scan at Jamba's widths: y {scan_err:.3e}, state {state_err:.3e} "
+          f"against the step-by-step recurrence (tolerance {MAMBA_SCAN_TOL})")
+    nbytes = packed_weight_bytes(cfg)["packed_bytes"]
+    st_mib = state_bytes(cfg) / 2**20
+    k = runs["kernel"][0]
+    print(f"[recurrent] (c) one Mamba block at {JAMBA}'s widths (d_model {d}, d_in {d_in}, "
+          f"d_state {n_st}, dt_rank {cfg.dt_rank}), bf16 RTN-packed ({nbytes} packed bytes; "
+          f"state {st_mib:.4f} MiB a slot); {smi}: prefill {BATCH} x {PROMPT} with the "
+          f"parallel scan {k['prefill_ms']:.3f} ms (B1 {k['b1'][0]}), {MAX_NEW} decode steps "
+          f"{fmt_spread(k['step'])} each after the first (B1 {k['b1'][1]}), static quantizers, "
+          f"seed {MAMBA_SEEDS[0]}; the scan against the f32 step-by-step recurrence: y "
+          f"{scan_err:.3e}, state {state_err:.3e} of their largest magnitude (tolerance "
+          f"{MAMBA_SCAN_TOL})")
+    for backend in runs:
+        print(f"[recurrent] (c) {backend}: parallel prefill + decode against the block run "
+              f"step by step from zero, relative L2 (prefill, decode, SSM state) by input seed: "
+              + "; ".join(f"{seed}: {r['prefill_err']:.3e}, {r['decode_err']:.3e}, "
+                          f"{r['ssm_err']:.3e}" for seed, r in zip(MAMBA_SEEDS, runs[backend]))
+              + f" (tolerance {MAMBA_STEP_TOL})")
+    return {"runs": runs, "scan_err": scan_err, "scan_state_err": state_err,
+            "packed_bytes": nbytes, "state_mib_slot": st_mib, "b1_sites": b1_rows,
+            "b1_launches": sum(sum(r["b1"]) for r in runs["kernel"])}
+
+
+def hybrid_paged_check(torch, smi: str) -> dict:
+    """(d): tiny-hybrid RTN-packed through the paged engine, float and int8
+    pages: B1, B1e, B2 and B3 on the card, replays against eager chunks."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.quant.serve_packed import pack_decode_params
+    from repro_torch.serving import PagedConfig, PagedEngine, Request, SamplerConfig
+
+    cfg = get_config("tiny-hybrid")
+    model = pack_decode_params(T.init_model(cfg, 0, device="cuda"))
+    rng = np.random.default_rng(14)
+    specs = [(u, rng.integers(0, cfg.vocab, size=int(rng.integers(4, 41))),
+              int(rng.integers(4, 17))) for u in range(HYBRID_REQUESTS)]
+    per_forward = {"w4a8_matmul": 11, "w4a8_expert_matmul": 3}  # Mamba 4 + MLP 3 + attn 4
+
+    def engine(kv):
+        return PagedEngine(model, cfg, PagedConfig(
+            block_size=HYBRID_BLOCK, num_blocks=64, max_concurrency=PAGED_SLOTS,
+            max_pages_per_seq=8, chunk_max=PAGED_CHUNK, kv_dtype=kv),
+            SamplerConfig(temperature=0.0), device="cuda")
+
+    runs = {}
+    for kv in ("act", "int8"):
+        eng = engine(kv)
+        warm_paged(eng, specs[0][1])
+        run = driven(torch, cfg, eng, [Request(uid=u, prompt=p, max_new=n)
+                                       for u, p, n in specs], kv, per_forward)
+        eager = engine(kv)
+        eager_res = eager_paged_run(eager, specs, specs[0][1])
+        check(eager.pool_state.digest() == run["digest"],
+              f"tiny-hybrid {kv}: the eager chunk's allocator digest differs")
+        check(all((eager_res[u] == run["res"][u]).all() for u, _, _ in specs),
+              f"tiny-hybrid {kv}: the replays' streams differ from the eager chunk's")
+        runs[kv] = run
+        print(f"[recurrent] (d) tiny-hybrid RTN-packed, paged FIFO, {kv} KV, "
+              f"{HYBRID_REQUESTS} requests in {PAGED_SLOTS} slots: launches {run['counts']} "
+              f"({run['ran']}); streams and digest equal to the eager chunk's; decode step "
+              f"{run['step_ms']:.3f} ms, {run['tok_s']:.1f} tok/s; {smi}")
+    return runs
+
+
+def phase_recurrent_slice(torch, smi: str):
+    """xlstm-350m at full width: (a) fixed slot and paged FIFO serving, (b)
+    calibration, export and serving of the artifact; (c) a Mamba block at
+    Jamba's widths; (d) tiny-hybrid paged."""
+    import tempfile
+    from dataclasses import replace
+
+    from repro_torch.checkpoint import save_pytree
+    from repro_torch.configs import get_config
+    from repro_torch.core.axe import PTQConfig
+    from repro_torch.data import DataConfig, TokenBatcher
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import Linear, PackedLinear
+    from repro_torch.quant.pipeline import calibrate_and_quantize
+    from repro_torch.quant.serve_packed import (
+        export_quantized_artifact,
+        load_flat_artifact,
+        pack_decode_params,
+        packed_params_from_artifact,
+        packed_weight_bytes,
+    )
+    from repro_torch.serving import (
+        GenerationEngine,
+        PagedConfig,
+        PagedEngine,
+        Request,
+        SamplerConfig,
+    )
+    from repro_torch.serving.graphs import COUNTERS
+
+    t_phase = time.perf_counter()
+    greedy = SamplerConfig(temperature=0.0)
+    cfg = get_config(XLSTM)
+    kinds = [cfg.layer_spec(i).mixer for i in range(cfg.n_layers)]
+    b1_forward = 5 * kinds.count("mlstm") + 2 * kinds.count("slstm")
+    per_forward = {"w4a8_matmul": b1_forward}
+    t0 = time.perf_counter()
+    model = pack_decode_params(T.init_model(cfg, 0, device="cuda"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    init_s = time.perf_counter() - t0
+    packed = sum(isinstance(m, PackedLinear) for m in model.modules())
+    check(packed == b1_forward == 111, f"{packed} packed sites, expected 111")
+    check(all(isinstance(b.mixer.down, Linear) for b in model.layers if b.spec.mixer == "slstm"),
+          "the sLSTM down projection (K = 1365, odd) must stay float")
+    b1_sites = b1_site_check(torch, XLSTM, packed_site_shapes(model), smi)
+    prompts = TokenBatcher(DataConfig(vocab=cfg.vocab, seq_len=PROMPT, global_batch=BATCH,
+                                      seed=0)).batch(0)["tokens"]
+
+    # (a) the fixed slot: one capture, then generates of replays
+    engine = GenerationEngine(model, cfg, greedy, device="cuda")
+    t0 = time.perf_counter()
+    engine.generate(prompts, MAX_NEW)
+    first_s = time.perf_counter() - t0
+    (bucket,) = engine._buckets.values()
+    program = bucket.program
+    check(program.graph is not None and engine.gen_traces == 1,
+          "the first generate did not capture the xLSTM step")
+    reset_peak(torch)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, MAX_NEW)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(counts["w4a8_matmul"] == b1_forward * MAX_NEW and sum(counts.values()) ==
+          counts["w4a8_matmul"], f"launches in a generate {counts}, expected B1 "
+          f"{b1_forward} x {MAX_NEW} and nothing else")
+    rise = {getattr(fn, "__name__", "?"): r for (fn, _, _), r in zip(COUNTERS, program.rise)}
+    check(rise["w4a8_matmul"] == b1_forward, f"a replay adds {rise}, expected B1 {b1_forward} "
+                                             f"(read by name from the graph's kernel nodes)")
+    check(bool(((out >= 0) & (out < cfg.vocab)).all()), "token out of the vocabulary")
+    host = engine.generate_host_loop(prompts, MAX_NEW)
+    eager_toks, eager_logits = fixed_slot_run(torch, model, prompts, MAX_NEW)
+    check((eager_toks == host[:, PROMPT:]).all(), "the recorded eager run differs from the "
+                                                  "host loop")
+    rec_engine = GenerationEngine(model, cfg, greedy, device="cuda")
+    with FixedRecorder(rec_engine, BATCH, PROMPT + MAX_NEW) as rec:
+        rec_out = rec_engine.generate(prompts, MAX_NEW)
+    check((rec_out == out).all(), "two captures of the xLSTM step disagree")
+    cmp_a = tie_limited([(out[b, PROMPT:], host[b, PROMPT:], rec.logits(b, PROMPT, MAX_NEW),
+                          [eager_logits[t][b] for t in range(MAX_NEW)]) for b in range(BATCH)],
+                        cfg.vocab)
+    del rec_engine, rec
+    gen_t = in_turns(torch, {"graph": lambda: engine.generate(prompts, MAX_NEW),
+                             "host_loop": lambda: engine.generate_host_loop(prompts, MAX_NEW)},
+                     runs=4)
+    tokens = torch.as_tensor(prompts, device="cuda")
+    pre_ms = []
+    with torch.inference_mode():
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, caches = T.prefill(model, {"tokens": tokens}, PROMPT + MAX_NEW)
+            torch.cuda.synchronize()
+            pre_ms.append(1e3 * (time.perf_counter() - t0))
+        step_tok = torch.as_tensor(out[:, PROMPT:PROMPT + 1], device="cuda")
+        engine._start(bucket, tokens)
+        step_t = in_turns(torch, {"eager": lambda: T.decode_step(model, step_tok, caches,
+                                                                  PROMPT),
+                                  "replay": lambda: program.run(1)}, runs=6)
+        prof = replay_profile(torch, program, lambda: engine._start(bucket, tokens),
+                              per_forward, "xlstm-profile", XLSTM)
+    nbytes = packed_weight_bytes(cfg)
+    st_mib = state_bytes(cfg) / 2**20
+    c_mib = sum(math.prod(s) * 4 for i in range(cfg.n_layers) if kinds[i] == "mlstm"
+                for s in [T.recurrent_state_shapes(cfg.layer_spec(i), cfg, 1)["C"][0]]) / 2**20
+    fixed = {"wall_s": wall, "tok_s": BATCH * MAX_NEW / wall, "gen": gen_t, "step": step_t,
+             "prefill": spread_ms(pre_ms[1:]), "peak_mib": peak / 2**20,
+             "capture_ms": 1e3 * program.capture_s, "device_ops": program.device_ops,
+             "cmp": cmp_a, "counts": counts, "profile": prof, "state_mib_slot": st_mib,
+             "packed_bytes": nbytes["packed_bytes"]}
+    print(f"[recurrent] {XLSTM} full width ({cfg.n_layers} layers: {kinds.count('mlstm')} "
+          f"mLSTM, {kinds.count('slstm')} sLSTM; d_model {cfg.d_model}, bf16, seeded random "
+          f"init) RTN-packed in {init_s:.3f} s: {packed} packed sites, the "
+          f"{kinds.count('slstm')} sLSTM down projections (K = 1365) float; "
+          f"packed_weight_bytes {nbytes['packed_bytes']} ({nbytes['packed_code_bytes']} code "
+          f"bytes; bf16 {nbytes['bf16_bytes']}); "
+          f"recurrent state {st_mib:.3f} MiB a slot ({c_mib:.3f} MiB of it mLSTM C); {smi}")
+    print(f"[recurrent] (a) fixed slot, batch {BATCH} x prompt {PROMPT} + {MAX_NEW} new: "
+          f"B1 {counts['w4a8_matmul']} = {b1_forward} a forward x {MAX_NEW}; one capture "
+          f"({1e3 * program.capture_s:.3f} ms, {program.device_ops} device operations; first "
+          f"generate {first_s:.3f} s); {cmp_a['agree']} of {cmp_a['total']} tokens agree with "
+          f"the eager host loop (partings {cmp_a['partings']}, tie band {cmp_a['band']:.4f})")
+    print(f"[recurrent] (a) generate wall {wall:.4f} s = {fixed['tok_s']:.1f} tok/s; in turns: "
+          f"captured {fmt_spread(gen_t['graph'])}, host loop {fmt_spread(gen_t['host_loop'])}; "
+          f"decode step replay {fmt_spread(step_t['replay'])}, eager "
+          f"{fmt_spread(step_t['eager'])}; prefill {fmt_spread(fixed['prefill'])}; peak "
+          f"memory {peak / 2**20:.1f} MiB; {smi}")
+
+    def paged_engine():
+        return PagedEngine(model, cfg, PagedConfig(
+            block_size=PAGED_BLOCK, num_blocks=PAGED_BLOCKS, max_concurrency=PAGED_SLOTS,
+            chunk_max=PAGED_CHUNK), greedy, device="cuda")
+
+    specs, _ = trace_specs(cfg)
+    warm = specs[0][1]
+    eng = paged_engine()
+    warm_paged(eng, warm)
+    paged = driven(torch, cfg, eng, [Request(uid=u, prompt=p, max_new=n) for u, p, n in specs],
+                   "act", per_forward)
+    eager = paged_engine()
+    eager_res = eager_paged_run(eager, specs, warm)
+    check(eager.pool_state.digest() == paged["digest"],
+          "xLSTM paged: the eager chunk's allocator digest differs from the replays'")
+    check(all((eager_res[u] == paged["res"][u]).all() for u, _, _ in specs),
+          "xLSTM paged: the replays' streams differ from the eager chunk's")
+    paged["cmp"] = "identical"
+    paged["step_turns"] = paged_step_turns(torch, eng, [s[1] for s in specs[:PAGED_SLOTS]])
+    print(f"[recurrent] (a) paged FIFO, {TRACE_REQUESTS} requests in {PAGED_SLOTS} slots: "
+          f"launches {paged['counts']} ({paged['ran']}), every page back on the free list; "
+          f"streams against the eager chunk's: {paged['cmp']}; decode step "
+          f"{paged['step_ms']:.3f} ms, admits {paged['admit_ms_per_request']:.3f} ms a "
+          f"request, {paged['tok_s']:.1f} tok/s, wall {paged['wall']:.3f} s, peak "
+          f"{paged['peak_mib']:.1f} MiB; a chunk over {PAGED_SLOTS} live slots per step: "
+          f"replay {fmt_spread(paged['step_turns']['replay'])}, eager "
+          f"{fmt_spread(paged['step_turns']['eager'])}; {smi}")
+    del model, engine, eng, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) calibration of a float32 copy at full width, the artifact served
+    cfg_c = replace(cfg, param_dtype="float32", act_dtype="float32")
+    sites_c = 5 * kinds.count("mlstm") + 3 * kinds.count("slstm")
+    model_c = T.init_model(cfg_c, 0, device="cuda")
+    data = TokenBatcher(DataConfig(vocab=cfg.vocab, seq_len=CALIB_SEQ,
+                                   global_batch=CALIB_BATCH, seed=0))
+    calib = [data.batch(10_000 + i) for i in range(CALIB_BATCHES)]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    qm = calibrate_and_quantize(model_c, cfg_c, calib, PTQConfig(), device="cuda")
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    ccounts = read_counts()
+    check(ccounts["gpfq_solve"] == sites_c, f"{ccounts['gpfq_solve']} B5 launches calibrating, "
+                                            f"expected {sites_c}")
+    summary = qm.cert_summary()
+    check(summary["ok"] and summary["n_certified"] == sites_c
+          and all(ql.cert is not None and ql.cert.ok for _, ql in qm.quantized_linears()),
+          f"certificates: {summary}")
+    artifact, meta = export_quantized_artifact(qm)
+    with tempfile.TemporaryDirectory() as tmp:
+        save_pytree(artifact, os.path.join(tmp, "quantized"), meta)
+        flat, meta2 = load_flat_artifact(os.path.join(tmp, "quantized"))
+    served = packed_params_from_artifact(flat, model_c, cfg_c, meta=meta2, strict=True)
+    check(all(isinstance(b.mixer.down, Linear) for b in served.layers
+              if b.spec.mixer == "slstm"), "the artifact's sLSTM down must serve float")
+    eng_c = GenerationEngine(served, cfg_c, greedy, device="cuda")
+    eng_c.generate(prompts, MAX_NEW)  # captures
+    reset_counts()
+    t0 = time.perf_counter()
+    out_c = eng_c.generate(prompts, MAX_NEW)
+    serve_c_s = time.perf_counter() - t0
+    serve_c = read_counts()
+    check(serve_c["w4a8_matmul"] == b1_forward * MAX_NEW,
+          f"B1 {serve_c['w4a8_matmul']} serving the artifact, expected {b1_forward * MAX_NEW}")
+    ref = GenerationEngine(served, cfg_c, greedy, device="cuda",
+                           backend="reference").generate(prompts, MAX_NEW)
+    check((out_c == ref).all(), "kernel and reference backends disagree on the artifact")
+    check((out_c == eng_c.generate_host_loop(prompts, MAX_NEW)).all(),
+          "the captured generate and the eager host loop disagree on the artifact")
+    print(f"[recurrent] (b) AXE-GPFQ calibration (default PTQConfig) of a float32 copy, "
+          f"{cfg.n_layers} layers at full width, {CALIB_BATCHES} x "
+          f"{CALIB_BATCH} x {CALIB_SEQ} tokens: wall {calib_s:.3f} s; B5 launches "
+          f"{ccounts['gpfq_solve']}; {summary['n_certified']} sites certified, min headroom "
+          f"{summary['min_headroom_bits']:.4f} bits at {summary['min_headroom_site']}; the "
+          f"artifact ({len(artifact)} leaves, {meta['datapath']}) served batch {BATCH} x "
+          f"prompt {PROMPT} + {MAX_NEW}: B1 {serve_c['w4a8_matmul']}, tokens identical to the "
+          f"reference backend and the eager host loop, "
+          f"{BATCH * MAX_NEW / serve_c_s:.1f} tok/s; {smi}")
+    del model_c, qm, served, eng_c
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mamba = mamba_block_check(torch, smi)
+    hybrid = hybrid_paged_check(torch, smi)
+    wall_s = time.perf_counter() - t_phase
+    print(f"[recurrent] phase 14 wall {wall_s:.3f} s")
+    return {"fixed": fixed, "paged": paged, "calib_s": calib_s, "mamba": mamba,
+            "hybrid": hybrid, "wall_s": wall_s, "b1_sites": b1_sites,
+            "b1": {"fixed": counts["w4a8_matmul"], "paged": paged["counts"]["w4a8_matmul"],
+                   "artifact": serve_c["w4a8_matmul"], "mamba_block": mamba["b1_launches"],
+                   "hybrid": [hybrid[k]["counts"]["w4a8_matmul"] for k in ("act", "int8")]},
+            "b5": ccounts["gpfq_solve"],
+            "b1e": [hybrid[k]["counts"]["w4a8_expert_matmul"] for k in ("act", "int8")],
+            "b2": hybrid["act"]["counts"]["paged_decode_attention"],
+            "b3": hybrid["int8"]["counts"]["paged_decode_attention_int8"]}
+
+
 def expert_record(name, rows, err, launches, ms_key, plain_key, replaces, pallas):
     """One record for B1e or B4e: times summed over the 3 expert sites of
     one granite MoE layer at decode (M = 4, E = 40); the same at M = 64 (a
@@ -4104,6 +4649,7 @@ def main() -> int:
     moe = phase_moe_slice(torch)
     search = phase_search_slice(torch, smi)
     observe = phase_observe_slice(torch, smi, search, paged)
+    recurrent = phase_recurrent_slice(torch, smi)
     records = [
         kernel_record(rows, max_err, launches, host),
         paged_record("paged_decode_attention", paged_rows["float"], paged_err["float"],
@@ -4134,6 +4680,14 @@ def main() -> int:
     # observed trace, B2 in (c)'s float-KV trace
     for rec, n in zip(records[:3], (observe["b1"], observe["b2"], observe["b3"])):
         rec["observe_launches"] = n
+    # phase 14's launches on the recurrent families: B1 (xlstm-350m fixed
+    # slot, paged, the calibrated artifact, the Jamba-width Mamba block,
+    # tiny-hybrid float and int8), B5 calibrating xlstm-350m, and
+    # tiny-hybrid's B2 (float pages), B3 (int8) and B1e (float, int8)
+    for rec, n in zip(records, (recurrent["b1"], recurrent["b2"], recurrent["b3"], None,
+                                recurrent["b5"], None, recurrent["b1e"])):
+        if n is not None:
+            rec["recurrent_launches"] = n
     print(json.dumps({"kernels": records}))
     # one card: every phase runs on cuda:0
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

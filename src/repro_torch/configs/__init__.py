@@ -1,16 +1,18 @@
 """Architecture registry of the port (port of ``repro/configs/__init__.py``):
-the dense ``tiny-lm-*`` rungs, ``tiny-moe``, smollm-360m and
-granite-moe-3b-a800m. Other architectures raise until the slice that
-serves their family is ported."""
+the ``tiny-*`` rungs (dense, MoE, SSM, xLSTM, hybrid), smollm-360m,
+granite-moe-3b-a800m, xlstm-350m and jamba-1.5-large-398b (its smoke config
+and its widths; the full model does not fit one card). Other architectures
+raise until the slice that serves their family is ported."""
 
 from __future__ import annotations
 
 from repro_torch.models.config import ModelConfig
 
-from . import granite_moe_3b_a800m, smollm_360m
+from . import granite_moe_3b_a800m, jamba_1_5_large_398b, smollm_360m, xlstm_350m
 from .paper import PAPER_MODELS
 
-REGISTRY = {m.ARCH_ID: m for m in (smollm_360m, granite_moe_3b_a800m)}
+REGISTRY = {m.ARCH_ID: m for m in (smollm_360m, granite_moe_3b_a800m, xlstm_350m,
+                                   jamba_1_5_large_398b)}
 
 
 def get_config(arch: str) -> ModelConfig:
@@ -20,8 +22,7 @@ def get_config(arch: str) -> ModelConfig:
         return PAPER_MODELS[arch]()
     raise KeyError(
         f"unknown arch {arch!r} in the port; known: "
-        f"{sorted(REGISTRY) + sorted(PAPER_MODELS)} (the SSM/xLSTM/hybrid "
-        f"families arrive with their slices)"
+        f"{sorted(REGISTRY) + sorted(PAPER_MODELS)}"
     )
 
 

@@ -6,7 +6,11 @@
 builds the port's :class:`~repro_torch.models.transformer.Transformer`
 computing the same function. The reference stacks each pattern slot's
 leaves over repeats, ``(R, ...)``; layer ``r * period + s`` of the port
-takes slice ``r`` of slot ``s``. An MoE FFN becomes
+takes slice ``r`` of slot ``s``. Mamba, mLSTM and sLSTM mixers become
+:class:`~repro_torch.models.ssm.Mamba`, :class:`~repro_torch.models.xlstm.MLSTM`
+and :class:`~repro_torch.models.xlstm.SLSTM`: their sites as below, their
+other leaves (conv, gates, A/D, recurrent matrices, norms) float tensors.
+An MoE FFN becomes
 :class:`~repro_torch.models.moe.MoE`: its router a float ``Linear`` and its
 expert stacks (E, K, C) sites. Packed leaves become
 :class:`~repro_torch.models.layers.PackedLinear` modules whose
@@ -23,7 +27,8 @@ mixed-precision search runs over the *same* codes as the reference's.
 
 :func:`paged_cache_from_numpy` carries the reference's paged cache
 (``repro.models.transformer.init_paged_cache``, arrays as numpy) into the
-port's layout: one pool per layer, plus the write-sink page.
+port's layout: one pool per layer, an attention pool with the write-sink
+page added, a recurrent layer's (num_slots, ...) state lanes as they are.
 """
 
 from __future__ import annotations
@@ -44,7 +49,9 @@ from repro_torch.models.layers import (
     PackedLinear,
 )
 from repro_torch.models.moe import MoE
-from repro_torch.models.transformer import Block, Transformer
+from repro_torch.models.ssm import Mamba
+from repro_torch.models.transformer import Block, Transformer, is_kv_pool
+from repro_torch.models.xlstm import MLSTM, SLSTM
 from repro_torch.quant.spec import DatapathSpec
 
 
@@ -83,6 +90,9 @@ def _norm(p: dict, r: int | None, device) -> Norm:
     return Norm(get("w"), get("b") if "b" in p else None)
 
 
+_MIXERS = {"attn": Attention, "mamba": Mamba, "mlstm": MLSTM, "slstm": SLSTM}
+
+
 def params_from_numpy(tree: dict, cfg: ModelConfig, *, device="cuda") -> Transformer:
     """The port's model for a JAX parameter tree of numpy arrays."""
     dev = resolve_device(device)
@@ -95,8 +105,11 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, *, device="cuda") -> Transfo
         slot = tree["layers"][s]
         block = Block(cfg.layer_spec(i), norm1=_norm(slot["norm1"], r, dev))
         if "mixer" in slot:
-            block.mixer = Attention(**{n: _site(slot["mixer"][n], r, dev)
-                                       for n in ("wq", "wk", "wv", "wo")})
+            mixer = _MIXERS[cfg.layer_spec(i).mixer]
+            floats = getattr(mixer, "FLOAT_LEAVES", ())
+            block.mixer = mixer(**{
+                n: to_tensor(np.asarray(v)[r], dev) if n in floats else _site(v, r, dev)
+                for n, v in slot["mixer"].items()})
         if "ffn" in slot:
             block.norm2 = _norm(slot["norm2"], r, dev)
             ffn = MoE if cfg.layer_spec(i).ffn == "moe" else MLP
@@ -194,9 +207,10 @@ def paged_cache_from_numpy(cache: dict, cfg: ModelConfig, *, device="cuda") -> d
     for i in range(cfg.n_layers):
         r, s = divmod(i, cfg.period)
         pool = {}
+        sink = is_kv_pool(cache["pools"][s])
         for name, a in cache["pools"][s].items():
             t = to_tensor(np.asarray(a)[r], dev)
-            pool[name] = torch.cat([t, torch.zeros_like(t[:1])])
+            pool[name] = torch.cat([t, torch.zeros_like(t[:1])]) if sink else t
         pools.append(pool)
     out = {k: to_tensor(v, dev) for k, v in cache.items() if k != "pools"}
     out["pools"] = pools

@@ -280,6 +280,40 @@ __device__ __forceinline__ void store4(__nv_bfloat16* out, size_t off, int4 s, i
   *reinterpret_cast<uint2*>(out + off) = v;
 }
 
+// A ragged N (N % 4 != 0, kernel B1/B4 with CP = 1): the first `live`
+// (< 4) outputs of a 4-column vector, each on its own (a row of the output
+// starts at any element, so no vector store is aligned).
+template <typename OutT>
+__device__ __forceinline__ void store_ragged(OutT* out, size_t off, int4 s, int n, int live,
+                                             const float* sw, const float* corr) {
+  const int v[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (i < live) {
+      const float f = epilogue(v[i], n + i, sw, corr);
+      if constexpr (sizeof(OutT) == 2) {
+        out[off + i] = __float2bfloat16_rn(f);
+      } else {
+        out[off + i] = f;
+      }
+    }
+  }
+}
+
+// One 4-column vector of outputs at column n0 + col of row `row_off`:
+// whole where N % 4 == 0 (a vector is wholly in or out), cut at N where
+// the kernel runs ragged.
+template <bool Ragged, typename OutT>
+__device__ __forceinline__ void store_cols(OutT* out, size_t row_off, int4 s, int n0, int col,
+                                           int N, const float* sw, const float* corr) {
+  if constexpr (Ragged) {
+    const int live = min(4, N - (n0 + col));
+    if (live > 0) store_ragged(out, row_off + n0 + col, s, col, live, sw, corr);
+  } else {
+    if (n0 + col < N) store4(out, row_off + n0 + col, s, col, sw, corr);
+  }
+}
+
 __device__ __forceinline__ int4 add4(int4 a, int4 b) {
   return make_int4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
@@ -340,6 +374,13 @@ int smem_bytes(int m, int chunks) {
   return kRingBytes + 2 * kBN * 4 + rx;
 }
 
+// CP is the load width in bytes: 16 or 4 (cp.async of x and the weights,
+// N % 4 == 0), or 1, the ragged kernel for any N: a weight row of N bytes
+// then starts at any byte, so each block copies its panel byte by byte
+// with plain loads and stores (ordered for the ring's readers by the main
+// loop's barrier), x still by 4-byte cp.async (K % 4 == 0), and stores
+// every output on its own, cut at N.
+//
 // Experts: the grid's rows walk E problems of (M, N, K) laid out one
 // after the other (x (E, M, K), w and meta (E, K/2 or K/4, N), sw and corr
 // (E, N), out (E, M, N)); expert e owns grid rows [e * row_tiles,
@@ -382,15 +423,38 @@ w4a8_kernel(Problem prob) {
 
   // one stage: the (kBM, kBK) x tile and its packed weight rows; K is a
   // multiple of CP for this load width, so a copy is wholly in or out
+  constexpr bool Ragged = CP == 1;
+  constexpr int XCP = Ragged ? 4 : CP;
   auto load_stage = [&](int kt, int slot) {
     unsigned char* sa = smem + slot * kStageBytes;
     unsigned char* sb = sa + A_BYTES;
     const int kb = k_begin + kt * kBK;
-    for (int idx = tid; idx < kBM * kBK / CP; idx += kThreads) {
-      const int r = idx / (kBK / CP), col = (idx % (kBK / CP)) * CP;
+    for (int idx = tid; idx < kBM * kBK / XCP; idx += kThreads) {
+      const int r = idx / (kBK / XCP), col = (idx % (kBK / XCP)) * XCP;
       const int m = m0 + r, k = kb + col;
       const bool ok = m < p.M && k < k_end;
-      cp_async<CP>(sa + r * kAStride + col, ok ? p.x + (size_t)m * p.K + k : p.x, ok ? CP : 0);
+      cp_async<XCP>(sa + r * kAStride + col, ok ? p.x + (size_t)m * p.K + k : p.x,
+                    ok ? XCP : 0);
+    }
+    if constexpr (Ragged) {  // byte by byte, zero past N and past the chunk
+      for (int idx = tid; idx < kBRows * kBN; idx += kThreads) {
+        const int r = idx / kBN, col = idx % kBN;
+        const int n = n0 + col;
+        const int8_t* src;
+        bool ok;
+        if constexpr (Sparse) {
+          const int pr = kb / 4 + r % kQuads;
+          ok = 4 * pr < k_end && n < p.N;
+          src = (r < kQuads ? p.w : reinterpret_cast<const int8_t*>(p.meta)) +
+                (size_t)pr * p.N + n;
+        } else {
+          const int pr = kb / 2 + r;
+          ok = 2 * pr < k_end && n < p.N;
+          src = p.w + (size_t)pr * p.N + n;
+        }
+        sb[r * kBStride + col] = ok ? static_cast<unsigned char>(__ldg(src)) : 0;
+      }
+      return;
     }
     for (int idx = tid; idx < kBRows * kBN / CP; idx += kThreads) {
       const int r = idx / (kBN / CP), col = (idx % (kBN / CP)) * CP;
@@ -498,11 +562,11 @@ w4a8_kernel(Problem prob) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int row = kWarpRows * wm + 16 * mi + g + 8 * h, col = 32 * wn + 4 * (2 * t + e);
-          if (row < live_rows && n0 + col < p.N)  // N % 4 == 0: wholly in or out
-            store4(out, (size_t)(m0 + row) * p.N + n0 + col,
-                   make_int4(acc[mi][0][2 * h + e], acc[mi][1][2 * h + e],
-                             acc[mi][2][2 * h + e], acc[mi][3][2 * h + e]),
-                   col, sw_s, corr_s);
+          if (row < live_rows)
+            store_cols<Ragged>(out, (size_t)(m0 + row) * p.N,
+                               make_int4(acc[mi][0][2 * h + e], acc[mi][1][2 * h + e],
+                                         acc[mi][2][2 * h + e], acc[mi][3][2 * h + e]),
+                               n0, col, p.N, sw_s, corr_s);
         }
     return;
   }
@@ -535,8 +599,7 @@ w4a8_kernel(Problem prob) {
     const int i = v / (kBN / 4), col = 4 * (v % (kBN / 4));
     int4 sum = rx[u];
     for (int r = 1; r < chunks; ++r) sum = add4(sum, rx[r * share + u]);
-    if (n0 + col < p.N)  // N % 4 == 0: a vector is wholly in or out
-      store4(out, (size_t)(m0 + i) * p.N + n0 + col, sum, col, sw_s, corr_s);
+    store_cols<Ragged>(out, (size_t)(m0 + i) * p.N, sum, n0, col, p.N, sw_s, corr_s);
   }
 }
 
@@ -884,8 +947,9 @@ int launch(void (*kernel)(Args...), dim3 grid, int threads, int smem, cudaStream
 
 template <bool ASigned, bool Sparse, bool Experts, typename OutT>
 int launch_typed(const Problem& p, int vec, dim3 grid, cudaStream_t s) {
-  auto kernel = vec == 16 ? w4a8_kernel<16, ASigned, Sparse, Experts, OutT>
-                          : w4a8_kernel<4, ASigned, Sparse, Experts, OutT>;
+  auto kernel = vec == 16  ? w4a8_kernel<16, ASigned, Sparse, Experts, OutT>
+                : vec == 4 ? w4a8_kernel<4, ASigned, Sparse, Experts, OutT>
+                           : w4a8_kernel<1, ASigned, Sparse, Experts, OutT>;
   const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                smem_bytes(kBM, kMaxClusterChunks));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -899,9 +963,9 @@ bool aligned16(const void* ptr) { return ptr == nullptr || (uintptr_t)ptr % 16 =
 // The plan's ints, checked against the shape before anything launches.
 bool plan_ok(const Problem& p, int experts, int vec, dim3 grid) {
   if (experts < 1) return false;
-  if (p.M < 1 || p.N < 4 || p.N % 4 || p.K < 0 || p.K % 4 || p.ck < kBK || p.ck % kBK)
-    return false;
-  if (vec != 4 && vec != 16) return false;
+  if (p.M < 1 || p.N < 1 || p.K < 0 || p.K % 4 || p.ck < kBK || p.ck % kBK) return false;
+  if (vec != 1 && vec != 4 && vec != 16) return false;
+  if (vec != 1 && p.N % 4) return false;  // a ragged N takes the byte loader
   if (vec == 16 && (p.N % 16 || p.K % 16 || !aligned16(p.x) || !aligned16(p.w) ||
                     !aligned16(p.meta)))
     return false;
@@ -990,11 +1054,12 @@ int launch_decode(const Problem& p, int experts, int a_signed, int out_bf16, int
 
 }  // namespace
 
-// C entry points, bound with ctypes. The plan (load width 4 or 16 bytes,
-// K rows a chunk, the grid: column tiles, row tiles, at most 8 chunks)
-// comes from kernels/w4a8_mm.py's w4a8_plan and is checked here against
-// the shape. Requires K % 4 == 0, N % 4 == 0 and 4-byte aligned x, w and
-// meta. Returns the launch's cudaError_t (0 on success); the kernel runs
+// C entry points, bound with ctypes. The plan (load width 1, 4 or 16
+// bytes, K rows a chunk, the grid: column tiles, row tiles, at most 8
+// chunks) comes from kernels/w4a8_mm.py's w4a8_plan and is checked here
+// against the shape. Requires K % 4 == 0 and 4-byte aligned x; a load
+// width of 4 or 16 also N % 4 == 0 and 4-byte aligned w and meta (the
+// ragged width 1 takes any N). Returns the launch's cudaError_t (0 on success); the kernel runs
 // asynchronously on `stream`.
 extern "C" int w4a8_matmul_launch(const void* x, const void* w, const void* sw,
                                   const void* corr, void* out, int M, int N, int K,
@@ -1045,8 +1110,8 @@ extern "C" int w4a8_sparse_expert_matmul_launch(const void* x, const void* w, co
 
 // The expert axis's decode tier (B1e with meta null, B4e with the (E, K/4,
 // N) meta): E problems of M <= 16 rows, one launch; the plan (load width,
-// K rows a chunk, ring depth, grid) from w4a8_expert_plan. The same
-// requirements as above.
+// K rows a chunk, ring depth, grid) from w4a8_expert_plan. Requires
+// N % 4 == 0 (w4a8_expert_plan sends a ragged N to the tile tier).
 extern "C" int w4a8_expert_decode_launch(const void* x, const void* w, const void* meta,
                                          const void* sw, const void* corr, void* out, int E,
                                          int M, int N, int K, int a_signed, int out_bf16,

@@ -221,7 +221,10 @@ SMEM_LIMIT = 232_448
 @dataclass(frozen=True)
 class W4A8Plan:
     """How one call of B1/B4 (or B1e/B4e) runs: its load width in bytes (16
-    where the layout allows, else 4), K rows a chunk and the grid. The
+    where the layout allows, else 4, and 1 for a ragged N, N % 4 != 0,
+    whose weight rows start at any byte: the kernel then loads its panel
+    byte by byte and stores each output on its own), K rows a chunk and
+    the grid. The
     ``tile`` tier's grid is (64-column tiles, row tiles, K chunks); the
     expert axis's ``decode`` tier's is (128-column tiles, experts, K
     chunks), each block keeping ``ring`` stages in flight. A function of the
@@ -238,6 +241,14 @@ class W4A8Plan:
         return self.grid[0] * self.grid[1] * self.grid[2]
 
 
+def _load_width(n: int, k: int, aligned: bool) -> int:
+    """The kernel's load width: 16 bytes where N and K are multiples of 16
+    and the operands 16-byte aligned, 4 where N % 4 == 0, else 1 (ragged)."""
+    if n % 4:
+        return 1
+    return 16 if aligned and n % 16 == 0 and k % 16 == 0 else 4
+
+
 @functools.cache
 def w4a8_plan(m: int, n: int, k: int, aligned: bool = True, n_sm: int = H100_SMS,
               experts: int = 1) -> W4A8Plan:
@@ -248,7 +259,7 @@ def w4a8_plan(m: int, n: int, k: int, aligned: bool = True, n_sm: int = H100_SMS
     ``experts`` > 1 plans the expert-axis kernel: E problems of (M, N, K),
     expert e's row tiles at grid rows [e * row_tiles, (e + 1) * row_tiles),
     and the split counts the tiles of all E."""
-    vec = 16 if aligned and n % 16 == 0 and k % 16 == 0 else 4
+    vec = _load_width(n, k, aligned)
     row_tiles = -(-m // TILE_M)
     tiles = experts * row_tiles * -(-n // TILE_N)
     steps = -(-k // STAGE_K)
@@ -275,8 +286,9 @@ def expert_tier(m: int, n: int, experts: int, n_sm: int = H100_SMS) -> str:
     """The tier of a B1e/B4e call of E problems with ``m`` rows an expert
     and ``n`` columns: ``decode`` up to DECODE_M rows and from TILE_M + 1
     to DECODE_MAX_M; in between (one row tile) ``tile`` while its E x
-    column tiles fit one wave, else ``decode``; ``tile`` above."""
-    if m > DECODE_MAX_M:
+    column tiles fit one wave, else ``decode``; ``tile`` above. A ragged
+    N (N % 4 != 0) takes the tile tier, whose kernel has the byte loader."""
+    if m > DECODE_MAX_M or n % 4:
         return "tile"
     if m <= DECODE_M or m > TILE_M:
         return "decode"
@@ -295,7 +307,7 @@ def w4a8_expert_plan(m: int, n: int, k: int, experts: int, aligned: bool = True,
     :func:`w4a8_plan` over the experts' row tiles."""
     if expert_tier(m, n, experts, n_sm) == "tile":
         return w4a8_plan(m, n, k, aligned, n_sm, experts)
-    vec = 16 if aligned and n % 16 == 0 and k % 16 == 0 else 4
+    vec = _load_width(n, k, aligned)
     cols = -(-n // DECODE_COLS)
     steps = -(-k // DECODE_STAGE_K)
     split = max(1, min(-(-DECODE_BLOCKS_PER_SM * n_sm // (experts * cols)), steps, MAX_CHUNKS))
@@ -341,10 +353,11 @@ def _launch(name: str, x, weights, sw, corr, out_dtype, rows_per_k: int):
                          f"{[tuple(w.shape) for w in weights]}")
     if sw.numel() != experts * n or corr.numel() != experts * n:
         raise ValueError(f"{name}: sw/corr need {experts * n} entries")
-    if k % 4 or n % 4:
-        raise ValueError(f"{name} kernel takes K and N multiples of 4, got K={k} N={n}")
-    if any(t.data_ptr() % 4 for t in (x, *weights)):
-        raise ValueError(f"{name} kernel needs 4-byte aligned codes and weights")
+    if k % 4:
+        raise ValueError(f"{name} kernel takes K a multiple of 4, got K={k}")
+    if x.data_ptr() % 4 or (n % 4 == 0 and any(w.data_ptr() % 4 for w in weights)):
+        raise ValueError(f"{name} kernel needs 4-byte aligned codes (and weights where "
+                         f"N % 4 == 0)")
     out = torch.empty((*lead, m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0 or experts == 0:
         return out, None

@@ -12,8 +12,10 @@ is the reference launcher's; ``--out DIR`` writes ``DIR/quantized``, which
 --artifact`` both load. ``--device`` defaults to ``cuda``.
 ``--sparsity 2:4`` calibrates with the mask-aware solvers, certifies every
 site at the halved effective depth and exports ``meta``-compressed 2:4
-sites (sites with K % 4 != 0 stay dense). ``--ckpt-dir`` and non-dense
-architectures are not yet ported and refuse.
+sites (sites with K % 4 != 0 stay dense). Every registered family
+calibrates (dense, MoE, Mamba, mLSTM, sLSTM and their hybrids: ``--arch
+tiny-ssm``, ``tiny-xlstm``, ``tiny-hybrid``); architectures the port does
+not register and ``--ckpt-dir`` refuse.
 """
 
 from __future__ import annotations

@@ -54,6 +54,12 @@ transparent, prints the binding watermark and the JSON report::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
         --smoke --packed --paged --block-size 8 --kv-dtype int8 --observe --device cpu
 
+The recurrent families serve through both engines (``--arch tiny-ssm``,
+``tiny-xlstm``, ``tiny-hybrid``, ``xlstm-350m``, ``jamba-1.5-large-398b
+--smoke``): their per-sequence state is a dense lane a slot, stepped in
+place by the captured decode step; the paged engine's policy gates refuse
+the prefix cache and batched or chunked admission on such patterns.
+
 ``--mesh`` and ``--ckpt-dir`` are accepted and refused, each naming the
 slice that brings it.
 """

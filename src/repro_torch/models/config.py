@@ -3,10 +3,10 @@
 A model is a token embedding, a stack of layers, a final norm and an LM
 head. Each layer is a (mixer, ffn) pair described by a :class:`LayerSpec`;
 a stack is ``pattern`` repeated ``n_layers // period`` times. The port
-serves the dense pattern (``attn`` + ``mlp``) and the MoE FFN
-(:class:`MoEConfig`); the SSM and xLSTM config blocks (``ssm``, ``xlstm``)
-are kept as opaque fields so configs keep the reference's shape, and the
-model raises on them.
+serves the attention, Mamba (:class:`SSMConfig`), mLSTM and sLSTM
+(:class:`XLSTMConfig`) mixers with MLP or MoE (:class:`MoEConfig`) FFNs;
+:func:`jamba_pattern` and :func:`xlstm_pattern` build the hybrid and xLSTM
+stacks.
 """
 
 from __future__ import annotations
@@ -22,6 +22,27 @@ class MoEConfig:
     capacity_factor: float = 1.25
     group_size: int = 1024  # dispatch group size (GShard-style)
     router_jitter: float = 0.0
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-1 selective SSM."""
+
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int | None = None  # default ceil(d_model / 16)
+
+
+@dataclass(frozen=True)
+class XLSTMConfig:
+    """xLSTM block internals (arXiv:2405.04517)."""
+
+    mlstm_expand: int = 2  # up-projection factor for mLSTM blocks
+    mlstm_heads: int = 4
+    slstm_heads: int = 4
+    slstm_proj_factor: float = 4.0 / 3.0  # post-block FFN factor
+    chunk: int = 64  # chunkwise-parallel length for mLSTM
 
 
 @dataclass(frozen=True)
@@ -43,8 +64,8 @@ class ModelConfig:
     pattern: tuple[LayerSpec, ...] = (LayerSpec("attn", "mlp"),)
     d_head: int | None = None
     moe: MoEConfig | None = None
-    ssm: object | None = None
-    xlstm: object | None = None
+    ssm: SSMConfig | None = None
+    xlstm: XLSTMConfig | None = None
     norm: str = "rmsnorm"  # rmsnorm | layernorm
     act: str = "swiglu"  # swiglu | gelu
     rope_theta: float = 10_000.0
@@ -70,6 +91,15 @@ class ModelConfig:
             )
         if self.n_heads % self.n_kv_heads != 0:
             raise ValueError(f"{self.name}: n_heads must be divisible by n_kv_heads")
+        needs_moe = any(s.ffn == "moe" for s in self.pattern)
+        if needs_moe and self.moe is None:
+            raise ValueError(f"{self.name}: pattern uses moe but moe config is None")
+        needs_ssm = any(s.mixer == "mamba" for s in self.pattern)
+        if needs_ssm and self.ssm is None:
+            raise ValueError(f"{self.name}: pattern uses mamba but ssm config is None")
+        needs_xlstm = any(s.mixer in ("mlstm", "slstm") for s in self.pattern)
+        if needs_xlstm and self.xlstm is None:
+            raise ValueError(f"{self.name}: pattern uses xlstm but xlstm config is None")
 
     @property
     def period(self) -> int:
@@ -88,6 +118,19 @@ class ModelConfig:
         m = max(self.vocab_pad_multiple, 1)
         return ((self.vocab + m - 1) // m) * m
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """True when the stack's sequence mixing is not dominated by full
+        attention (SSM / linear-recurrent / hybrid families)."""
+        attn_frac = sum(1 for s in self.pattern if s.mixer == "attn") / self.period
+        return attn_frac < 0.5
+
+    @property
+    def dt_rank(self) -> int:
+        if self.ssm is None:
+            return 0
+        return self.ssm.dt_rank or -(-self.d_model // 16)
+
     def layer_spec(self, i: int) -> LayerSpec:
         """The pattern entry of layer ``i`` (layer ``r * period + s`` is
         repeat ``r`` of slot ``s``)."""
@@ -99,3 +142,22 @@ class ModelConfig:
 
 def uniform_pattern(mixer: str = "attn", ffn: str = "mlp") -> tuple[LayerSpec, ...]:
     return (LayerSpec(mixer, ffn),)
+
+
+def jamba_pattern(period: int = 8, attn_at: int = 4) -> tuple[LayerSpec, ...]:
+    """Jamba (arXiv:2403.19887): 1 attention per ``period`` layers, MoE every
+    other layer; the rest are Mamba + dense MLP."""
+    specs = []
+    for i in range(period):
+        mixer = "attn" if i == attn_at else "mamba"
+        ffn = "moe" if i % 2 == 1 else "mlp"
+        specs.append(LayerSpec(mixer, ffn))
+    return tuple(specs)
+
+
+def xlstm_pattern(period: int = 8, slstm_at: int = 0) -> tuple[LayerSpec, ...]:
+    """xLSTM [7:1] mix: one sLSTM block per period, the rest mLSTM; blocks
+    carry their own projections (d_ff == 0 -> ffn "none")."""
+    return tuple(
+        LayerSpec("slstm" if i == slstm_at else "mlstm", "none") for i in range(period)
+    )

@@ -55,6 +55,13 @@ def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
+def normal_weight(shape, std, gen, dtype, device) -> torch.Tensor:
+    """A Gaussian weight of ``std`` drawn in f32 from ``gen``, cast to ``dtype``
+    (the random init of every model of the port)."""
+    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device) * std
+    return w.to(dtype)
+
+
 # ---------------------------------------------------------------------------
 # Packed-weight matmul dispatch (the W4A8 serving datapath)
 # ---------------------------------------------------------------------------

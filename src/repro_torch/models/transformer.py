@@ -1,17 +1,19 @@
-"""Model assembly, attention mixers with MLP or MoE FFNs (port of
-``repro/models/transformer.py``).
+"""Model assembly: attention, Mamba, mLSTM and sLSTM mixers with MLP or
+MoE FFNs (port of ``repro/models/transformer.py``).
 
 The reference stacks each pattern slot's parameters over repeats and scans
 over them; the port keeps one :class:`Block` per layer in an
 ``nn.ModuleList`` and loops (layer ``r * period + s`` is repeat ``r`` of
-slot ``s``). Decode caches are per-layer ``{"k", "v"}`` dicts, written in
-place. Mamba and xLSTM mixers and modality frontends arrive with their
-slices and raise here.
+slot ``s``). Decode caches are per-layer dicts, written in place: an
+attention layer's ``{"k", "v"}``, a recurrent layer's dense state (Mamba
+``{"conv", "ssm"}``, mLSTM ``{"conv", "C", "n", "m"}``, sLSTM ``{"h",
+"c", "n", "m"}``). Modality frontends are not ported and raise here.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Callable, NamedTuple
 
 import torch
 from torch import nn
@@ -20,6 +22,17 @@ from repro_torch import resolve_device
 
 from .config import LayerSpec, ModelConfig
 from .moe import MoE, moe
+from .ssm import init_mamba, mamba, mamba_decode, mamba_state_shapes
+from .xlstm import (
+    init_mlstm,
+    init_slstm,
+    mlstm,
+    mlstm_decode,
+    mlstm_state_shapes,
+    slstm,
+    slstm_decode,
+    slstm_state_shapes,
+)
 from .layers import (
     MLP,
     Attention,
@@ -33,6 +46,7 @@ from .layers import (
     lm_logits,
     mlp,
     norm,
+    normal_weight,
     paged_attention_decode,
     site_scope,
     torch_dtype,
@@ -41,21 +55,51 @@ from .layers import (
 AUX_LOSS_WEIGHT = 0.01
 
 
+class RecurrentMixer(NamedTuple):
+    """A recurrent mixer's functions: ``init(cfg, gen, device)``, the
+    parallel ``forward(p, x, cfg, return_state=False)``, the one-step
+    ``decode(p, x, cfg, *state)`` that updates ``state`` (the buffers named
+    by ``state``, in that order) in place, and ``state_shapes(cfg, batch)``,
+    {name: (shape, dtype)}."""
+
+    init: Callable
+    forward: Callable
+    decode: Callable
+    state_shapes: Callable
+    state: tuple[str, ...]
+
+
+#: the recurrent mixers: dense per-sequence state instead of a KV cache
+RECURRENT = {
+    "mamba": RecurrentMixer(init_mamba, mamba, mamba_decode, mamba_state_shapes,
+                            ("conv", "ssm")),
+    "mlstm": RecurrentMixer(init_mlstm, mlstm, mlstm_decode, mlstm_state_shapes,
+                            ("conv", "C", "n", "m")),
+    "slstm": RecurrentMixer(init_slstm, slstm, slstm_decode, slstm_state_shapes,
+                            ("h", "c", "n", "m")),
+}
+
+
+def is_kv_pool(pool: dict) -> bool:
+    """Whether a paged cache's layer pool holds KV pages (an attention
+    layer's, in the port's or the reference's layout) rather than a
+    recurrent layer's dense lanes."""
+    return "k_pages" in pool
+
+
 def _check_ported(cfg: ModelConfig) -> None:
     for spec in cfg.pattern:
-        if spec.mixer not in ("attn", "none") or spec.ffn not in ("mlp", "moe", "none"):
-            raise NotImplementedError(
-                f"{cfg.name}: layer {spec} — the port serves attention mixers with "
-                f"MLP or MoE FFNs; the SSM/xLSTM mixers arrive with their slices")
+        if spec.mixer not in ("attn", "none", *RECURRENT) or spec.ffn not in (
+                "mlp", "moe", "none"):
+            raise NotImplementedError(f"{cfg.name}: unknown layer {spec}")
     if cfg.frontend is not None:
         raise NotImplementedError(f"{cfg.name}: modality frontends are not ported")
-    if any(s.ffn == "moe" for s in cfg.pattern) and cfg.moe is None:
-        raise ValueError(f"{cfg.name}: pattern uses moe but moe config is None")
 
 
 class Block(nn.Module):
-    """One layer: ``norm1`` + ``mixer`` (Attention) and ``norm2`` + ``ffn``
-    (MLP or MoE); a component is None where the pattern says "none"."""
+    """One layer: ``norm1`` + ``mixer`` (Attention, Mamba, MLSTM or SLSTM)
+    and ``norm2`` + ``ffn`` (MLP or MoE); a component is None where the
+    pattern says "none"."""
 
     def __init__(self, spec: LayerSpec, norm1=None, mixer=None, norm2=None, ffn=None):
         super().__init__()
@@ -84,11 +128,6 @@ class Transformer(nn.Module):
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
-def _normal(shape, std, gen, dtype, device):
-    w = torch.randn(shape, generator=gen, dtype=torch.float32, device=device) * std
-    return w.to(dtype)
-
-
 def _init_block(spec: LayerSpec, cfg: ModelConfig, gen, device) -> Block:
     dt = torch_dtype(cfg.param_dtype)
     d, hd, nh, nkv, f = cfg.d_model, cfg.head_dim, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
@@ -98,13 +137,15 @@ def _init_block(spec: LayerSpec, cfg: ModelConfig, gen, device) -> Block:
         return Norm(torch.ones(d, dtype=dt, device=device), b)
 
     def lin(k, n, std):
-        return Linear(_normal((k, n), std, gen, dt, device))
+        return Linear(normal_weight((k, n), std, gen, dt, device))
 
     block = Block(spec, norm1=new_norm())
     if spec.mixer == "attn":
         s = 1.0 / math.sqrt(d)
         block.mixer = Attention(lin(d, nh * hd, s), lin(d, nkv * hd, s),
                                 lin(d, nkv * hd, s), lin(nh * hd, d, s))
+    elif spec.mixer in RECURRENT:
+        block.mixer = RECURRENT[spec.mixer].init(cfg, gen, device)
     if spec.ffn == "mlp":
         block.norm2 = new_norm()
         s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
@@ -118,7 +159,7 @@ def _init_block(spec: LayerSpec, cfg: ModelConfig, gen, device) -> Block:
         s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
 
         def stack(k, n, std):
-            return Linear(_normal((e, k, n), std, gen, dt, device))
+            return Linear(normal_weight((e, k, n), std, gen, dt, device))
 
         sites = ({"wg": stack(d, f, s_in), "wu": stack(d, f, s_in)} if cfg.act == "swiglu"
                  else {"wi": stack(d, f, s_in)})
@@ -139,8 +180,8 @@ def init_model(cfg: ModelConfig, seed: int = 0, *, device="cuda",
     dt = torch_dtype(cfg.param_dtype)
     v, d = cfg.vocab_padded, cfg.d_model
     embedding = Embedding(
-        _normal((v, d), 0.02, gen, dt, dev),
-        None if cfg.tie_embeddings else _normal((v, d), 1.0 / math.sqrt(d), gen, dt, dev),
+        normal_weight((v, d), 0.02, gen, dt, dev),
+        None if cfg.tie_embeddings else normal_weight((v, d), 1.0 / math.sqrt(d), gen, dt, dev),
     )
     layers = [_init_block(cfg.layer_spec(i), cfg, gen, dev) for i in range(cfg.n_layers)]
     final_norm = Norm(torch.ones(d, dtype=dt, device=dev))
@@ -178,7 +219,11 @@ def forward(model: Transformer, batch: dict):
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for block in model.layers:
         if block.mixer is not None:
-            y, _ = attention(block.mixer, norm(block.norm1, x, cfg.norm), cfg, positions)
+            h = norm(block.norm1, x, cfg.norm)
+            if block.spec.mixer == "attn":
+                y, _ = attention(block.mixer, h, cfg, positions)
+            else:
+                y = RECURRENT[block.spec.mixer].forward(block.mixer, h, cfg)
             x = x + y
         if block.ffn is not None:
             x = _ffn(block, cfg, x, aux)
@@ -209,18 +254,54 @@ def loss_fn(model: Transformer, batch: dict):
 # ---------------------------------------------------------------------------
 # KV caches, prefill, decode
 # ---------------------------------------------------------------------------
+def recurrent_state_shapes(spec: LayerSpec, cfg: ModelConfig, batch: int) -> dict:
+    """{name: (shape, dtype)} of a recurrent mixer's decode state for
+    ``batch`` sequences ({} for other mixers)."""
+    rec = RECURRENT.get(spec.mixer)
+    return {} if rec is None else rec.state_shapes(cfg, batch)
+
+
+def _zero_state(spec: LayerSpec, cfg: ModelConfig, batch: int, device) -> dict:
+    return {name: torch.zeros(shape, dtype=dt, device=device)
+            for name, (shape, dt) in recurrent_state_shapes(spec, cfg, batch).items()}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda"):
-    """Per-layer ``{"k", "v"}`` caches of (B, max_len, nkv, hd) in act dtype."""
+    """Per-layer decode caches: ``{"k", "v"}`` of (B, max_len, nkv, hd) in
+    the act dtype for an attention layer, the zeroed dense state of a
+    recurrent one (:func:`recurrent_state_shapes`)."""
     _check_ported(cfg)
     dev = resolve_device(device)
     shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     dt = torch_dtype(cfg.act_dtype)
-    return [
-        {"k": torch.zeros(shape, dtype=dt, device=dev),
-         "v": torch.zeros(shape, dtype=dt, device=dev)}
-        if cfg.layer_spec(i).mixer == "attn" else {}
-        for i in range(cfg.n_layers)
-    ]
+    caches = []
+    for i in range(cfg.n_layers):
+        spec = cfg.layer_spec(i)
+        if spec.mixer == "attn":
+            caches.append({"k": torch.zeros(shape, dtype=dt, device=dev),
+                           "v": torch.zeros(shape, dtype=dt, device=dev)})
+        else:
+            caches.append(_zero_state(spec, cfg, batch, dev))
+    return caches
+
+
+def _mixer_decode(block: Block, cfg: ModelConfig, h, cache: dict):
+    """One recurrent mixer's decode step on its dense state, in place."""
+    rec = RECURRENT[block.spec.mixer]
+    return rec.decode(block.mixer, h, cfg, *(cache[name] for name in rec.state))[0]
+
+
+def _mixer_prefill(block: Block, cfg: ModelConfig, h):
+    """A recurrent mixer over the prompt: (y, its end-of-sequence state).
+    ``cfg.prefill_mode`` "parallel" runs the chunkwise-parallel forms;
+    "stepwise" reruns the sequence through the decode recurrence from a
+    zero state (exact but sequential; the reference's baseline)."""
+    if cfg.prefill_mode == "parallel":
+        return RECURRENT[block.spec.mixer].forward(block.mixer, h, cfg, return_state=True)
+    B, S, _ = h.shape
+    state = _zero_state(block.spec, cfg, B, h.device)
+    ys = [_mixer_decode(block, cfg, h[:, t:t + 1], state)[:, 0] for t in range(S)]
+    return torch.stack(ys, dim=1), state
 
 
 def prefill(model: Transformer, batch: dict, max_len: int, prefix_kv=None,
@@ -230,7 +311,8 @@ def prefill(model: Transformer, batch: dict, max_len: int, prefix_kv=None,
     ``caches``, when given, are :func:`init_cache`-shaped caches of at
     least ``max_len`` positions that the prompt's KV is written into (a
     captured decode step's static caches); positions past S keep what they
-    held, and decode masks them until it writes them.
+    held, and decode masks them until it writes them. A recurrent layer's
+    end-of-prompt state is copied into its cache buffers.
 
     ``prefix_kv`` enables suffix prefill against a cached prompt prefix:
     a per-layer list whose attention entries are ``{"k", "v"}`` of (B, L,
@@ -245,11 +327,16 @@ def prefill(model: Transformer, batch: dict, max_len: int, prefix_kv=None,
         caches = init_cache(cfg, B, max_len, device=x.device)
     for i, (block, cache) in enumerate(zip(model.layers, caches)):
         if block.mixer is not None:
-            pkv = None if prefix_kv is None else (prefix_kv[i]["k"], prefix_kv[i]["v"])
-            y, (k, v) = attention(block.mixer, norm(block.norm1, x, cfg.norm), cfg, positions,
-                                  prefix_kv=pkv)
-            cache["k"][:, :S] = k
-            cache["v"][:, :S] = v
+            h = norm(block.norm1, x, cfg.norm)
+            if block.spec.mixer == "attn":
+                pkv = None if prefix_kv is None else (prefix_kv[i]["k"], prefix_kv[i]["v"])
+                y, (k, v) = attention(block.mixer, h, cfg, positions, prefix_kv=pkv)
+                cache["k"][:, :S] = k
+                cache["v"][:, :S] = v
+            else:
+                y, state = _mixer_prefill(block, cfg, h)
+                for name, t in state.items():
+                    cache[name].copy_(t)
             x = x + y
         if block.ffn is not None:
             x = _ffn(block, cfg, x)
@@ -261,14 +348,18 @@ def decode_step(model: Transformer, tokens, caches, index):
     """One decode step. tokens: (B, 1); ``index`` the position being
     written, a 0-d int32 tensor on the model's device (read there alone:
     one captured step serves every position) or a Python int. Updates
-    ``caches`` in place; returns (logits (B, 1, V), caches)."""
+    ``caches`` in place (KV and recurrent states); returns (logits (B, 1,
+    V), caches)."""
     cfg = model.cfg
     x = embed(model.embedding, tokens.long(), cfg)
     index = decode_position(index, x.device)
     for block, cache in zip(model.layers, caches):
         if block.mixer is not None:
             h = norm(block.norm1, x, cfg.norm)
-            y, _, _ = attention_decode(block.mixer, h, cfg, cache["k"], cache["v"], index)
+            if block.spec.mixer == "attn":
+                y, _, _ = attention_decode(block.mixer, h, cfg, cache["k"], cache["v"], index)
+            else:
+                y = _mixer_decode(block, cfg, h, cache)
             x = x + y
         if block.ffn is not None:
             x = _ffn(block, cfg, x)
@@ -294,14 +385,18 @@ def init_paged_cache(cfg: ModelConfig, num_slots: int, num_blocks: int, block_si
     ``free_top`` and ``page_refcounts`` mirror the host allocator
     (:class:`~repro_torch.serving.scheduler.PoolState`): ``page_refcounts``
     counts the block-table rows holding a page plus one while the prefix
-    cache holds it."""
+    cache holds it. A recurrent layer's pool is its dense state with one
+    lane a slot, (num_slots, ...), as the reference's (R, num_slots, ...):
+    admission installs a prompt's end state into the slot's lane, and every
+    decode step steps every lane."""
     _check_ported(cfg)
     dev = resolve_device(device)
     dt = torch.int8 if kv_dtype == "int8" else torch_dtype(kv_dtype or cfg.act_dtype)
     pools = []
     for i in range(cfg.n_layers):
-        if cfg.layer_spec(i).mixer != "attn":
-            pools.append({})
+        spec = cfg.layer_spec(i)
+        if spec.mixer != "attn":
+            pools.append(_zero_state(spec, cfg, num_slots, dev))
             continue
         kv = (num_blocks + 1, block_size, cfg.n_kv_heads, cfg.head_dim)
         pool = {"k_pages": torch.zeros(kv, dtype=dt, device=dev),
@@ -337,7 +432,9 @@ def decode_step_paged(model: Transformer, tokens, cache: dict, *, attn_impl: str
 
     Every slot advances at its own ``cache["seq_lens"]`` position; idle
     slots (``active`` False) compute but write only to the sink page and do
-    not advance. ``attn_spec`` is an optional
+    not advance; a recurrent layer steps every slot's lane, idle ones too,
+    as the reference does (their outputs are discarded and admission
+    overwrites the lane). ``attn_spec`` is an optional
     :class:`~repro_torch.quant.spec.AttnDatapathSpec` request.
     ``assert_bounds``/``watermarks`` reach the int8 attention kernel (B3).
     ``kv_scales``: calibrated static KV page scales, a sequence aligned with
@@ -355,7 +452,11 @@ def decode_step_paged(model: Transformer, tokens, cache: dict, *, attn_impl: str
     table, lens, active = cache["block_table"], cache["seq_lens"], cache["active"]
     for i, (block, pool) in enumerate(zip(model.layers, cache["pools"])):
         r, s = divmod(i, cfg.period)
-        if block.mixer is not None:
+        if block.mixer is not None and block.spec.mixer != "attn":
+            h = norm(block.norm1, x, cfg.norm)
+            with site_scope(f"slot{s}/mixer"):
+                x = x + _mixer_decode(block, cfg, h, pool)
+        elif block.mixer is not None:
             h = norm(block.norm1, x, cfg.norm)
             sks = kv_scales[s] if kv_scales is not None and kv_scales[s] else None
             with site_scope(f"slot{s}/mixer"):

@@ -1,6 +1,6 @@
 """Quantizable-site registry (port of ``repro/quant/families/__init__.py``):
-one adapter per (kind, LayerSpec value). The port registers the dense and
-MoE adapters; Mamba and xLSTM arrive with their slices."""
+one adapter per (kind, LayerSpec value): attention, MLP, MoE, Mamba, mLSTM
+and sLSTM."""
 
 from __future__ import annotations
 
@@ -9,9 +9,12 @@ from repro_torch.models.config import ModelConfig
 from .base import BlockAdapter, Pair, SiteSpec, TapContext, TapFn, both
 from .dense import AttentionAdapter, MLPAdapter
 from .moe import MoEAdapter
+from .ssm import MambaAdapter
+from .xlstm import MLSTMAdapter, SLSTMAdapter
 
 _REGISTRY: dict[tuple[str, str], BlockAdapter] = {
-    (a.kind, a.name): a for a in (AttentionAdapter(), MLPAdapter(), MoEAdapter())
+    (a.kind, a.name): a for a in (AttentionAdapter(), MLPAdapter(), MoEAdapter(),
+                                  MambaAdapter(), MLSTMAdapter(), SLSTMAdapter())
 }
 
 
@@ -22,8 +25,7 @@ def get_adapter(kind: str, name: str) -> BlockAdapter:
     except KeyError:
         raise NotImplementedError(
             f"no adapter for {kind} {name!r} in the port (registered: "
-            f"{sorted(_REGISTRY)}); the SSM/xLSTM families arrive with "
-            f"their slices of the port"
+            f"{sorted(_REGISTRY)})"
         ) from None
 
 

@@ -210,9 +210,14 @@ def _calibrate_component(adapter, p: dict, nrm: dict, x_a, x_q, cfg, ptq, positi
 
 
 def _component_params(module) -> dict:
-    """The component's float weights as a dict keyed by module name: its
-    sites' and any other (an MoE router)."""
-    return {name: child.w.detach() for name, child in module.named_children()}
+    """The component's float weights as a dict keyed by name: its sites'
+    and any other ``Linear`` (an MoE router), and its float leaves that are
+    not sites (a recurrent mixer's ``FLOAT_LEAVES``: conv, gates, state
+    parameters)."""
+    out = {name: child.w.detach() for name, child in module.named_children()}
+    out.update({name: getattr(module, name).detach()
+                for name in getattr(module, "FLOAT_LEAVES", ())})
+    return out
 
 
 def _tokens(batches, device) -> torch.Tensor:

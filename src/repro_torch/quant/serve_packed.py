@@ -38,6 +38,8 @@ from repro_torch.kernels.w4a8_mm import compress_2to4, pack_int4
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import MLP, Attention, Linear, Norm, PackedLinear, site_codes
 from repro_torch.models.moe import MoE
+from repro_torch.models.ssm import Mamba
+from repro_torch.models.xlstm import MLSTM, SLSTM
 
 from .families import SiteSpec, check_supported, get_adapter
 from .spec import (
@@ -64,7 +66,16 @@ __all__ = [
 ]
 
 #: the serving module of each family adapter's component
-_COMPONENTS = {"attn": Attention, "mlp": MLP, "moe": MoE}
+_COMPONENTS = {"attn": Attention, "mlp": MLP, "moe": MoE, "mamba": Mamba, "mlstm": MLSTM,
+               "slstm": SLSTM}
+
+
+def _component_fields(comp) -> dict:
+    """A component module's constructor arguments: its child modules (sites,
+    an MoE router) and its float leaves (``FLOAT_LEAVES``)."""
+    fields = dict(comp.named_children())
+    fields.update({name: getattr(comp, name) for name in getattr(comp, "FLOAT_LEAVES", ())})
+    return fields
 
 
 def packable_sites(cfg: ModelConfig):
@@ -144,7 +155,7 @@ def _replace_sites(model, new_site):
             comp = getattr(block, kind)
             if comp is None:
                 continue
-            comp = type(comp)(**dict(comp.named_children()))
+            comp = type(comp)(**_component_fields(comp))
             for name, mod in list(comp.named_children()):
                 repl = new_site(i, kind, name, mod)
                 if repl is not None:
@@ -261,10 +272,12 @@ def serving_params_from_quantized(qm):
                 ql = comp.linears[name]
                 rec = {"q": ql.q_int, "scale": ql.scale, "spec": ql.spec, "bias": ql.bias}
                 sites[site.path[-1]] = _site_rec_leaf(rec, site, name, ql.q_int.device)
+            cls = _COMPONENTS[comp.adapter]
+            floats = getattr(cls, "FLOAT_LEAVES", ())
             for name, v in comp.params.items():
-                if v is not None:  # float leaves: an MoE router
-                    sites[name] = Linear(v)
-            setattr(block, kind, _COMPONENTS[comp.adapter](**sites))
+                if v is not None:  # an MoE router (a Linear), a mixer's float leaves
+                    sites[name] = v if name in floats else Linear(v)
+            setattr(block, kind, cls(**sites))
         layers.append(block)
     return Transformer(cfg, qm.embedding, layers, qm.final_norm)
 

@@ -3,8 +3,11 @@
 :meth:`GenerationEngine.generate` runs one prefill and then the decode
 loop as one captured program, as the reference runs prefill plus a
 ``lax.while_loop`` in one jitted program. Each (batch, max_len) bucket
-owns static buffers: the KV caches, the current token, the device
-position, the done mask and the (B, max_len) token matrix. The prefill writes the prompt's KV into the bucket's caches; the
+owns static buffers: the KV caches (a recurrent layer's dense state in
+their place), the current token, the device position, the done mask and
+the (B, max_len) token matrix. The prefill writes the prompt's KV, and
+each recurrent layer's end-of-prompt state, into the bucket's caches;
+the decode step updates them in place. The
 decode step (decode at the device position, sample, mask by ``done``,
 write the token at the next column, advance) is captured once per bucket
 as a CUDA graph (:class:`~repro_torch.serving.graphs.StepProgram`) and

@@ -7,14 +7,16 @@ this engine runs an open system: requests queue in a host-side
 whichever engine slot is free, decode together whatever their phase, and
 free their KV pages the moment they finish. The cache
 (:func:`~repro_torch.models.transformer.init_paged_cache`) holds one page
-pool per layer.
+pool per attention layer, and one lane a slot of each recurrent layer's
+dense state (Mamba, mLSTM, sLSTM).
 
 Programs, each a method that updates the cache tensors in place (where the
 reference's jitted programs take the cache donated and return a new one):
 
 * **admit**: install the slot's block-table row, prefill the prompt (B=1),
-  scatter its KV into the fresh pages (quantize-on-scatter for int8 pools)
-  and sample the first token (one host read per admission);
+  scatter its KV into the fresh pages (quantize-on-scatter for int8 pools),
+  copy each recurrent layer's end-of-prompt state into the slot's lane, in
+  place, and sample the first token (one host read per admission);
 * **suffix admit** (prefix cache): the row starts with cached prefix pages;
   only the uncached suffix prefills, attending over the prefix KV gathered
   (and dequantized) from the shared pages;
@@ -110,7 +112,12 @@ from repro_torch.models.layers import (
     resolve_paged_attn_impl,
     use_packed_backend,
 )
-from repro_torch.models.transformer import decode_step_paged, init_paged_cache, prefill
+from repro_torch.models.transformer import (
+    decode_step_paged,
+    init_paged_cache,
+    is_kv_pool,
+    prefill,
+)
 from repro_torch.quant.observe.saturation import SaturationCounters, observed_labels
 from repro_torch.quant.serve_packed import upgrade_packed_params
 from repro_torch.quant.spec import (
@@ -343,7 +350,7 @@ class PagedEngine:
         idx = self._dev(pages, torch.long)
         out = []
         for pool in self.cache["pools"]:
-            if not pool:
+            if not is_kv_pool(pool):
                 out.append({})
                 continue
             kv = {}
@@ -368,7 +375,7 @@ class PagedEngine:
         sel = None if keep is None else self._dev(keep, torch.long)
         bs, period = self.paged.block_size, self.cfg.period
         for i, (pool, d) in enumerate(zip(self.cache["pools"], dense)):
-            if not pool:
+            if not is_kv_pool(pool):
                 continue
             r, s = divmod(i, period)
             static = self._kv_scales_seq[s] if self._kv_scales_seq else None
@@ -387,6 +394,16 @@ class PagedEngine:
                 else:
                     pool[f"{name}_pages"][idx] = x.to(pool[f"{name}_pages"].dtype)
 
+    def _install_states(self, slot: int, dense) -> None:
+        """Copy a B=1 prefill's recurrent end states into ``slot``'s lane of
+        each recurrent layer, in place (the reference splices them into the
+        (R, num_slots, ...) batch); attention layers are skipped."""
+        for pool, d in zip(self.cache["pools"], dense):
+            if is_kv_pool(pool):
+                continue
+            for name, lane in pool.items():
+                lane[slot].copy_(d[name][0])
+
     def _first_token(self, logits, uid: int) -> torch.Tensor:
         return sample_rows(logits[:, -1], self.sampler.temperature, self.sampler.seed,
                            self._dev([uid]), self._dev([0]))[0]
@@ -399,6 +416,7 @@ class PagedEngine:
         logits, dense = prefill(self.model, {"tokens": self._dev(req.prompt[None])},
                                 n_prompt_pages * bs)
         self._scatter_dense_pages(dense, adm.row[:n_prompt_pages])
+        self._install_states(adm.slot, dense)
         tok0 = self._first_token(logits, req.uid)
         self._install(adm.slot, adm.row, s0=req.prompt.size, uid=req.uid, steps=1,
                       last_tok=tok0)
@@ -431,7 +449,7 @@ class PagedEngine:
         hand the last prompt token to the next decode chunk."""
         self.cached_admits += 1
         dest = int(adm.row[adm.n_shared])
-        for pool in self.cache["pools"]:
+        for pool in self.cache["pools"]:  # attention only: the gate refuses recurrent ones
             for leaf in pool.values():
                 leaf[dest] = leaf[adm.cow_src]
         req = adm.req

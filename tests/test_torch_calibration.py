@@ -231,9 +231,12 @@ def test_quantize_launcher_then_serve_cpu(tmp_path, capsys):
     assert out.shape == (2, 12)
     printed = capsys.readouterr().out
     assert "[quantize] artifact v2" in printed and "tok/s" in printed
-    # the MoE family is calibrated now (tests/test_torch_moe_calibration.py);
+    # the MoE and recurrent families are calibrated now
+    # (tests/test_torch_moe_calibration.py, tests/test_torch_recurrent_calibration.py);
     # checkpoint restore is still refused
     with pytest.raises(SystemExit, match="not yet ported"):
         quantize_launcher.main(["--arch", ARCH, "--device", "cpu", "--ckpt-dir", str(tmp_path)])
-    with pytest.raises(SystemExit, match="not yet ported"):
-        quantize_launcher.main(["--arch", "tiny-ssm", "--device", "cpu"])
+    ssm = quantize_launcher.main(["--arch", "tiny-ssm", "--device", "cpu", "--calib-batches",
+                                  "1", "--calib-batch-size", "2", "--seq", "32",
+                                  "--eval-batches", "1"])
+    assert ssm["cert"]["ok"] and ssm["cert"]["n_certified"] == 4 * 2

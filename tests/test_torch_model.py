@@ -197,16 +197,26 @@ def test_entry_points_default_to_the_card():
 
 
 def test_non_dense_patterns_raise():
-    """MoE FFNs are ported (tests/test_torch_moe.py) but need their MoE
-    config; the SSM and xLSTM mixers still raise."""
+    """The MoE FFN needs its MoE config, and the Mamba and mLSTM mixers
+    their SSM/xLSTM configs (refused when the config is built, as in the
+    reference); with them, the Mamba and xLSTM mixers build
+    (tests/test_torch_ssm.py, tests/test_torch_xlstm.py). Modality
+    frontends still raise."""
     cfg = get_config("tiny-lm-xs")
-    moe = cfg.scaled(pattern=(dataclasses.replace(cfg.pattern[0], ffn="moe"),))
     with pytest.raises(ValueError, match="moe config is None"):
-        T.init_model(moe, device="cpu")
-    for mixer in ("mamba", "mlstm"):
-        other = cfg.scaled(pattern=(dataclasses.replace(cfg.pattern[0], mixer=mixer),))
-        with pytest.raises(NotImplementedError, match="SSM/xLSTM"):
-            T.init_model(other, device="cpu")
+        cfg.scaled(pattern=(dataclasses.replace(cfg.pattern[0], ffn="moe"),))
+    for mixer, block in (("mamba", "ssm"), ("mlstm", "xlstm")):
+        with pytest.raises(ValueError, match=f"{block} config is None"):
+            cfg.scaled(pattern=(dataclasses.replace(cfg.pattern[0], mixer=mixer),))
+    ssm = get_config("tiny-ssm")
+    model = T.init_model(ssm.scaled(pattern=(dataclasses.replace(ssm.pattern[0], ffn="mlp"),)),
+                         device="cpu")
+    assert type(model.layers[0].mixer).__name__ == "Mamba" and model.layers[0].ffn is not None
+    assert [type(b.mixer).__name__ for b in T.init_model(get_config("tiny-xlstm"),
+                                                         device="cpu").layers] == [
+        "MLSTM", "SLSTM"]
+    with pytest.raises(NotImplementedError, match="frontends"):
+        T.init_model(cfg.scaled(frontend="vision_stub"), device="cpu")
     assert T.init_model(get_config("tiny-moe"), device="cpu").layers[0].spec.ffn == "moe"
 
 

@@ -12,9 +12,9 @@ packages observe, search and re-spec the *same* integer codes: integers
 (floors, repeats, plans, accumulator bits, certificates) must match
 exactly, floats within the reference tests' tolerances.
 
-Left for a later slice: ``test_two_site_overrides_roundtrip_hybrid``
-(``tests/test_observe.py:432``) waits for the SSM family (ROADMAP Queue A
-item 4). ``test_observer_structurally_transparent`` and
+``test_two_site_overrides_roundtrip_hybrid`` (``tests/test_observe.py:432``)
+runs on the hybrid rung (Mamba + MLP, attention + MoE), the reference's
+calibration carried into the port. ``test_observer_structurally_transparent`` and
 ``test_observed_serving_bit_identical_with_report`` (``:487``, ``:502``)
 are mirrored in ``tests/test_torch_saturation.py``, with the serving
 observers.
@@ -32,6 +32,7 @@ from repro.configs import get_config as j_get_config
 from repro.core import PTQConfig as JPTQConfig
 from repro.core import min_feasible_p_bits as j_min_feasible_p_bits
 from repro.data import DataConfig, TokenBatcher
+from repro.models.layers import use_packed_backend as j_backend
 from repro.models.transformer import init_model as j_init_model
 from repro.quant import calibrate_and_quantize as j_calibrate
 from repro.quant import observe as J
@@ -44,6 +45,9 @@ from repro.quant.serve_packed import packed_params_from_artifact as j_from_artif
 from repro.quant.serve_packed import plan_expected_specs as j_plan_expected_specs
 from repro.quant.spec import DatapathSpec as JDatapathSpec
 from repro.quant.spec import validate_datapath as j_validate_datapath
+from repro.serving import PagedConfig as JPagedConfig
+from repro.serving import PagedEngine as JPagedEngine
+from repro.serving import SamplerConfig as JSampler
 from repro_torch.checkpoint import save_pytree
 from repro_torch.configs import get_config
 from repro_torch.core.alphabet import outer_accumulator_bits
@@ -484,3 +488,62 @@ def test_partial_and_unknown_mixed_artifacts_rejected(mixed_artifact, calibrated
     with pytest.raises(DatapathMismatchError):
         validate_datapath(sp, {**expected, "slot0/mixer.wq": dataclasses.replace(
             expected["slot0/mixer.wq"], p_inner=12)})
+
+
+def test_two_site_overrides_roundtrip_hybrid(tmp_path):
+    """tests/test_observe.py:432 on the port: on tiny-hybrid (Mamba + MLP,
+    attention + MoE; the reference's calibration carried across, so both
+    packages plan the same codes), two sites with different per-site
+    datapaths re-spec and certify, export the reference's mixed artifact
+    exactly, and serve bit-identically from memory and from disk through
+    the paged engine, as the reference's engine serves its own export."""
+    jcfg, cfg = j_get_config("tiny-hybrid"), get_config("tiny-hybrid")
+    jparams = j_init_model(jax.random.key(0), jcfg)
+    model = params_from_numpy(jax.tree.map(np.asarray, jparams), cfg, device="cpu")
+    data = TokenBatcher(DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=2))
+    jptq = JPTQConfig(w_bits=4, act_bits=8, p_bits=P_UNIFORM, tile=None, algorithm="gpfq",
+                      constrain=True)
+    jqm = j_calibrate(jparams, jcfg, [data.batch(0)], jptq)
+    qm = quantized_model_from_numpy(jqm, cfg, device="cpu")
+
+    def two_site_plan(pkg, report):
+        a, b = [s for s in report if s.headroom_bits is not None][:2]
+        return pkg.MixedPrecisionPlan(sites={
+            a.name: dataclasses.replace(a.spec, p_inner=a.p_floor, p_outer=a.p_floor),
+            b.name: dataclasses.replace(b.spec, p_inner=min(b.p_floor + 1, b.p_inner),
+                                        p_outer=min(b.p_floor + 1, b.p_inner))})
+
+    plan = two_site_plan(P, P.collect_observations(qm))
+    jplan = two_site_plan(J, J.collect_observations(jqm))
+    assert _plan_specs(plan) == _plan_specs(jplan)
+    qm2, jqm2 = P.apply_plan(qm, plan), J.apply_plan(jqm, jplan)
+    assert qm2.cert_summary()["ok"] and jqm2.cert_summary()["ok"]
+    artifact, meta = export_quantized_artifact(qm2)
+    jartifact, jmeta = j_export(jqm2)
+    assert meta["mixed_precision"] is True and meta == jmeta
+    assert artifact.keys() == jartifact.keys()
+    for k in artifact:
+        np.testing.assert_array_equal(artifact[k], np.asarray(jartifact[k]), err_msg=k)
+    save_pytree(artifact, str(tmp_path / "port"), meta)
+    j_save_pytree(jartifact, str(tmp_path / "ref"), jmeta)
+    flat, meta2 = load_flat_artifact(str(tmp_path / "port"))
+    sp_mem = serving_params_from_quantized(qm2)
+    sp_disk = packed_params_from_artifact(flat, model, cfg, meta=meta2)
+    prompts = np.random.default_rng(3).integers(0, cfg.vocab, size=(2, 8)).astype(np.int32)
+    paged = PagedConfig(block_size=8, num_blocks=16, max_concurrency=3, max_pages_per_seq=4,
+                        chunk_max=4)
+
+    def generate(m):
+        return PagedEngine(m, cfg, paged, SamplerConfig(temperature=0.0), device="cpu",
+                           backend="reference").generate(prompts, 8)
+
+    out_mem = generate(sp_mem)
+    np.testing.assert_array_equal(out_mem, generate(sp_disk))
+    jflat, jm = j_load(str(tmp_path / "ref"))
+    jtree = j_from_artifact(jflat, jparams, jcfg, meta=jm)
+    with j_backend("interpret"):
+        want = JPagedEngine(jtree, jcfg, JPagedConfig(block_size=8, num_blocks=16,
+                                                      max_concurrency=3, max_pages_per_seq=4,
+                                                      chunk_max=4, attn_impl="ref"),
+                            JSampler(temperature=0.0)).generate(prompts, 8)
+    np.testing.assert_array_equal(out_mem, want)

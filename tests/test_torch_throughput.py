@@ -9,8 +9,6 @@ the pool invariants true after every transition. A packed rung (RTN in
 both packages) must equal the reference's throughput engine.
 """
 
-import dataclasses
-
 import jax
 import numpy as np
 import pytest
@@ -21,11 +19,11 @@ from repro.models.transformer import init_model as j_init_model
 from repro.quant.serve_packed import pack_decode_params as j_pack
 from repro.serving import Request as JRequest
 from repro.serving import SchedulerPolicy as JPolicy
+from repro_torch.configs import get_config
 from repro_torch.launch import serve
-from repro_torch.models.config import LayerSpec
+from repro_torch.models import transformer as T
 from repro_torch.quant.serve_packed import pack_decode_params
-from repro_torch.serving import PagedConfig, Request, SchedulerPolicy
-from repro_torch.serving.paged_engine import _check_policy
+from repro_torch.serving import Request, SchedulerPolicy
 from test_torch_paged_engine import (
     _assert_pool_invariants,
     _assert_same,
@@ -157,22 +155,28 @@ def test_throughput_packed_matches_reference(rung):
 def test_throughput_policy_gates(rung):
     """Chunks must scatter whole pages and the high watermark must be
     reachable; batched or chunked admission and the prefix cache refuse a
-    pattern that is not attention-only and MoE-free (the port builds no
-    such model yet, so the gate is called on its config)."""
+    pattern that is not attention-only and MoE-free, here on built engines
+    (tiny-hybrid: Mamba + MLP and attention + MoE; tiny-xlstm), which the
+    FIFO policy serves."""
     _, cfg, _, model = rung
     with pytest.raises(ValueError, match="multiple of"):
         _paged(model, sched=SchedulerPolicy(prefill_chunk=12))
     with pytest.raises(ValueError, match="admission could never resume"):
         _paged(model, num_blocks=4, sched=SchedulerPolicy(watermark=(1, 8)))
-    moe = dataclasses.replace(cfg, pattern=(LayerSpec("attn", "moe"),))
-    ssm = dataclasses.replace(cfg, pattern=(LayerSpec("mamba", "mlp"),))
+    hybrid = T.init_model(get_config("tiny-hybrid"), device="cpu")
+    xlstm = T.init_model(get_config("tiny-xlstm"), device="cpu")
+    moe = T.init_model(get_config("tiny-moe"), device="cpu")
     with pytest.raises(ValueError, match="MoE-free"):
-        _check_policy(moe, PagedConfig(sched=SchedulerPolicy(batch_max=2)))
-    with pytest.raises(ValueError, match="attention-only"):
-        _check_policy(ssm, PagedConfig(sched=SchedulerPolicy(prefill_chunk=8)))
-    with pytest.raises(ValueError, match="attention-only"):
-        _check_policy(ssm, PagedConfig(prefix_cache=True))
-    _check_policy(moe, PagedConfig(sched=SchedulerPolicy(admit_window=2)))
+        _paged(moe, sched=SchedulerPolicy(batch_max=2))
+    for recurrent in (hybrid, xlstm):
+        with pytest.raises(ValueError, match="attention-only"):
+            _paged(recurrent, sched=SchedulerPolicy(prefill_chunk=8))
+        with pytest.raises(ValueError, match="attention-only"):
+            _paged(recurrent, sched=SchedulerPolicy(batch_max=2))
+        with pytest.raises(ValueError, match="attention-only"):
+            _paged(recurrent, prefix_cache=True)
+        assert _paged(recurrent).generate(np.zeros((1, 8), np.int32), 2).shape == (1, 10)
+    _paged(moe, sched=SchedulerPolicy(admit_window=2))
 
 
 def test_serve_launcher_throughput_flags(capsys):

@@ -363,15 +363,18 @@ def split_k_model(x, wbytes, meta, a_signed, plan):
             row = ty * W.TILE_M + v // per_row_vectors
             col = tx * W.TILE_N + 4 * (v % per_row_vectors)
             if col < n:  # the kernel sends the vectors past N too; they add zeros
-                rx[q][rank * share + v - q * share] = tiles[rank][row, col:col + 4]
+                cut = min(4, n - col)  # a ragged N's last vector holds N - col columns
+                rx[q][rank * share + v - q * share, :cut] = tiles[rank][row, col:col + cut]
         for q in range(chunks):
             for u in range(share):
                 v = q * share + u
                 row = ty * W.TILE_M + v // per_row_vectors
                 col = tx * W.TILE_N + 4 * (v % per_row_vectors)
-                if v < live and col < n:
-                    out[row, col:col + 4] = sum(rx[q][r * share + u] for r in range(chunks))
-                    written[row, col:col + 4] += 1
+                if v < live and col < n:  # stored cut at N
+                    cut = min(4, n - col)
+                    out[row, col:col + cut] = sum(rx[q][r * share + u]
+                                                  for r in range(chunks))[:cut]
+                    written[row, col:col + cut] += 1
     assert (written == 1).all()  # every output by exactly one rank
     return out
 
