@@ -300,7 +300,33 @@ result unless every phase passed):
    through the paged FIFO loop, float and int8 pages: B1 11 and B1e 3 a
    forward, B2/B3 1 a step, streams and digest equal to the eager
    chunk's. The kernels line gains ``recurrent_launches`` on B1, B2, B3,
-   B5 and B1e.
+   B5 and B1e;
+15. training, checkpoint restore and the registry. (a) smollm-360m in f32
+   at full width trains 20 steps of 8 x 128 TokenBatcher tokens through
+   ``launch/train.py`` (lr 1e-3, warmup 5, deterministic algorithms, a
+   checkpoint every 10 steps): the loss falls and no port kernel
+   launches; a blocking write and a restore of the whole train state,
+   timed; a second run resumes from the step-10 checkpoint and must reach
+   step 20's loss within rel 1e-6 and its params within atol 1e-7 (the
+   reference's resume tolerance; bit-equality is reported);
+   ``launch/quantize.py --ckpt-dir`` calibrates the checkpoint (224 B5
+   solves, every site certified, float and quantized perplexity);
+   ``launch/serve.py --ckpt-dir --artifact --paged`` serves it, and the
+   trained artifact serves phase 7's trace through ``PagedEngine``. (b)
+   tiny-lm-l trained with the paper-table recipe (400 steps, batch 8 x 96,
+   lr 1e-3, warmup 20, data seed 7), calibrated with AXE-GPFQ at P_I = 16
+   (28 B5 solves, every site certified): quantized against float
+   perplexity, the quantized under 1.5x the float. (c) stablelm-3b,
+   phi4-mini-3.8b and musicgen-medium, bf16 from a seeded init at full
+   width, RTN-packed, one at a time: B1 bit-equal at each packed (K, N) at
+   M = 4 and 256; batch 4 x prompt 64 + 16 new on the captured fixed-slot
+   step (B1 exactly sites x 16, tokens equal to the eager host loop's, a
+   replayed and an eager step in turns); phase 7's trace through the FIFO
+   paged engine, float and int8 pages. Phase 6 holds B2/B3 at the
+   registry's attention shapes (head dim 80 and 128, groups 1-16) and
+   times them beside SDPA. The kernels line gains ``training_launches``
+   on B1, B2, B3 and B5, ``registry_sites`` on B1 and
+   ``registry_shapes`` on B2 and B3.
 
 Before driving a path, every launch counter is set to 0, and the counts are
 read just after it. Phase 3 ends with a ``torch.profiler`` breakdown of one
@@ -317,6 +343,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -367,6 +394,12 @@ GPFQ_PANEL_MS = {(960, 960, "split", "nearest"): 6.9895, (960, 320, "split", "ne
 CALIB_BATCHES, CALIB_BATCH, CALIB_SEQ, EVAL_BATCHES = 4, 4, 128, 2
 #: phase 6: (B, nkv, g, hd, bs, P, lengths or a sweep mode, softcap); P is
 #: the table's width. The last four cross the kernels' split boundaries in
+#: the registry's decode attention, (arch, kv heads, group, head dim): B2/B3
+#: held to their plain versions at 4 slots of 80 and 2048 tokens (block 64)
+#: and timed at 4 x 80 and 4 x 2048 beside SDPA
+REGISTRY_ATTN = (("stablelm-3b", 32, 1, 80), ("phi4-mini-3.8b", 8, 3, 128),
+                 ("musicgen-medium", 24, 1, 64), ("dbrx-132b", 8, 6, 128),
+                 ("internvl2-76b", 8, 8, 128), ("llama3-405b", 8, 16, 128))
 #: PagedEngine's 512-page table: a 1-token row beside a 2048-token one,
 #: idle slots (length 0, sentinel rows), and k * S * bs +- 1 tokens for the
 #: card's split count S (one page per split, then one more)
@@ -380,7 +413,8 @@ PAGED_CASES = (
        (2, 5, 3, 64, 64, 512, (1, 2048), None),
        (4, 5, 3, 64, 64, 512, (0, 80, 0, 2048), None),
        (4, 5, 3, 64, 64, 512, "split+-1", None),
-       (16, 5, 3, 64, 64, 512, "split+-1", None)])
+       (16, 5, 3, 64, 64, 512, "split+-1", None)]
+    + [(4, nkv, g, hd, 64, 33, (80, 2048, 80, 2048), None) for _, nkv, g, hd in REGISTRY_ATTN])
 #: smollm-360m decode attention: 15 query heads over 5 kv heads, hd 64
 SMOLLM_NKV, SMOLLM_G, SMOLLM_HD = 5, 3, 64
 #: timed (slots, tokens), in PagedEngine's 512-page table (max_seq_len / bs)
@@ -1571,7 +1605,51 @@ def phase_paged_kernels(torch):
                   f"{splits} splits: kernel {row['ms']:.5f} ms  bound {bms:.5f} ms ({by})  "
                   f"plain {row['plain_ms']:.5f} ms  sdpa {row['library_ms']:.5f} ms  first "
                   f"kernel (PR 14) {'n/a' if first is None else f'{first:.5f} ms'}")
+    rows["registry"] = registry_attention_times(torch, rng, flush)
     return rows, err
+
+
+def registry_attention_times(torch, rng, flush) -> list[dict]:
+    """B2 and B3 at the registry's attention shapes (REGISTRY_ATTN), bf16,
+    4 slots x 80 and x 2048 tokens in PagedEngine's 512-page table: each
+    beside its bound and SDPA on the same K/V (dequantized for B3), the
+    SDPA output held to the gather oracle."""
+    from repro_torch.kernels import paged_attention as PA
+
+    rows = []
+    for arch, nkv, g, hd in REGISTRY_ATTN:
+        for n in (80, 2048):
+            q, kp, vp, tab, ln = paged_case(torch, rng, 4, nkv, g, hd, PAGED_BLOCK, PAGED_TABLE,
+                                            (n,) * 4, torch.bfloat16)
+            kp, vp = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+            (kc, ks), (vc, vs) = PA.quantize_kv_pages(kp), PA.quantize_kv_pages(vp)
+            cut = tab[:, :-(-n // PAGED_BLOCK)].contiguous()
+            splits = PA.split_plan(4, nkv, PAGED_TABLE, PA._sm_count(0))
+            for kind, pages, sc in (("float", (kp, vp), ()), ("int8", (kc, vc), (ks, vs))):
+                if kind == "float":
+                    def kern():
+                        return PA.paged_attention_kernel(q, *pages, tab, ln)
+                else:
+                    def kern():
+                        return PA.paged_attention_int8_kernel(q, *pages, tab, ln, *sc)
+                lib_call, lib_out = sdpa_yardstick(torch, q, *pages, cut, ln, *sc)
+                oracle = PA.paged_attention_reference(
+                    q, *pages, cut, ln, **dict(zip(("k_scales", "v_scales"), sc)))
+                lib_err = (lib_out().float() - oracle.float()).abs().max().item()
+                check(lib_err < 5e-2, f"the SDPA yardstick disagrees ({arch}, {kind}, {n}): "
+                                      f"{lib_err}")
+                bms, by = paged_bound_ms(torch, q, pages[0], ln, kind == "int8")
+                row = {"arch": arch, "kind": kind, "slots": 4, "tokens": n, "nh": nkv * g,
+                       "nkv": nkv, "g": g, "hd": hd, "bs": PAGED_BLOCK, "dtype": "bfloat16",
+                       "splits": splits, "ms": time_ms(torch, kern, flush=flush),
+                       "library_ms": time_ms(torch, lib_call, flush=flush),
+                       "bound_ms": bms, "bound_by": by}
+                rows.append(row)
+                print(f"[paged] {'B2' if kind == 'float' else 'B3'} at {arch}'s attention "
+                      f"(nkv {nkv}, group {g}, hd {hd}), 4 slots x {n} tokens, {splits} splits: "
+                      f"kernel {row['ms']:.5f} ms  bound {bms:.5f} ms ({by})  sdpa "
+                      f"{row['library_ms']:.5f} ms")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -3986,7 +4064,7 @@ def packed_site_shapes(model) -> list[tuple[int, int]]:
     return list(dict.fromkeys(shapes))
 
 
-def b1_site_check(torch, what: str, shapes, smi: str) -> list[dict]:
+def b1_site_check(torch, what: str, shapes, smi: str, tag: str = "recurrent") -> list[dict]:
     """B1 bit-equal to its plain version at a model's packed (K, N), at the
     decode and the prefill M of phase 14, with its plan, time (cold L2) and
     bound at each."""
@@ -4013,7 +4091,7 @@ def b1_site_check(torch, what: str, shapes, smi: str) -> list[dict]:
             b, by = bound_ms(m, k, n)
             rows.append({"m": m, "k": k, "n": n, "ms": ms, "bound_ms": b, "bound_by": by,
                          "plan": plan})
-            print(f"[recurrent] B1 at {what}'s site M={m:3d} K={k:5d} N={n:5d}: bit-equal, "
+            print(f"[{tag}] B1 at {what}'s site M={m:3d} K={k:5d} N={n:5d}: bit-equal, "
                   f"{ms:.5f} ms, bound {b:.5f} ms ({by}), {plan}; {smi}")
             del q, x, wp, y, r
     return rows
@@ -4428,6 +4506,390 @@ def phase_recurrent_slice(torch, smi: str):
             "b3": hybrid["int8"]["counts"]["paged_decode_attention_int8"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: training and checkpoint restore, the trained rung, the registry
+# ---------------------------------------------------------------------------
+#: (a) smollm-360m in f32 through launch/train.py: steps, batch x seq, a
+#: checkpoint every TRAIN_EVERY steps; lr and warmup short enough that 20
+#: steps move the loss
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_EVERY = "smollm-360m", 20, 8, 128, 10
+TRAIN_LR, TRAIN_WARMUP = 1e-3, 5
+#: (b) the paper-table recipe (benchmarks/common.py): tiny-lm-l, 400 steps,
+#: batch 8 x seq 96, lr 1e-3, warmup 20, init seed 0, data seed 7; 4
+#: calibration batches from 50000, 4 eval batches; AXE-GPFQ at P_I = 16
+RUNG, RUNG_STEPS, RUNG_BATCH, RUNG_SEQ, RUNG_LR, RUNG_WARMUP, RUNG_DATA_SEED = (
+    "tiny-lm-l", 400, 8, 96, 1e-3, 20, 7)
+#: (c) the registry's models that fit one card, bf16 at full width
+REGISTRY_FULL = ("stablelm-3b", "phi4-mini-3.8b", "musicgen-medium")
+
+
+def sites_per_forward(cfg) -> int:
+    """Packed sites of a dense model: 4 attention sites and 3 (SwiGLU) or 2
+    (GELU) MLP sites a layer."""
+    return cfg.n_layers * (4 + (3 if cfg.act == "swiglu" else 2))
+
+
+def train_and_resume(torch, smi: str, root: str) -> dict:
+    """(a), first half: smollm-360m in f32 trains TRAIN_STEPS steps through
+    launch/train.py with checkpoints; the step's launches are none of the
+    port's kernels; a second run resumes from the step-10 checkpoint and
+    must reach step 20's loss within rel 1e-6 and its params within atol
+    1e-7 (the reference's resume tolerance; the trainer runs deterministic
+    algorithms on the card, so the runs are expected bit-equal)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.interop import load_train_state_, train_state_tree
+    from repro_torch.launch import train as TR
+
+    ckpt = os.path.join(root, "ckpt")
+    args = ["--arch", TRAIN_ARCH, "--float32", "--steps", str(TRAIN_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--lr", str(TRAIN_LR), "--warmup-steps",
+            str(TRAIN_WARMUP), "--ckpt-dir", ckpt, "--ckpt-every", str(TRAIN_EVERY),
+            "--log-every", str(TRAIN_EVERY), "--device", "cuda"]
+    mon = TR.StragglerMonitor()
+    reset_peak(torch)
+    reset_counts()
+    t0 = time.perf_counter()
+    (state, losses), _ = quiet(lambda: TR.main(args, monitor=mon))
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = read_counts()
+    check(not any(counts.values()), f"training launched port kernels: {counts}")
+    check(len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses),
+          f"losses {losses}")
+    k = TRAIN_STEPS // 4
+    check(losses[-1] < losses[0] and sum(losses[-k:]) < sum(losses[:k]),
+          f"the loss does not fall: {losses}")
+    mgr = CheckpointManager(ckpt)
+    check(mgr.latest_step() == TRAIN_STEPS and os.path.isdir(mgr.directory(TRAIN_EVERY)),
+          f"checkpoints {sorted(os.listdir(ckpt))}")
+    model = state["params"]
+    n_params = sum(p.numel() for p in model.parameters())
+    step_ms = [1e3 * t for t in mon.times[1:]]  # the first step builds and warms up
+    step_t = spread_ms(step_ms)
+    # a blocking write of the whole train state and its restore, timed
+    timing = CheckpointManager(os.path.join(root, "timing"), keep=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timing.save(TRAIN_STEPS, train_state_tree(state), blocking=True)
+    write_s = time.perf_counter() - t0
+    ck_bytes = sum(os.path.getsize(os.path.join(timing.directory(TRAIN_STEPS), f))
+                   for f in os.listdir(timing.directory(TRAIN_STEPS)))
+    kept = {n: p.detach().clone() for n, p in model.named_parameters()}
+    t0 = time.perf_counter()
+    _, tree, _ = timing.restore_latest(train_state_tree(state, spec=True), device="cuda")
+    load_train_state_(state, tree)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(all(torch.equal(p, kept[n]) for n, p in model.named_parameters()),
+          "a restored train state differs from the one written")
+    shutil.rmtree(os.path.join(root, "timing"))
+    del state, model, tree
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # resume: drop the final checkpoint, restart from step 10
+    shutil.rmtree(mgr.directory(TRAIN_STEPS))
+    (state2, losses2), lines = quiet(lambda: TR.main(args))
+    check(f"[train] resumed from step {TRAIN_EVERY}" in lines and
+          len(losses2) == TRAIN_STEPS - TRAIN_EVERY, f"the resume: {lines[:3]}")
+    rel = abs(losses2[-1] - losses[-1]) / abs(losses[-1])
+    diff = max((p - kept[n]).abs().max().item() for n, p in state2["params"].named_parameters())
+    equal = all(torch.equal(p, kept[n]) for n, p in state2["params"].named_parameters())
+    check(rel <= 1e-6 and diff <= 1e-7, f"the resumed run's step {TRAIN_STEPS}: loss rel "
+                                        f"{rel:.3g}, params max |diff| {diff:.3g}")
+    del state2, kept
+    gc.collect()
+    torch.cuda.empty_cache()
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (step_t["median"] / 1e3)
+    print(f"[train] (a) {TRAIN_ARCH} f32 at full width ({n_params} parameters), launch/train.py "
+          f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} TokenBatcher tokens, lr "
+          f"{TRAIN_LR} warmup {TRAIN_WARMUP}, deterministic algorithms: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} (first {k} mean {sum(losses[:k]) / k:.4f}, last {k} mean "
+          f"{sum(losses[-k:]) / k:.4f}); step {fmt_spread(step_t)} (steps 2-{TRAIN_STEPS}, each "
+          f"ending in its loss read) = {tok_s:.1f} tok/s; first step {1e3 * mon.times[0]:.1f} ms; "
+          f"wall {train_s:.3f} s with 2 async checkpoints; peak memory {peak / 2**20:.1f} MiB; "
+          f"no port kernel launched; {smi}")
+    print(f"[train] (a) checkpoint of the whole train state (params, m, v, step; "
+          f"{ck_bytes / 2**30:.3f} GiB): blocking write {write_s:.3f} s, restore to the card "
+          f"{restore_s:.3f} s (page-cache warm); resumed from step {TRAIN_EVERY}: step "
+          f"{TRAIN_STEPS} loss rel diff {rel:.3g}, params max |diff| {diff:.3g} "
+          f"({'bit-equal' if equal else 'not bit-equal'}); {smi}")
+    return {"losses": losses, "step": step_t, "tok_s": tok_s, "train_s": train_s,
+            "peak_mib": peak / 2**20, "write_s": write_s, "restore_s": restore_s,
+            "ckpt_gib": ck_bytes / 2**30, "resume_rel": rel, "resume_diff": diff,
+            "resume_equal": equal, "ckpt": ckpt}
+
+
+def calibrate_and_serve_trained(torch, smi: str, root: str, ckpt: str) -> dict:
+    """(a), second half: launch/quantize.py --ckpt-dir calibrates the
+    trained checkpoint (224 B5 solves, every site certified), launch/serve.py
+    --ckpt-dir --artifact serves it through the paged engine, and the same
+    trained artifact serves phase 7's trace (FIFO, float pages)."""
+    from repro_torch.configs import get_config
+    from repro_torch.interop import restore_params_
+    from repro_torch.launch import quantize as Q
+    from repro_torch.launch import serve as S
+    from repro_torch.launch.search import f32_config
+    from repro_torch.models import transformer as T
+    from repro_torch.quant.serve_packed import load_flat_artifact, packed_params_from_artifact
+    from repro_torch.serving import PagedConfig, PagedEngine, Request, SamplerConfig
+
+    cfg = f32_config(get_config(TRAIN_ARCH))
+    sites = sites_per_forward(cfg)
+    qdir = os.path.join(root, "q")
+    reset_counts()
+    t0 = time.perf_counter()
+    report, _ = quiet(Q.main, ["--arch", TRAIN_ARCH, "--float32", "--ckpt-dir", ckpt, "--out",
+                              qdir, "--calib-batches", str(CALIB_BATCHES), "--calib-batch-size",
+                              str(CALIB_BATCH), "--seq", str(CALIB_SEQ), "--eval-batches",
+                              str(EVAL_BATCHES), "--device", "cuda"])
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    qcounts = read_counts()
+    cert = report["cert"]
+    check(qcounts["gpfq_solve"] == sites, f"{qcounts['gpfq_solve']} B5 launches calibrating "
+                                         f"the checkpoint, expected {sites}")
+    check(cert["ok"] and cert["n_certified"] == sites, f"certificates: {cert}")
+    check(math.isfinite(report["float_ppl"]) and math.isfinite(report["quant_ppl"]),
+          f"perplexities {report['float_ppl']} / {report['quant_ppl']}")
+    print(f"[train] (a) launch/quantize.py --ckpt-dir (step {TRAIN_STEPS}): AXE-GPFQ of the "
+          f"trained f32 {TRAIN_ARCH} on {CALIB_BATCHES} x {CALIB_BATCH} x {CALIB_SEQ} tokens, "
+          f"{qcounts['gpfq_solve']} B5 launches, {cert['n_certified']} sites certified (min "
+          f"headroom {cert['min_headroom_bits']:.4f} bits); perplexity float "
+          f"{report['float_ppl']:.4f}, quantized {report['quant_ppl']:.4f} (ratio "
+          f"{report['quant_ppl'] / report['float_ppl']:.4f}); launcher wall {quant_s:.3f} s "
+          f"(calibration, two {EVAL_BATCHES}-batch evaluations, export); {smi}")
+
+    art = os.path.join(qdir, "quantized")
+    reset_counts()
+    out, lines = quiet(S.main, ["--arch", TRAIN_ARCH, "--float32", "--ckpt-dir", ckpt,
+                               "--artifact", art, "--paged", "--block-size", str(PAGED_BLOCK),
+                               "--max-concurrency", str(PAGED_SLOTS), "--batch", str(BATCH),
+                               "--prompt-len", str(PROMPT), "--max-new", str(MAX_NEW),
+                               "--device", "cuda"])
+    scounts = read_counts()
+    check(f"[serve] restored step {TRAIN_STEPS}" in lines and out.shape == (BATCH,
+                                                                            PROMPT + MAX_NEW)
+          and scounts["w4a8_matmul"] > 0 and scounts["paged_decode_attention"] > 0,
+          f"serve --ckpt-dir --artifact: {lines[:2]}, launches {scounts}")
+    line = next(x for x in lines if "tok/s" in x)
+    print(f"[train] (a) launch/serve.py --ckpt-dir --artifact --paged: {line.strip()}; "
+          f"launches (warm-up and timed run) {scounts}; {smi}")
+
+    model = T.init_model(cfg, 0, device="cuda")
+    check(restore_params_(model, ckpt) == TRAIN_STEPS, "restore_params_ found no checkpoint")
+    flat, meta = load_flat_artifact(art)
+    served = packed_params_from_artifact(flat, model, cfg, meta=meta, strict=True)
+    del model
+    engine = PagedEngine(served, cfg, PagedConfig(
+        block_size=PAGED_BLOCK, num_blocks=PAGED_BLOCKS, max_concurrency=PAGED_SLOTS,
+        chunk_max=PAGED_CHUNK), SamplerConfig(temperature=0.0), device="cuda")
+    specs, _ = trace_specs(cfg)
+    warm_paged(engine, specs[0][1])
+    run = driven(torch, cfg, engine, [Request(uid=u, prompt=p, max_new=n) for u, p, n in specs],
+                 "act")
+    print(f"[train] (a) the trained artifact through PagedEngine, phase 7's {TRAIN_ARCH} trace "
+          f"({TRACE_REQUESTS} requests, prompts 8-300 tokens, 4-32 new, {PAGED_SLOTS} slots, "
+          f"float pages): launches {run['counts']} ({run['ran']}), every page back on "
+          f"the free list; decode step {run['step_ms']:.3f} ms, admits "
+          f"{run['admit_ms_per_request']:.3f} ms a request, {run['tok_s']:.1f} tok/s, wall "
+          f"{run['wall']:.3f} s, peak {run['peak_mib']:.1f} MiB; {smi}")
+    del served, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"report": report, "quant_s": quant_s, "b5": qcounts["gpfq_solve"],
+            "serve_counts": scounts, "paged": run}
+
+
+def trained_rung(torch, smi: str) -> dict:
+    """(b) the paper-table recipe on tiny-lm-l, then AXE-GPFQ at P_I = 16:
+    quantized against float perplexity on the recipe's eval batches, every
+    site certified, the quantized perplexity under 1.5x the float one (the
+    reference's end-to-end test's bound)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.axe import PTQConfig
+    from repro_torch.data import DataConfig, TokenBatcher
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.quant.pipeline import calibrate_and_quantize, float_ppl, quantized_ppl
+    from repro_torch.runtime import TrainRunConfig, init_train_state, make_train_step
+
+    cfg = get_config(RUNG)
+    run = TrainRunConfig(optimizer=OptimizerConfig(lr=RUNG_LR, warmup_steps=RUNG_WARMUP,
+                                                   total_steps=RUNG_STEPS))
+    data = TokenBatcher(DataConfig(vocab=cfg.vocab, seq_len=RUNG_SEQ, global_batch=RUNG_BATCH,
+                                   seed=RUNG_DATA_SEED))
+    state = init_train_state(cfg, run, 0, device="cuda")
+    step = make_train_step(cfg, run)
+    batches = [torch.from_numpy(data.batch(i)["tokens"]).to("cuda") for i in range(RUNG_STEPS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = None
+    for i, tokens in enumerate(batches):
+        state, m = step(state, {"tokens": tokens})
+        if i == 0:
+            first = m["loss"].clone()
+    last = float(m["loss"])
+    train_s = time.perf_counter() - t0
+    check(last < float(first), f"{RUNG}: the loss does not fall ({float(first)} -> {last})")
+    model = state["params"].requires_grad_(False)
+    calib = [data.batch(50_000 + i) for i in range(4)]
+    evalb = list(data.eval_batches(4))
+    ptq = PTQConfig(p_bits=16, algorithm="gpfq")
+    reset_counts()
+    t0 = time.perf_counter()
+    qm = calibrate_and_quantize(model, cfg, calib, ptq, device="cuda")
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    b5 = read_counts()["gpfq_solve"]
+    fp, qp = float_ppl(model, cfg, evalb), quantized_ppl(qm, evalb)
+    cert = qm.cert_summary()
+    sites = sites_per_forward(cfg)
+    check(b5 == sites and cert["ok"] and cert["n_certified"] == sites,
+          f"{RUNG}: B5 {b5}, certificates {cert}")
+    check(math.isfinite(fp) and math.isfinite(qp) and qp < 1.5 * fp,
+          f"{RUNG}: quantized perplexity {qp} against float {fp}")
+    print(f"[train] (b) {RUNG} (d_model {cfg.d_model}, {cfg.n_layers} layers, vocab "
+          f"{cfg.vocab}) trained with the paper-table recipe ({RUNG_STEPS} steps, batch "
+          f"{RUNG_BATCH} x {RUNG_SEQ}, lr {RUNG_LR}, warmup {RUNG_WARMUP}, data seed "
+          f"{RUNG_DATA_SEED}): loss {float(first):.4f} -> {last:.4f} in {train_s:.3f} s; "
+          f"AXE-GPFQ W4A8 P_I=16 T={ptq.tile}: {b5} B5 launches, {cert['n_certified']} sites "
+          f"certified, {calib_s:.3f} s; perplexity float {fp:.4f}, quantized {qp:.4f} (ratio "
+          f"{qp / fp:.4f}); {smi}")
+    del state, model, qm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"loss": (float(first), last), "train_s": train_s, "float_ppl": fp,
+            "quant_ppl": qp, "b5": b5, "calib_s": calib_s}
+
+
+def registry_model(torch, arch: str, smi: str) -> dict:
+    """(c) one registry model, bf16 from a seeded init at full width,
+    RTN-packed: B1 bit-equal at every packed (K, N) at M = 4 and 256; batch
+    4 x prompt 64 + 16 new through the captured fixed-slot step (B1 exactly
+    sites x 16, tokens equal to the eager host loop's), a replayed and an
+    eager step in turns; then phase 7's trace through the FIFO paged engine
+    with float and int8 pages (B2/B3 exactly one a layer a decode step)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenBatcher
+    from repro_torch.models import transformer as T
+    from repro_torch.quant.serve_packed import pack_decode_params, packed_weight_bytes
+    from repro_torch.serving import (
+        GenerationEngine,
+        PagedConfig,
+        PagedEngine,
+        Request,
+        SamplerConfig,
+    )
+
+    greedy = SamplerConfig(temperature=0.0)
+    cfg = get_config(arch)
+    sites = sites_per_forward(cfg)
+    t0 = time.perf_counter()
+    model = pack_decode_params(T.init_model(cfg, 0, device="cuda"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    init_s = time.perf_counter() - t0
+    b1_rows = b1_site_check(torch, arch, packed_site_shapes(model), smi, tag="registry")
+    prompts = TokenBatcher(DataConfig(vocab=cfg.vocab, seq_len=PROMPT, global_batch=BATCH,
+                                      seed=0)).batch(0)["tokens"]
+    engine = GenerationEngine(model, cfg, greedy, device="cuda")
+    engine.generate(prompts, MAX_NEW)  # captures the bucket's step
+    (bucket,) = engine._buckets.values()
+    program = bucket.program
+    reset_peak(torch)
+    reset_counts()
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, MAX_NEW)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(counts["w4a8_matmul"] == sites * MAX_NEW and sum(counts.values()) ==
+          counts["w4a8_matmul"], f"{arch}: launches in a generate {counts}, expected B1 "
+                                 f"{sites} x {MAX_NEW} and nothing else")
+    host = engine.generate_host_loop(prompts, MAX_NEW)
+    check((out == host).all(), f"{arch}: the captured generate and the eager host loop differ")
+    tokens = torch.as_tensor(prompts, device="cuda")
+    with torch.inference_mode():
+        _, caches = T.prefill(model, {"tokens": tokens}, PROMPT + MAX_NEW)
+        step_tok = torch.as_tensor(out[:, PROMPT:PROMPT + 1], device="cuda")
+        engine._start(bucket, tokens)
+        step_t = in_turns(torch, {"eager": lambda: T.decode_step(model, step_tok, caches,
+                                                                  PROMPT),
+                                  "replay": lambda: program.run(1)}, runs=6)
+    del caches
+    nbytes = packed_weight_bytes(cfg)
+
+    specs, _ = trace_specs(cfg)
+    reqs = [Request(uid=u, prompt=p, max_new=n) for u, p, n in specs]
+    paged = {}
+    for kv in ("act", "int8"):
+        eng = PagedEngine(model, cfg, PagedConfig(
+            block_size=PAGED_BLOCK, num_blocks=PAGED_BLOCKS, max_concurrency=PAGED_SLOTS,
+            chunk_max=PAGED_CHUNK, kv_dtype=kv), greedy, device="cuda")
+        warm_paged(eng, specs[0][1])
+        paged[kv] = driven(torch, cfg, eng, reqs, kv, {"w4a8_matmul": sites})
+        del eng
+        gc.collect()
+    hd, g = cfg.head_dim, cfg.n_heads // cfg.n_kv_heads
+    print(f"[registry] {arch} full width ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads (hd {hd}, group {g}), d_ff {cfg.d_ff}, "
+          f"{cfg.norm} + {cfg.act}, vocab {cfg.vocab}; bf16, seeded random init) RTN-packed in "
+          f"{init_s:.3f} s: {sites} packed sites, packed_weight_bytes {nbytes['packed_bytes']} "
+          f"(bf16 {nbytes['bf16_bytes']}); {smi}")
+    print(f"[registry] {arch} fixed slot, batch {BATCH} x prompt {PROMPT} + {MAX_NEW} new: B1 "
+          f"{counts['w4a8_matmul']} = {sites} a forward x {MAX_NEW}, tokens equal to the eager "
+          f"host loop's; capture {1e3 * program.capture_s:.3f} ms ({program.device_ops} device "
+          f"operations); generate {wall:.4f} s = {BATCH * MAX_NEW / wall:.1f} tok/s; decode "
+          f"step replay {fmt_spread(step_t['replay'])}, eager {fmt_spread(step_t['eager'])}; "
+          f"peak memory {peak / 2**20:.1f} MiB; {smi}")
+    for kv, run in paged.items():
+        print(f"[registry] {arch} paged FIFO, {kv} pages, phase 7's trace: launches "
+              f"{run['counts']} ({run['ran']}), every page back on the free list; decode step "
+              f"{run['step_ms']:.3f} ms, admits {run['admit_ms_per_request']:.3f} ms a request, "
+              f"{run['tok_s']:.1f} tok/s, wall {run['wall']:.3f} s, peak {run['peak_mib']:.1f} "
+              f"MiB; {smi}")
+    del model, engine, program, bucket
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": arch, "sites": sites, "b1_sites": b1_rows, "fixed_counts": counts,
+            "tok_s": BATCH * MAX_NEW / wall, "step": step_t, "peak_mib": peak / 2**20,
+            "packed_bytes": nbytes["packed_bytes"], "paged": paged}
+
+
+def phase_training_slice(torch, smi: str) -> dict:
+    """Phase 15: (a) train smollm-360m, checkpoint, resume, calibrate and
+    serve the checkpoint; (b) the paper-table recipe's trained rung and its
+    quantized perplexity; (c) the registry's models that fit the card."""
+    t_phase = time.perf_counter()
+    root = os.path.join(ROOT, "build", "phase15")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    try:
+        trained = train_and_resume(torch, smi, root)
+        served = calibrate_and_serve_trained(torch, smi, root, trained["ckpt"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rung = trained_rung(torch, smi)
+    registry = [registry_model(torch, arch, smi) for arch in REGISTRY_FULL]
+    wall_s = time.perf_counter() - t_phase
+    print(f"[train] phase 15 wall {wall_s:.3f} s")
+    b1 = {"trained_paged": served["paged"]["counts"]["w4a8_matmul"],
+          "trained_serve_launcher": served["serve_counts"]["w4a8_matmul"]}
+    for r in registry:
+        b1[r["arch"]] = {"fixed": r["fixed_counts"]["w4a8_matmul"],
+                         "paged": [r["paged"][k]["counts"]["w4a8_matmul"]
+                                   for k in ("act", "int8")]}
+    return {"trained": trained, "served": served, "rung": rung, "registry": registry,
+            "wall_s": wall_s, "b1": b1,
+            "b2": {"trained_paged": served["paged"]["counts"]["paged_decode_attention"],
+                   "trained_serve_launcher": served["serve_counts"]["paged_decode_attention"],
+                   **{r["arch"]: r["paged"]["act"]["counts"]["paged_decode_attention"]
+                      for r in registry}},
+            "b3": {r["arch"]: r["paged"]["int8"]["counts"]["paged_decode_attention_int8"]
+                   for r in registry},
+            "b5": {"trained_checkpoint": served["b5"], "trained_rung": rung["b5"]}}
+
+
 def expert_record(name, rows, err, launches, ms_key, plain_key, replaces, pallas):
     """One record for B1e or B4e: times summed over the 3 expert sites of
     one granite MoE layer at decode (M = 4, E = 40); the same at M = 64 (a
@@ -4650,6 +5112,7 @@ def main() -> int:
     search = phase_search_slice(torch, smi)
     observe = phase_observe_slice(torch, smi, search, paged)
     recurrent = phase_recurrent_slice(torch, smi)
+    training = phase_training_slice(torch, smi)
     records = [
         kernel_record(rows, max_err, launches, host),
         paged_record("paged_decode_attention", paged_rows["float"], paged_err["float"],
@@ -4688,6 +5151,14 @@ def main() -> int:
                                 recurrent["b5"], None, recurrent["b1e"])):
         if n is not None:
             rec["recurrent_launches"] = n
+    # phase 6's registry shapes beside B2 and B3; phase 15's launches: B1
+    # (the trained artifact, the registry models' fixed slot and paged
+    # runs), B2/B3 (paged runs), B5 (the trained checkpoint, the rung)
+    for rec, kind in zip(records[1:3], ("float", "int8")):
+        rec["registry_shapes"] = [r for r in paged_rows["registry"] if r["kind"] == kind]
+    for rec, key in zip(records[:3] + records[4:5], ("b1", "b2", "b3", "b5")):
+        rec["training_launches"] = training[key]
+    records[0]["registry_sites"] = {r["arch"]: r["b1_sites"] for r in training["registry"]}
     print(json.dumps({"kernels": records}))
     # one card: every phase runs on cuda:0
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

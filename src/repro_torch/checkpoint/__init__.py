@@ -1,3 +1,3 @@
-from .manager import read_manifest, save_pytree
+from .manager import CheckpointManager, load_pytree, read_manifest, save_pytree
 
-__all__ = ["read_manifest", "save_pytree"]
+__all__ = ["CheckpointManager", "load_pytree", "read_manifest", "save_pytree"]

@@ -1,18 +1,44 @@
 """Architecture registry of the port (port of ``repro/configs/__init__.py``):
-the ``tiny-*`` rungs (dense, MoE, SSM, xLSTM, hybrid), smollm-360m,
-granite-moe-3b-a800m, xlstm-350m and jamba-1.5-large-398b (its smoke config
-and its widths; the full model does not fit one card). Other architectures
-raise until the slice that serves their family is ported."""
+the reference's ten architectures in its order (``ARCH_IDS``), each with
+its published ``config()`` and its reduced ``smoke()``, and the paper's
+``tiny-*`` rungs. llama3-405b, dbrx-132b, internvl2-76b and
+jamba-1.5-large-398b do not fit one card; the port runs them as smoke
+configs (and the Jamba-width Mamba block). ``configs/shapes.py``, the dry
+run's shape stand-ins, is not ported."""
 
 from __future__ import annotations
 
 from repro_torch.models.config import ModelConfig
 
-from . import granite_moe_3b_a800m, jamba_1_5_large_398b, smollm_360m, xlstm_350m
+from . import (
+    dbrx_132b,
+    granite_moe_3b_a800m,
+    internvl2_76b,
+    jamba_1_5_large_398b,
+    llama3_405b,
+    musicgen_medium,
+    phi4_mini_3_8b,
+    smollm_360m,
+    stablelm_3b,
+    xlstm_350m,
+)
 from .paper import PAPER_MODELS
 
-REGISTRY = {m.ARCH_ID: m for m in (smollm_360m, granite_moe_3b_a800m, xlstm_350m,
-                                   jamba_1_5_large_398b)}
+_MODULES = (
+    musicgen_medium,
+    xlstm_350m,
+    stablelm_3b,
+    smollm_360m,
+    llama3_405b,
+    phi4_mini_3_8b,
+    granite_moe_3b_a800m,
+    dbrx_132b,
+    internvl2_76b,
+    jamba_1_5_large_398b,
+)
+
+REGISTRY = {m.ARCH_ID: m for m in _MODULES}
+ARCH_IDS = tuple(REGISTRY)
 
 
 def get_config(arch: str) -> ModelConfig:
@@ -32,4 +58,4 @@ def get_smoke(arch: str) -> ModelConfig:
     raise KeyError(f"unknown arch {arch!r}")
 
 
-__all__ = ["REGISTRY", "get_config", "get_smoke"]
+__all__ = ["ARCH_IDS", "REGISTRY", "get_config", "get_smoke"]

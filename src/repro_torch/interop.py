@@ -16,7 +16,11 @@ expert stacks (E, K, C) sites. Packed leaves become
 :class:`~repro_torch.models.layers.PackedLinear` modules whose
 :class:`~repro_torch.quant.spec.DatapathSpec` is rebuilt from ``spec_arr``
 (the reference's static ``spec`` node is not an array and is ignored); a
-2:4 leaf's ``meta`` rides along.
+2:4 leaf's ``meta`` rides along. :func:`params_to_numpy` goes the other
+way on a float model, and :func:`reference_tree`,
+:func:`train_state_tree` and their loaders lay a model, its gradients or
+optimizer moments and a train state out as the reference's trees, the
+layout the checkpoints share.
 
 :func:`quantized_model_from_numpy` carries a calibrated reference
 ``QuantizedModel`` (``repro.quant.pipeline``) into the port's
@@ -116,6 +120,180 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, *, device="cuda") -> Transfo
             block.ffn = ffn(**{n: _site(v, r, dev) for n, v in slot["ffn"].items()})
         layers.append(block)
     return Transformer(cfg, embedding, layers, _norm(tree["final_norm"], None, dev))
+
+
+# ---------------------------------------------------------------------------
+# The port's float model in the reference's tree (checkpoints, parity)
+# ---------------------------------------------------------------------------
+def _leaf_index(model: Transformer) -> dict[tuple, list[str]]:
+    """For every leaf of the reference's parameter tree, its path (keys and
+    slot indices) and the port's parameter names that fill it: one name
+    outside the layer stack, one a repeat (in repeat order) inside it."""
+    cfg = model.cfg
+    index: dict[tuple, list[str]] = {("embedding", "embed"): ["embedding.embed"]}
+    if model.embedding.head is not None:
+        index[("embedding", "head")] = ["embedding.head"]
+
+    def norm(path, prefix, nm):
+        index.setdefault((*path, "w"), []).append(f"{prefix}.w")
+        if nm.b is not None:
+            index.setdefault((*path, "b"), []).append(f"{prefix}.b")
+
+    for i, block in enumerate(model.layers):
+        s = i % cfg.period
+        pre = f"layers.{i}"
+        for part in ("norm1", "mixer", "norm2", "ffn"):
+            mod = getattr(block, part)
+            if mod is None:
+                continue
+            if isinstance(mod, Norm):
+                norm(("layers", s, part), f"{pre}.{part}", mod)
+                continue
+            for n in getattr(mod, "FLOAT_LEAVES", ()):
+                index.setdefault(("layers", s, part, n), []).append(f"{pre}.{part}.{n}")
+            for n, site in mod.named_children():
+                if not isinstance(site, Linear) or site.bias is not None:
+                    raise TypeError(f"{pre}.{part}.{n}: the reference's parameter tree holds "
+                                    f"float weights only, not a {type(site).__name__}")
+                index.setdefault(("layers", s, part, n), []).append(f"{pre}.{part}.{n}.w")
+    norm(("final_norm",), "final_norm", model.final_norm)
+    return index
+
+
+def _nest(flat: dict[tuple, object], period: int) -> dict:
+    """Paths to the reference's nested tree: dicts, with ``layers`` a tuple
+    of one dict a pattern slot."""
+    tree: dict = {"layers": [{} for _ in range(period)]}
+    for path, leaf in flat.items():
+        node = tree["layers"][path[1]] if path[0] == "layers" else tree
+        for key in path[2:-1] if path[0] == "layers" else path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    tree["layers"] = tuple(tree["layers"])
+    return tree
+
+
+def reference_tree(model: Transformer, named: dict | None = None, *,
+                   spec: bool = False) -> dict:
+    """The reference's parameter tree of the port's float model: nested
+    dicts, ``layers`` a tuple of pattern slots, each leaf stacked over
+    repeats, (R, ...), as host tensors (copies) of the leaf's dtype.
+    ``named`` maps the model's parameter names to other tensors of the
+    same shapes (gradients, optimizer moments) to lay out instead;
+    ``spec`` gives meta tensors, shapes and dtypes only (a restore
+    target)."""
+    named = dict(model.named_parameters()) if named is None else named
+    flat = {}
+    for path, names in _leaf_index(model).items():
+        ts = [named[n] for n in names]
+        shape = ((len(ts),) if path[0] == "layers" else ()) + tuple(ts[0].shape)
+        if spec:
+            flat[path] = torch.empty(shape, dtype=ts[0].dtype, device="meta")
+        elif path[0] == "layers":
+            flat[path] = torch.stack([t.detach().cpu() for t in ts])
+        else:
+            flat[path] = ts[0].detach().to("cpu", copy=True)
+    return _nest(flat, model.cfg.period)
+
+
+def _at(tree: dict, path: tuple):
+    node = tree["layers"][path[1]] if path[0] == "layers" else tree
+    for key in path[2:] if path[0] == "layers" else path:
+        node = node[key]
+    return node
+
+
+def load_reference_tree_(model: Transformer, tree: dict, named: dict | None = None) -> None:
+    """Copy a reference parameter tree (numpy arrays or tensors; the
+    inverse of :func:`reference_tree`) into the model's parameters, or into
+    ``named`` tensors keyed by the model's parameter names, in place."""
+    named = dict(model.named_parameters()) if named is None else named
+    with torch.no_grad():
+        for path, names in _leaf_index(model).items():
+            leaf = _at(tree, path)
+            src = leaf if isinstance(leaf, torch.Tensor) else to_tensor(leaf, "cpu")
+            for r, n in enumerate(names):
+                dst = named[n]
+                part = src[r] if path[0] == "layers" else src
+                if tuple(part.shape) != tuple(dst.shape):
+                    raise ValueError(f"{n}: tree leaf {path} has shape {tuple(part.shape)}, "
+                                     f"the model's {tuple(dst.shape)}")
+                dst.copy_(part)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy; bfloat16 as ``ml_dtypes.bfloat16`` (the JAX
+    package's numpy bfloat16)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_numpy_tree(v) for v in tree)
+    return to_numpy(tree)
+
+
+def params_to_numpy(model: Transformer) -> dict:
+    """The inverse of :func:`params_from_numpy` on a float model: the
+    reference's parameter tree (``init_model``'s), layers stacked over
+    repeats, with its leaf shapes and dtypes, as numpy arrays."""
+    return _numpy_tree(reference_tree(model))
+
+
+def train_state_tree(state: dict, *, spec: bool = False) -> dict:
+    """A train state (:func:`~repro_torch.runtime.steps.init_train_state`)
+    in the reference's layout: ``params``, ``opt.m`` and ``opt.v`` as
+    reference trees, ``opt.step`` a 0-d int32 tensor (host copies, or meta
+    tensors under ``spec``)."""
+    model, opt = state["params"], state["opt"]
+    step = opt["step"]
+    return {"params": reference_tree(model, spec=spec),
+            "opt": {"m": reference_tree(model, opt["m"], spec=spec),
+                    "v": reference_tree(model, opt["v"], spec=spec),
+                    "step": (torch.empty((), dtype=step.dtype, device="meta") if spec
+                             else step.detach().to("cpu", copy=True))}}
+
+
+def train_state_to_numpy(state: dict) -> dict:
+    """:func:`train_state_tree` as numpy arrays: the reference's train state."""
+    tree = train_state_tree(state)
+    return {"params": _numpy_tree(tree["params"]),
+            "opt": {k: _numpy_tree(tree["opt"][k]) for k in ("m", "v")}
+            | {"step": to_numpy(tree["opt"]["step"])}}
+
+
+def load_train_state_(state: dict, tree: dict) -> None:
+    """Copy a reference train state (numpy arrays or tensors) into the
+    port's ``state`` in place: parameters, both moments and the step."""
+    model, opt = state["params"], state["opt"]
+    load_reference_tree_(model, tree["params"])
+    load_reference_tree_(model, tree["opt"]["m"], opt["m"])
+    load_reference_tree_(model, tree["opt"]["v"], opt["v"])
+    step = tree["opt"]["step"]
+    opt["step"].copy_(step if isinstance(step, torch.Tensor) else torch.as_tensor(np.asarray(step)))
+
+
+def restore_params_(model: Transformer, ckpt_dir: str) -> int | None:
+    """The newest checkpoint's ``params`` under ``ckpt_dir`` (a
+    :class:`~repro_torch.checkpoint.CheckpointManager` root, written by
+    either package's trainer) copied into ``model`` in place, cast to its
+    dtypes. Returns the step, or None when there is no checkpoint."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    restored = CheckpointManager(ckpt_dir).restore_latest(
+        {"params": reference_tree(model, spec=True)})
+    if restored is None:
+        return None
+    step, tree, _ = restored
+    load_reference_tree_(model, tree["params"])
+    return step
 
 
 def _cert(c):

@@ -15,7 +15,10 @@ site at the halved effective depth and exports ``meta``-compressed 2:4
 sites (sites with K % 4 != 0 stay dense). Every registered family
 calibrates (dense, MoE, Mamba, mLSTM, sLSTM and their hybrids: ``--arch
 tiny-ssm``, ``tiny-xlstm``, ``tiny-hybrid``); architectures the port does
-not register and ``--ckpt-dir`` refuse.
+not register refuse. ``--ckpt-dir DIR`` calibrates the trained ``params``
+of the newest checkpoint under DIR (written by either package's
+``launch.train``) instead of the seeded init, and raises when there is
+none. ``--float32`` calibrates an f32 copy of a bfloat16 configuration.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from repro_torch.checkpoint import save_pytree
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.core.axe import PTQConfig
 from repro_torch.data import DataConfig, TokenBatcher
+from repro_torch.interop import restore_params_
 from repro_torch.models.transformer import init_model
 from repro_torch.quant.pipeline import calibrate_and_quantize, float_ppl, quantized_ppl
 from repro_torch.quant.serve_packed import export_quantized_artifact
@@ -40,7 +44,7 @@ def main(argv=None):
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--ckpt-dir", type=str, default=None,
-                    help="not yet ported (checkpoint restore arrives with training)")
+                    help="calibrate the trained params of the newest checkpoint here")
     ap.add_argument("--algorithm", default="gpfq", choices=("gpfq", "optq", "rtn", "ep_init"))
     ap.add_argument("--w-bits", type=int, default=4)
     ap.add_argument("--act-bits", type=int, default=8)
@@ -58,20 +62,26 @@ def main(argv=None):
     ap.add_argument("--eval-batches", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", type=str, default=None)
+    ap.add_argument("--float32", action="store_true",
+                    help="calibrate an f32 copy of the configuration (bfloat16 weights "
+                         "cannot calibrate)")
     ap.add_argument("--device", type=str, default="cuda")
     args = ap.parse_args(argv)
-    if args.ckpt_dir is not None:
-        raise SystemExit("--ckpt-dir is not yet ported: checkpoint restore arrives with "
-                         "the training slice of the port")
 
     device = resolve_device(args.device)
     try:
         cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     except KeyError as e:
         raise SystemExit(f"--arch {args.arch} is not yet ported: {e}") from None
+    if args.float32:
+        from repro_torch.launch.search import f32_config
+
+        cfg = f32_config(cfg)
     data = TokenBatcher(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                                    global_batch=args.calib_batch_size, seed=args.seed))
     model = init_model(cfg, args.seed, device=device)
+    if args.ckpt_dir and restore_params_(model, args.ckpt_dir) is None:
+        raise SystemExit(f"no checkpoint under {args.ckpt_dir}")
     ptq = PTQConfig(w_bits=args.w_bits, act_bits=args.act_bits, p_bits=args.p_bits,
                     tile=args.tile, algorithm=args.algorithm,
                     constrain=not args.no_constrain, sparsity=args.sparsity)

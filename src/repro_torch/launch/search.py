@@ -24,7 +24,8 @@ Weights are a seeded random init of the architecture's widths; the JSON
 report is the reference launcher's. Calibration takes float32 weights:
 ``--float32`` calibrates an f32 copy of a bfloat16 configuration
 (smollm-360m as published). ``--device`` defaults to ``cuda``.
-``--ckpt-dir`` is not yet ported and refuses.
+``--ckpt-dir DIR`` searches the trained ``params`` of the newest checkpoint
+under DIR, and raises when there is none.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from repro_torch.checkpoint import save_pytree
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.core.axe import PTQConfig
 from repro_torch.data import DataConfig, TokenBatcher
+from repro_torch.interop import restore_params_
 from repro_torch.models.transformer import init_model
 from repro_torch.quant.observe import (
     apply_plan,
@@ -70,7 +72,7 @@ def main(argv=None):
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--ckpt-dir", type=str, default=None,
-                    help="not yet ported (checkpoint restore arrives with training)")
+                    help="search the trained params of the newest checkpoint here")
     ap.add_argument("--algorithm", default="gpfq", choices=("gpfq", "optq", "rtn", "ep_init"))
     ap.add_argument("--w-bits", type=int, default=4)
     ap.add_argument("--act-bits", type=int, default=8)
@@ -110,9 +112,6 @@ def main(argv=None):
                          "cannot calibrate)")
     ap.add_argument("--device", type=str, default="cuda")
     args = ap.parse_args(argv)
-    if args.ckpt_dir is not None:
-        raise SystemExit("--ckpt-dir is not yet ported: checkpoint restore arrives with "
-                         "the training slice of the port")
 
     device = resolve_device(args.device)
     try:
@@ -124,6 +123,8 @@ def main(argv=None):
     data = TokenBatcher(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                                    global_batch=args.calib_batch_size, seed=args.seed))
     model = init_model(cfg, args.seed, device=device)
+    if args.ckpt_dir and restore_params_(model, args.ckpt_dir) is None:
+        raise SystemExit(f"no checkpoint under {args.ckpt_dir}")
     ptq = PTQConfig(w_bits=args.w_bits, act_bits=args.act_bits, p_bits=args.p_bits,
                     tile=args.tile, algorithm=args.algorithm, constrain=True)
     calib = [data.batch(10_000 + i) for i in range(args.calib_batches)]

@@ -60,8 +60,12 @@ The recurrent families serve through both engines (``--arch tiny-ssm``,
 place by the captured decode step; the paged engine's policy gates refuse
 the prefix cache and batched or chunked admission on such patterns.
 
-``--mesh`` and ``--ckpt-dir`` are accepted and refused, each naming the
-slice that brings it.
+``--ckpt-dir DIR`` restores the trained ``params`` of the newest
+checkpoint under DIR (written by either package's ``launch.train``) over
+the seeded init, as the reference does, before ``--packed`` packs them or
+``--artifact`` loads its sites over them (the artifact carries no
+embedding). ``--mesh`` is accepted and refused: multi-device serving is
+not ported.
 """
 
 from __future__ import annotations
@@ -75,6 +79,7 @@ import numpy as np
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke
 from repro_torch.data import DataConfig, TokenBatcher
+from repro_torch.interop import restore_params_
 from repro_torch.models.transformer import init_model
 from repro_torch.quant.serve_packed import (
     load_flat_artifact,
@@ -91,11 +96,8 @@ from repro_torch.serving import (
 )
 from repro_torch.serving.scheduler import blocks_for_budget, kv_pool_bytes
 
-#: flags of the reference launcher that belong to slices not ported yet
-_UNPORTED = {
-    "--mesh": "multi-device serving",
-    "--ckpt-dir": "checkpoint restore of trained params",
-}
+#: flags of the reference launcher that are not ported
+_UNPORTED = {"--mesh": "multi-device serving"}
 
 
 def main(argv=None):
@@ -154,6 +156,8 @@ def main(argv=None):
                          "calibrated static KV page scales")
     ap.add_argument("--float32", action="store_true",
                     help="an f32 copy of the configuration (as calibration takes it)")
+    ap.add_argument("--ckpt-dir", type=str, default=None,
+                    help="restore the trained params of the newest checkpoint here")
     ap.add_argument("--observe", action="store_true",
                     help="attach serving saturation counters (--paged): static-quantizer "
                          "clip counts and per-site / per-head accumulator watermarks, "
@@ -165,8 +169,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     for flag in _UNPORTED:
         if getattr(args, flag[2:].replace("-", "_")) is not None:
-            raise SystemExit(f"{flag} is not yet ported: {_UNPORTED[flag]} "
-                             f"arrives with a later slice of the port")
+            raise SystemExit(f"{flag} is not yet ported: {_UNPORTED[flag]}")
 
     device = resolve_device(args.device)
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
@@ -175,6 +178,10 @@ def main(argv=None):
 
         cfg = f32_config(cfg)
     model = init_model(cfg, args.seed, device=device)
+    if args.ckpt_dir:
+        step = restore_params_(model, args.ckpt_dir)
+        if step is not None:
+            print(f"[serve] restored step {step}")
     if args.artifact:
         flat, meta = load_flat_artifact(args.artifact)
         model = packed_params_from_artifact(flat, model, cfg, meta=meta)

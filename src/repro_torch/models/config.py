@@ -161,3 +161,55 @@ def xlstm_pattern(period: int = 8, slstm_at: int = 0) -> tuple[LayerSpec, ...]:
     return tuple(
         LayerSpec("slstm" if i == slstm_at else "mlstm", "none") for i in range(period)
     )
+
+
+def param_count(cfg: ModelConfig) -> dict:
+    """Parameters counted analytically, {"total", "active"} (port of the
+    reference's ``param_count``; MoE "active" counts top-k experts)."""
+    d, v = cfg.d_model, cfg.vocab
+    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    total = v * d  # embedding
+    if not cfg.tie_embeddings:
+        total += v * d  # head
+    active = total
+    per_pattern = []
+    for spec in cfg.pattern:
+        n = 0
+        if spec.mixer == "attn":
+            n += d * (nh * hd) + 2 * d * (nkv * hd) + (nh * hd) * d
+        elif spec.mixer == "mamba":
+            s = cfg.ssm
+            d_in = s.expand * d
+            n += d * 2 * d_in  # in_proj (x, z)
+            n += d_in * s.d_conv  # conv
+            n += d_in * (cfg.dt_rank + 2 * s.d_state)  # x -> dt, B, C
+            n += cfg.dt_rank * d_in  # dt_proj
+            n += d_in * s.d_state + d_in  # A_log, D
+            n += d_in * d  # out_proj
+        elif spec.mixer == "mlstm":
+            d_in = cfg.xlstm.mlstm_expand * d
+            n += d * 2 * d_in  # up proj (x, z)
+            n += 3 * d_in * d_in  # q, k, v
+            n += 2 * d_in  # i, f gates
+            n += d_in * d  # down proj
+        elif spec.mixer == "slstm":
+            x = cfg.xlstm
+            n += 4 * d * d + 4 * d * (d // x.slstm_heads)  # in + block-diagonal recurrent
+            n += int(2 * d * d * x.slstm_proj_factor)  # post FFN up/down
+        n_active = n
+        if spec.ffn == "mlp":
+            m = 3 * d * cfg.d_ff if cfg.act == "swiglu" else 2 * d * cfg.d_ff
+            n += m
+            n_active += m
+        elif spec.ffn == "moe":
+            mo = cfg.moe
+            per_exp = 3 * d * mo.d_ff_expert if cfg.act == "swiglu" else 2 * d * mo.d_ff_expert
+            n += mo.n_experts * per_exp + d * mo.n_experts
+            n_active += mo.top_k * per_exp + d * mo.n_experts
+        per_pattern.append((n, n_active))
+    total += cfg.repeats * sum(p[0] for p in per_pattern)
+    active += cfg.repeats * sum(p[1] for p in per_pattern)
+    # norms (2 per layer + final)
+    total += (2 * cfg.n_layers + 1) * d
+    active += (2 * cfg.n_layers + 1) * d
+    return {"total": int(total), "active": int(active)}

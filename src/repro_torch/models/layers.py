@@ -320,8 +320,9 @@ def tapping() -> bool:
 
 def _record_site_observation(obs, label: str, x, leaf: PackedLinear) -> None:
     """One site's observation, written into ``obs``'s device block: the
-    static quantizer's clip count (values of ``rint(x/scale) + zp`` outside
-    the alphabet; a NaN counts as clipped) and the extrema of its clipped
+    static quantizer's clip count (values of ``rint(x/scale) + zp`` below
+    qmin or above qmax, the reference's comparison: a NaN is not counted)
+    and the extrema of its clipped
     codes, or, for the dynamic quantizer, the extrema of
     ``quantize_activations``' codes and no clip. ``clip_total`` counts
     every row, idle ones included, as the reference does. Reads ``x``
@@ -334,7 +335,7 @@ def _record_site_observation(obs, label: str, x, leaf: PackedLinear) -> None:
             raw, _, _ = _static_act_raw(x2, leaf)
             alpha = act_alphabet(spec.act_bits, signed=spec.act_signed)
             codes = torch.clamp(raw, alpha.qmin, alpha.qmax)
-            n_clip = torch.sum(codes != raw)
+            n_clip = torch.sum((raw < alpha.qmin) | (raw > alpha.qmax))
         else:
             codes, _, _ = quantize_activations(x2)
             n_clip = None

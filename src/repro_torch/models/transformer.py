@@ -7,7 +7,15 @@ over them; the port keeps one :class:`Block` per layer in an
 slot ``s``). Decode caches are per-layer dicts, written in place: an
 attention layer's ``{"k", "v"}``, a recurrent layer's dense state (Mamba
 ``{"conv", "ssm"}``, mLSTM ``{"conv", "C", "n", "m"}``, sLSTM ``{"h",
-"c", "n", "m"}``). Modality frontends are not ported and raise here.
+"c", "n", "m"}``). The modality frontends are stubs, as in the reference:
+``vision_stub`` takes precomputed ``pixel_embeds`` (B, P, d) in front of
+the tokens (:func:`forward`, :func:`prefill`; :func:`loss_fn` masks the
+prefix), ``audio_stub`` takes codec tokens as plain tokens.
+
+A model is built with its float leaves' gradients off (serving);
+``model.requires_grad_(True)`` turns them on for training
+(:func:`~repro_torch.runtime.steps.init_train_state`). Packed sites hold
+buffers, which never take gradients.
 """
 
 from __future__ import annotations
@@ -87,13 +95,37 @@ def is_kv_pool(pool: dict) -> bool:
     return "k_pages" in pool
 
 
+_FRONTENDS = (None, "vision_stub", "audio_stub")
+
+
 def _check_ported(cfg: ModelConfig) -> None:
     for spec in cfg.pattern:
         if spec.mixer not in ("attn", "none", *RECURRENT) or spec.ffn not in (
                 "mlp", "moe", "none"):
             raise NotImplementedError(f"{cfg.name}: unknown layer {spec}")
-    if cfg.frontend is not None:
-        raise NotImplementedError(f"{cfg.name}: modality frontends are not ported")
+    if cfg.frontend not in _FRONTENDS:
+        raise NotImplementedError(f"{cfg.name}: unknown frontend {cfg.frontend!r}")
+
+
+def frontend_prefix(cfg: ModelConfig) -> int:
+    """Positions the vision stub's ``pixel_embeds`` take in front of the
+    tokens (0 for other configs)."""
+    return cfg.frontend_tokens if cfg.frontend == "vision_stub" else 0
+
+
+def check_servable(model) -> None:
+    """What the engines take: a model with its gradients off, and tokens
+    only, as the reference's engines feed (a config whose inputs include a
+    ``pixel_embeds`` prefix raises)."""
+    cfg = model.cfg
+    if any(p.requires_grad for p in model.parameters()):
+        raise ValueError(f"{cfg.name}: serving takes a model with gradients off "
+                         f"(model.requires_grad_(False))")
+    if frontend_prefix(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: the engines feed tokens only, and a {cfg.frontend} model needs "
+            f"{cfg.frontend_tokens} pixel_embeds a sequence; forward, loss_fn and prefill "
+            f"take them (batch['pixel_embeds'])")
 
 
 class Block(nn.Module):
@@ -184,15 +216,20 @@ def init_model(cfg: ModelConfig, seed: int = 0, *, device="cuda",
         None if cfg.tie_embeddings else normal_weight((v, d), 1.0 / math.sqrt(d), gen, dt, dev),
     )
     layers = [_init_block(cfg.layer_spec(i), cfg, gen, dev) for i in range(cfg.n_layers)]
-    final_norm = Norm(torch.ones(d, dtype=dt, device=dev))
+    final_norm = Norm(torch.ones(d, dtype=dt, device=dev),
+                      torch.zeros(d, dtype=dt, device=dev) if cfg.norm == "layernorm" else None)
     return Transformer(cfg, embedding, layers, final_norm)
 
 
 # ---------------------------------------------------------------------------
 # Forward / loss
 # ---------------------------------------------------------------------------
-def _embed_inputs(model: Transformer, tokens, pos_offset: int = 0):
-    x = embed(model.embedding, tokens.long(), model.cfg)
+def _embed_inputs(model: Transformer, batch: dict, pos_offset: int = 0):
+    """Token embedding, after the vision stub's ``pixel_embeds`` prefix;
+    positions from ``pos_offset`` over the whole sequence."""
+    x = embed(model.embedding, batch["tokens"].long(), model.cfg)
+    if frontend_prefix(model.cfg):
+        x = torch.cat([batch["pixel_embeds"].to(x.dtype), x], dim=1)
     B, S, _ = x.shape
     positions = torch.arange(pos_offset, pos_offset + S, dtype=torch.int32,
                              device=x.device)[None].expand(B, S)
@@ -212,10 +249,11 @@ def _ffn(block: Block, cfg: ModelConfig, x, aux=None):
 
 
 def forward(model: Transformer, batch: dict):
-    """batch: {"tokens": (B, S) int}. Returns (logits (B, S, V_padded), aux),
-    ``aux`` the MoE blocks' summed load-balance loss (0 without them)."""
+    """batch: {"tokens": (B, S) int[, "pixel_embeds": (B, P, d)]}. Returns
+    (logits (B, P + S, V_padded) over the frontend prefix too, aux), ``aux``
+    the MoE blocks' summed load-balance loss (0 without them)."""
     cfg = model.cfg
-    x, positions = _embed_inputs(model, batch["tokens"])
+    x, positions = _embed_inputs(model, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for block in model.layers:
         if block.mixer is not None:
@@ -232,9 +270,11 @@ def forward(model: Transformer, batch: dict):
 
 
 def loss_fn(model: Transformer, batch: dict):
-    """Next-token cross entropy. Returns (total, {"ce", "aux", "ppl"})."""
+    """Next-token cross entropy over the text positions (the vision stub's
+    prefix masked, as in the reference). Returns (total, {"ce", "aux",
+    "ppl"})."""
     logits, aux = forward(model, batch)
-    pred = logits[:, :-1].to(torch.float32)
+    pred = logits[:, frontend_prefix(model.cfg):][:, :-1].to(torch.float32)
     labels = batch["tokens"][:, 1:].long()
     logz = torch.logsumexp(pred, dim=-1)
     gold = torch.gather(pred, -1, labels[..., None])[..., 0]
@@ -319,9 +359,10 @@ def prefill(model: Transformer, batch: dict, max_len: int, prefix_kv=None,
     nkv, hd), the RoPE'd KV of the first L prompt tokens, and whose other
     entries are ``{}``. ``batch["tokens"]`` then holds only the uncached
     suffix, ``pos_offset`` must equal L, and the returned caches hold the
-    suffix's KV only."""
+    suffix's KV only. A vision stub's ``batch["pixel_embeds"]`` go in front
+    of the tokens, so decode continues at P + S."""
     cfg = model.cfg
-    x, positions = _embed_inputs(model, batch["tokens"], pos_offset)
+    x, positions = _embed_inputs(model, batch, pos_offset)
     B, S, _ = x.shape
     if caches is None:
         caches = init_cache(cfg, B, max_len, device=x.device)

@@ -1,0 +1,104 @@
+"""AdamW with decoupled weight decay, global-norm clipping and a warmup +
+cosine schedule (port of ``repro/optim/adamw.py``).
+
+Parameters, gradients and moments are dicts keyed by parameter name (a
+model's ``named_parameters()``, see :func:`trainable_parameters`); the
+update writes parameters and moments in place under ``torch.no_grad``.
+The order of operations is the reference's: gradients clipped in f32,
+moments in ``moment_dtype``, weight decay on every leaf, and ``p_new =
+(p.f32 - lr * delta).to(p.dtype)``. The step, the learning rate and the
+bias corrections stay 0-d tensors on the device: an update reads nothing
+on the host.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.models.layers import torch_dtype
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_ratio: float = 0.1
+    moment_dtype: str = "float32"
+
+
+def trainable_parameters(model: torch.nn.Module) -> dict[str, torch.nn.Parameter]:
+    """The parameters an optimizer updates: every parameter of ``model``
+    that takes a gradient, by name."""
+    return {n: p for n, p in model.named_parameters() if p.requires_grad}
+
+
+def lr_at_step(cfg: OptimizerConfig, step) -> torch.Tensor:
+    """Linear warmup, then cosine decay to ``min_lr_ratio * lr`` (an f32
+    0-d tensor on ``step``'s device)."""
+    step = torch.as_tensor(step).to(torch.float32)
+    warm = cfg.lr * step / max(cfg.warmup_steps, 1)
+    t = (step - cfg.warmup_steps) / max(cfg.total_steps - cfg.warmup_steps, 1)
+    t = torch.clamp(t, 0.0, 1.0)
+    cos = cfg.lr * (cfg.min_lr_ratio
+                    + (1 - cfg.min_lr_ratio) * 0.5 * (1 + torch.cos(math.pi * t)))
+    return torch.where(step < cfg.warmup_steps, warm, cos)
+
+
+def init_opt_state(params: dict[str, torch.Tensor], cfg: OptimizerConfig) -> dict:
+    """Zero first and second moments in ``moment_dtype`` beside each
+    parameter, and the step, a 0-d int32 tensor."""
+    dt = torch_dtype(cfg.moment_dtype)
+    device = next(iter(params.values())).device
+    return {
+        "m": {n: torch.zeros(p.shape, dtype=dt, device=p.device) for n, p in params.items()},
+        "v": {n: torch.zeros(p.shape, dtype=dt, device=p.device) for n, p in params.items()},
+        "step": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def global_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32))) for x in tree.values()))
+
+
+def clip_by_global_norm(grads: dict[str, torch.Tensor], max_norm: float):
+    """Gradients scaled (in f32) so their global norm is at most
+    ``max_norm``; returns (clipped, norm)."""
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+    return {n: (g.to(torch.float32) * scale).to(g.dtype) for n, g in grads.items()}, norm
+
+
+@torch.no_grad()
+def adamw_update(params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor],
+                 state: dict, cfg: OptimizerConfig):
+    """One AdamW step, in place on ``params`` and ``state``. Returns
+    (params, state, {"lr", "grad_norm"})."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    step = state["step"] + 1
+    lr = lr_at_step(cfg, step)
+    b1, b2 = cfg.b1, cfg.b2
+    stepf = step.to(torch.float32)
+    bc1 = 1.0 - torch.pow(b1, stepf)
+    bc2 = 1.0 - torch.pow(b2, stepf)
+    for name, p in params.items():
+        m, v = state["m"][name], state["v"][name]
+        gf = grads[name].to(m.dtype)
+        m_new = b1 * m + (1 - b1) * gf
+        v_new = b2 * v + (1 - b2) * torch.square(gf)
+        m_hat = m_new / bc1
+        v_hat = v_new / bc2
+        delta = m_hat / (torch.sqrt(v_hat) + cfg.eps) + cfg.weight_decay * p.to(m.dtype)
+        p.copy_((p.to(torch.float32) - lr * delta.to(torch.float32)).to(p.dtype))
+        m.copy_(m_new)
+        v.copy_(v_new)
+    state["step"].copy_(step)
+    return params, state, {"lr": lr, "grad_norm": gnorm}

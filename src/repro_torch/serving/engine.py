@@ -44,7 +44,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models.layers import _PACKED_BACKENDS, use_packed_backend
-from repro_torch.models.transformer import decode_step, init_cache, prefill
+from repro_torch.models.transformer import check_servable, decode_step, init_cache, prefill
 from repro_torch.quant.serve_packed import upgrade_packed_params
 from repro_torch.quant.spec import validate_datapath
 from repro_torch.serving.graphs import StepProgram
@@ -131,6 +131,7 @@ class GenerationEngine:
         # legacy packed artifacts are upgraded once here (col_sums + spec)
         if cfg is not None and cfg != model.cfg:
             raise ValueError(f"config {cfg.name} does not describe the model ({model.cfg.name})")
+        check_servable(model)
         self.model = upgrade_packed_params(model.to(self.device))
         if datapath is not None:
             validate_datapath(self.model, datapath)

@@ -113,6 +113,7 @@ from repro_torch.models.layers import (
     use_packed_backend,
 )
 from repro_torch.models.transformer import (
+    check_servable,
     decode_step_paged,
     init_paged_cache,
     is_kv_pool,
@@ -216,6 +217,7 @@ class PagedEngine:
             raise ValueError(f"kv_dtype {paged.kv_dtype!r} not in ('act', 'int8')")
         if cfg is not None and cfg != model.cfg:
             raise ValueError(f"config {cfg.name} does not describe the model ({model.cfg.name})")
+        check_servable(model)
         self.device = resolve_device(device)
         resolve_paged_attn_impl(paged.attn_impl, self.device)
         self.model = upgrade_packed_params(model.to(self.device))

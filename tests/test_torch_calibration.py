@@ -233,9 +233,11 @@ def test_quantize_launcher_then_serve_cpu(tmp_path, capsys):
     assert "[quantize] artifact v2" in printed and "tok/s" in printed
     # the MoE and recurrent families are calibrated now
     # (tests/test_torch_moe_calibration.py, tests/test_torch_recurrent_calibration.py);
-    # checkpoint restore is still refused
-    with pytest.raises(SystemExit, match="not yet ported"):
-        quantize_launcher.main(["--arch", ARCH, "--device", "cpu", "--ckpt-dir", str(tmp_path)])
+    # --ckpt-dir restores a checkpoint (tests/test_torch_training.py), and
+    # a directory without one raises, as in the reference
+    with pytest.raises(SystemExit, match="no checkpoint under"):
+        quantize_launcher.main(["--arch", ARCH, "--device", "cpu", "--ckpt-dir",
+                                str(tmp_path / "empty")])
     ssm = quantize_launcher.main(["--arch", "tiny-ssm", "--device", "cpu", "--calib-batches",
                                   "1", "--calib-batch-size", "2", "--seq", "32",
                                   "--eval-batches", "1"])

@@ -200,8 +200,10 @@ def test_non_dense_patterns_raise():
     """The MoE FFN needs its MoE config, and the Mamba and mLSTM mixers
     their SSM/xLSTM configs (refused when the config is built, as in the
     reference); with them, the Mamba and xLSTM mixers build
-    (tests/test_torch_ssm.py, tests/test_torch_xlstm.py). Modality
-    frontends still raise."""
+    (tests/test_torch_ssm.py, tests/test_torch_xlstm.py). The vision stub
+    builds and takes ``pixel_embeds`` in front of the tokens, as the
+    reference's (tests/test_torch_registry.py holds it to the reference);
+    an unknown frontend raises."""
     cfg = get_config("tiny-lm-xs")
     with pytest.raises(ValueError, match="moe config is None"):
         cfg.scaled(pattern=(dataclasses.replace(cfg.pattern[0], ffn="moe"),))
@@ -215,8 +217,14 @@ def test_non_dense_patterns_raise():
     assert [type(b.mixer).__name__ for b in T.init_model(get_config("tiny-xlstm"),
                                                          device="cpu").layers] == [
         "MLSTM", "SLSTM"]
-    with pytest.raises(NotImplementedError, match="frontends"):
-        T.init_model(cfg.scaled(frontend="vision_stub"), device="cpu")
+    vlm = cfg.scaled(frontend="vision_stub", frontend_tokens=3)
+    model = T.init_model(vlm, device="cpu")
+    tokens = torch.zeros((2, 5), dtype=torch.int32)
+    logits, _ = T.forward(model, {"tokens": tokens,
+                                  "pixel_embeds": torch.ones((2, 3, vlm.d_model))})
+    assert logits.shape == (2, 3 + 5, vlm.vocab_padded)
+    with pytest.raises(NotImplementedError, match="frontend"):
+        T.init_model(cfg.scaled(frontend="depth_stub"), device="cpu")
     assert T.init_model(get_config("tiny-moe"), device="cpu").layers[0].spec.ffn == "moe"
 
 

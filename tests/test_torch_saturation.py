@@ -260,6 +260,46 @@ def test_tap_row_matches_reference_record(packed_setup, mode):
         assert (want.code_min, want.code_max) == (alpha.qmin, alpha.qmax)
 
 
+@pytest.mark.parametrize("signed", [False, True])
+def test_tap_clip_count_with_nan_and_inf_matches_reference(packed_setup, signed):
+    """A site input holding NaN, +inf and -inf beside finite values on both
+    sides of the static range: the port's clip count equals the
+    reference's, which compares ``raw < qmin | raw > qmax`` (false for
+    NaN, true for each infinity)."""
+    c = packed_setup
+    jleaf = {k: np.asarray(v)[0] for k, v in c["jp"]["layers"][0]["mixer"]["wq"].items()
+             if k != "spec"}
+    K = 2 * jleaf["packed"].shape[0]
+    x = (np.random.default_rng(12).standard_normal((3, 1, K)) * 2.0).astype(np.float32)
+    x[0, 0, :5] = np.nan
+    x[1, 0, 3:6] = np.inf
+    x[2, 0, 7:9] = -np.inf
+    scale, zp = (0.01, 0.0) if signed else (0.012, 120.0)
+    jspec = JDatapathSpec(static_act=True, act_signed=signed)
+    jleaf.update(act_scale=np.float32(scale), act_zp=np.float32(zp), spec=jspec)
+    leaf = PackedLinear(packed=to_tensor(jleaf["packed"], "cpu"),
+                        scale=to_tensor(jleaf["scale"], "cpu"),
+                        col_sums=to_tensor(jleaf["col_sums"], "cpu"),
+                        spec=DatapathSpec(static_act=True, act_signed=signed),
+                        act_scale=torch.tensor(scale), act_zp=torch.tensor(zp))
+    label = "slot0/mixer.wq"
+    ref = JCounters()
+    j_record_site(ref, label, jnp.asarray(x), jax.tree.map(jnp.asarray, jleaf))
+    jax.effects_barrier()
+    obs = SaturationCounters()
+    obs.allocate((label,), "cpu")
+    PL._record_site_observation(obs, label, torch.from_numpy(x), leaf)
+    n_calls, clip_count, clip_total, _, _ = obs.block.read()[label]
+    want = ref.sites[label]
+    assert (n_calls, clip_count, clip_total) == (want.n_calls, want.clip_count,
+                                                 want.clip_total)
+    # every infinity clips, no NaN does, and finite values clip on both sides
+    alpha = act_alphabet(8, signed=signed)
+    raw = np.rint(x / np.float32(scale)) + np.float32(zp)
+    assert clip_count == int(np.sum((raw < alpha.qmin) | (raw > alpha.qmax)))
+    assert clip_count > 5 and np.sum(np.isnan(raw)) == 5
+
+
 # ---------------------------------------------------------------------------
 # Whole engines, reference against port
 # ---------------------------------------------------------------------------

@@ -343,8 +343,10 @@ def test_serve_launcher_with_plan(searched, capsys):
     printed = capsys.readouterr().out
     assert "kv_scales=static" in printed
     assert "[serve] observed 7 sites; binding watermark: slot0/" in printed
-    with pytest.raises(SystemExit, match="not yet ported"):
-        search_launcher.main([*SEARCH_ARGS, "--ckpt-dir", str(out)])
+    # --ckpt-dir restores a checkpoint; a directory without one raises, as
+    # in the reference
+    with pytest.raises(SystemExit, match="no checkpoint under"):
+        search_launcher.main([*SEARCH_ARGS, "--ckpt-dir", str(out / "empty")])
 
 
 def test_search_launcher_code_changing_moves(tmp_path):
