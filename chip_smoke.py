@@ -303,7 +303,8 @@ result unless every phase passed):
    B5 and B1e;
 15. training, checkpoint restore and the registry. (a) smollm-360m in f32
    at full width trains 20 steps of 8 x 128 TokenBatcher tokens through
-   ``launch/train.py`` (lr 1e-3, warmup 5, deterministic algorithms, a
+   ``launch/train.py`` (lr 5e-3 with the optimizer's default warmup of 100
+   steps, so 9.5e-4 at step 20; deterministic algorithms; a
    checkpoint every 10 steps): the loss falls and no port kernel
    launches; a blocking write and a restore of the whole train state,
    timed; a second run resumes from the step-10 checkpoint and must reach
@@ -324,9 +325,10 @@ result unless every phase passed):
    replayed and an eager step in turns); phase 7's trace through the FIFO
    paged engine, float and int8 pages. Phase 6 holds B2/B3 at the
    registry's attention shapes (head dim 80 and 128, groups 1-16) and
-   times them beside SDPA. The kernels line gains ``training_launches``
-   on B1, B2, B3 and B5, ``registry_sites`` on B1 and
-   ``registry_shapes`` on B2 and B3.
+   times them in its timed loop beside the plain versions and SDPA (rows
+   of B2's and B3's ``shapes``, each naming its ``arch``). The kernels
+   line gains ``training_launches`` on B1, B2, B3 and B5 and
+   ``registry_sites`` on B1.
 
 Before driving a path, every launch counter is set to 0, and the counts are
 read just after it. Phase 3 ends with a ``torch.profiler`` breakdown of one
@@ -396,7 +398,7 @@ CALIB_BATCHES, CALIB_BATCH, CALIB_SEQ, EVAL_BATCHES = 4, 4, 128, 2
 #: the table's width. The last four cross the kernels' split boundaries in
 #: the registry's decode attention, (arch, kv heads, group, head dim): B2/B3
 #: held to their plain versions at 4 slots of 80 and 2048 tokens (block 64)
-#: and timed at 4 x 80 and 4 x 2048 beside SDPA
+#: and timed at 4 x 80 and 4 x 2048 after smollm-360m's PAGED_TIMED
 REGISTRY_ATTN = (("stablelm-3b", 32, 1, 80), ("phi4-mini-3.8b", 8, 3, 128),
                  ("musicgen-medium", 24, 1, 64), ("dbrx-132b", 8, 6, 128),
                  ("internvl2-76b", 8, 8, 128), ("llama3-405b", 8, 16, 128))
@@ -1559,18 +1561,23 @@ def phase_paged_kernels(torch):
     print("[paged] one B2 and one B3 call under torch.cuda.set_sync_debug_mode('error'): "
           "no synchronization")
 
-    # times at smollm-360m decode, bf16 q (and bf16 pages for B2), in
-    # PagedEngine's 512-page table; the plain version and the SDPA yardstick
-    # take the table cut to the pages the lengths need (the same function)
+    # times at smollm-360m decode, then at the registry's attention shapes,
+    # bf16 q (and bf16 pages for B2), in PagedEngine's 512-page table; the
+    # plain version and the SDPA yardstick take the table cut to the pages
+    # the lengths need (the same function)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     rows = {"float": [], "int8": []}
-    for slots, n in PAGED_TIMED:
-        q, kp, vp, tab, ln = paged_case(torch, rng, slots, SMOLLM_NKV, SMOLLM_G, SMOLLM_HD,
-                                        PAGED_BLOCK, PAGED_TABLE, (n,) * slots, torch.bfloat16)
+    timed = ([("smollm-360m", SMOLLM_NKV, SMOLLM_G, SMOLLM_HD, slots, n)
+              for slots, n in PAGED_TIMED]
+             + [(arch, nkv, g, hd, 4, n) for arch, nkv, g, hd in REGISTRY_ATTN
+                for n in (80, 2048)])
+    for arch, nkv, g, hd, slots, n in timed:
+        q, kp, vp, tab, ln = paged_case(torch, rng, slots, nkv, g, hd, PAGED_BLOCK, PAGED_TABLE,
+                                        (n,) * slots, torch.bfloat16)
         kp, vp = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
         (kc, ks), (vc, vs) = PA.quantize_kv_pages(kp), PA.quantize_kv_pages(vp)
         cut = tab[:, :-(-n // PAGED_BLOCK)].contiguous()
-        splits = PA.split_plan(slots, SMOLLM_NKV, PAGED_TABLE, PA._sm_count(0))
+        splits = PA.split_plan(slots, nkv, PAGED_TABLE, PA._sm_count(0))
         for kind, pages, scale_args in (("float", (kp, vp), ()), ("int8", (kc, vc), (ks, vs))):
             if kind == "float":
                 def kern():
@@ -1588,68 +1595,25 @@ def phase_paged_kernels(torch):
             scale_kw = dict(zip(("k_scales", "v_scales"), scale_args))
             oracle = PA.paged_attention_reference(q, *pages, cut, ln, **scale_kw)
             lib_err = (lib_out().float() - oracle.float()).abs().max().item()
-            check(lib_err < 5e-2, f"the SDPA yardstick disagrees ({kind}, {n}): {lib_err}")
+            check(lib_err < 5e-2, f"the SDPA yardstick disagrees ({arch}, {kind}, {n}): "
+                                  f"{lib_err}")
             bms, by = paged_bound_ms(torch, q, pages[0], ln, kind == "int8")
-            row = {"slots": slots, "tokens": n, "nh": SMOLLM_NKV * SMOLLM_G,
-                   "nkv": SMOLLM_NKV, "hd": SMOLLM_HD, "bs": PAGED_BLOCK, "dtype": "bfloat16",
-                   "table_cols": PAGED_TABLE, "splits": splits,
-                   "ms": time_ms(torch, kern, flush=flush),
+            row = {"arch": arch, "slots": slots, "tokens": n, "nh": nkv * g, "nkv": nkv,
+                   "hd": hd, "bs": PAGED_BLOCK, "dtype": "bfloat16", "table_cols": PAGED_TABLE,
+                   "splits": splits, "ms": time_ms(torch, kern, flush=flush),
                    "plain_ms": time_ms(torch, plain, reps=10, flush=flush),
                    "library_ms": time_ms(torch, lib_call, flush=flush),
                    "bound_ms": bms, "bound_by": by}
             rows[kind].append(row)
             # printed for the reader only: not measured in this run, so it
             # stays out of the kernels record
-            first = PAGED_FIRST_MS.get((kind, slots, n))
-            print(f"[paged] {'B2' if kind == 'float' else 'B3'} {slots} slots x {n} tokens, "
-                  f"{splits} splits: kernel {row['ms']:.5f} ms  bound {bms:.5f} ms ({by})  "
-                  f"plain {row['plain_ms']:.5f} ms  sdpa {row['library_ms']:.5f} ms  first "
-                  f"kernel (PR 14) {'n/a' if first is None else f'{first:.5f} ms'}")
-    rows["registry"] = registry_attention_times(torch, rng, flush)
+            first = PAGED_FIRST_MS.get((kind, slots, n)) if arch == "smollm-360m" else None
+            print(f"[paged] {'B2' if kind == 'float' else 'B3'} at {arch}'s attention (nkv "
+                  f"{nkv}, group {g}, hd {hd}), {slots} slots x {n} tokens, {splits} splits: "
+                  f"kernel {row['ms']:.5f} ms  bound {bms:.5f} ms ({by})  plain "
+                  f"{row['plain_ms']:.5f} ms  sdpa {row['library_ms']:.5f} ms  first kernel "
+                  f"(PR 14) {'n/a' if first is None else f'{first:.5f} ms'}")
     return rows, err
-
-
-def registry_attention_times(torch, rng, flush) -> list[dict]:
-    """B2 and B3 at the registry's attention shapes (REGISTRY_ATTN), bf16,
-    4 slots x 80 and x 2048 tokens in PagedEngine's 512-page table: each
-    beside its bound and SDPA on the same K/V (dequantized for B3), the
-    SDPA output held to the gather oracle."""
-    from repro_torch.kernels import paged_attention as PA
-
-    rows = []
-    for arch, nkv, g, hd in REGISTRY_ATTN:
-        for n in (80, 2048):
-            q, kp, vp, tab, ln = paged_case(torch, rng, 4, nkv, g, hd, PAGED_BLOCK, PAGED_TABLE,
-                                            (n,) * 4, torch.bfloat16)
-            kp, vp = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
-            (kc, ks), (vc, vs) = PA.quantize_kv_pages(kp), PA.quantize_kv_pages(vp)
-            cut = tab[:, :-(-n // PAGED_BLOCK)].contiguous()
-            splits = PA.split_plan(4, nkv, PAGED_TABLE, PA._sm_count(0))
-            for kind, pages, sc in (("float", (kp, vp), ()), ("int8", (kc, vc), (ks, vs))):
-                if kind == "float":
-                    def kern():
-                        return PA.paged_attention_kernel(q, *pages, tab, ln)
-                else:
-                    def kern():
-                        return PA.paged_attention_int8_kernel(q, *pages, tab, ln, *sc)
-                lib_call, lib_out = sdpa_yardstick(torch, q, *pages, cut, ln, *sc)
-                oracle = PA.paged_attention_reference(
-                    q, *pages, cut, ln, **dict(zip(("k_scales", "v_scales"), sc)))
-                lib_err = (lib_out().float() - oracle.float()).abs().max().item()
-                check(lib_err < 5e-2, f"the SDPA yardstick disagrees ({arch}, {kind}, {n}): "
-                                      f"{lib_err}")
-                bms, by = paged_bound_ms(torch, q, pages[0], ln, kind == "int8")
-                row = {"arch": arch, "kind": kind, "slots": 4, "tokens": n, "nh": nkv * g,
-                       "nkv": nkv, "g": g, "hd": hd, "bs": PAGED_BLOCK, "dtype": "bfloat16",
-                       "splits": splits, "ms": time_ms(torch, kern, flush=flush),
-                       "library_ms": time_ms(torch, lib_call, flush=flush),
-                       "bound_ms": bms, "bound_by": by}
-                rows.append(row)
-                print(f"[paged] {'B2' if kind == 'float' else 'B3'} at {arch}'s attention "
-                      f"(nkv {nkv}, group {g}, hd {hd}), 4 slots x {n} tokens, {splits} splits: "
-                      f"kernel {row['ms']:.5f} ms  bound {bms:.5f} ms ({by})  sdpa "
-                      f"{row['library_ms']:.5f} ms")
-    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -4510,10 +4474,11 @@ def phase_recurrent_slice(torch, smi: str):
 # Phase 15: training and checkpoint restore, the trained rung, the registry
 # ---------------------------------------------------------------------------
 #: (a) smollm-360m in f32 through launch/train.py: steps, batch x seq, a
-#: checkpoint every TRAIN_EVERY steps; lr and warmup short enough that 20
-#: steps move the loss
+#: checkpoint every TRAIN_EVERY steps; the launcher keeps the optimizer's
+#: warmup of 100 steps, so the peak lr is set high enough that 20 steps of
+#: the ramp move the loss
 TRAIN_ARCH, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_EVERY = "smollm-360m", 20, 8, 128, 10
-TRAIN_LR, TRAIN_WARMUP = 1e-3, 5
+TRAIN_LR = 5e-3
 #: (b) the paper-table recipe (benchmarks/common.py): tiny-lm-l, 400 steps,
 #: batch 8 x seq 96, lr 1e-3, warmup 20, init seed 0, data seed 7; 4
 #: calibration batches from 50000, 4 eval batches; AXE-GPFQ at P_I = 16
@@ -4542,9 +4507,8 @@ def train_and_resume(torch, smi: str, root: str) -> dict:
 
     ckpt = os.path.join(root, "ckpt")
     args = ["--arch", TRAIN_ARCH, "--float32", "--steps", str(TRAIN_STEPS), "--batch",
-            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--lr", str(TRAIN_LR), "--warmup-steps",
-            str(TRAIN_WARMUP), "--ckpt-dir", ckpt, "--ckpt-every", str(TRAIN_EVERY),
-            "--log-every", str(TRAIN_EVERY), "--device", "cuda"]
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--lr", str(TRAIN_LR), "--ckpt-dir", ckpt,
+            "--ckpt-every", str(TRAIN_EVERY), "--log-every", str(TRAIN_EVERY), "--device", "cuda"]
     mon = TR.StragglerMonitor()
     reset_peak(torch)
     reset_counts()
@@ -4603,7 +4567,7 @@ def train_and_resume(torch, smi: str, root: str) -> dict:
     tok_s = TRAIN_BATCH * TRAIN_SEQ / (step_t["median"] / 1e3)
     print(f"[train] (a) {TRAIN_ARCH} f32 at full width ({n_params} parameters), launch/train.py "
           f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} TokenBatcher tokens, lr "
-          f"{TRAIN_LR} warmup {TRAIN_WARMUP}, deterministic algorithms: loss {losses[0]:.4f} -> "
+          f"{TRAIN_LR} on the default warmup of 100 steps, deterministic algorithms: loss {losses[0]:.4f} -> "
           f"{losses[-1]:.4f} (first {k} mean {sum(losses[:k]) / k:.4f}, last {k} mean "
           f"{sum(losses[-k:]) / k:.4f}); step {fmt_spread(step_t)} (steps 2-{TRAIN_STEPS}, each "
           f"ending in its loss read) = {tok_s:.1f} tok/s; first step {1e3 * mon.times[0]:.1f} ms; "
@@ -5151,11 +5115,9 @@ def main() -> int:
                                 recurrent["b5"], None, recurrent["b1e"])):
         if n is not None:
             rec["recurrent_launches"] = n
-    # phase 6's registry shapes beside B2 and B3; phase 15's launches: B1
+    # phase 15's launches: B1
     # (the trained artifact, the registry models' fixed slot and paged
     # runs), B2/B3 (paged runs), B5 (the trained checkpoint, the rung)
-    for rec, kind in zip(records[1:3], ("float", "int8")):
-        rec["registry_shapes"] = [r for r in paged_rows["registry"] if r["kind"] == kind]
     for rec, key in zip(records[:3] + records[4:5], ("b1", "b2", "b3", "b5")):
         rec["training_launches"] = training[key]
     records[0]["registry_sites"] = {r["arch"]: r["b1_sites"] for r in training["registry"]}

@@ -17,12 +17,10 @@ Checkpoints hold the reference's train-state tree (``params``, ``opt.m``,
 trainer resumes from the other's and ``--ckpt-dir`` of either package's
 ``quantize``, ``search`` and ``serve`` restores the trained ``params``.
 ``--float32`` trains an f32 copy of a bfloat16 configuration (the form
-calibration takes); ``--warmup-steps`` sets the schedule's warmup (the
-reference launcher keeps the optimizer's default, 100). On CUDA the loop
-runs with deterministic algorithms, so a resumed run repeats the
-uninterrupted one bit for bit (the embedding's backward may otherwise
-sum a row's contributions in a varying order). ``--device`` defaults to
-``cuda``.
+calibration takes). On CUDA the loop runs with deterministic algorithms,
+so a resumed run repeats the uninterrupted one bit for bit (the
+embedding's backward may otherwise sum a row's contributions in a
+varying order). ``--device`` defaults to ``cuda``.
 """
 
 from __future__ import annotations
@@ -94,7 +92,6 @@ def main(argv=None, *, monitor: StragglerMonitor | None = None):
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
-    ap.add_argument("--warmup-steps", type=int, default=OptimizerConfig.warmup_steps)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--ckpt-dir", type=str, default=None)
     ap.add_argument("--ckpt-every", type=int, default=100)
@@ -113,8 +110,7 @@ def main(argv=None, *, monitor: StragglerMonitor | None = None):
         cfg = f32_config(cfg)
     cfg = cfg.scaled(max_seq_len=max(cfg.max_seq_len, args.seq))
     run = TrainRunConfig(
-        optimizer=OptimizerConfig(lr=args.lr, warmup_steps=args.warmup_steps,
-                                  total_steps=args.steps),
+        optimizer=OptimizerConfig(lr=args.lr, total_steps=args.steps),
         num_microbatches=args.microbatches,
     )
     print(f"[train] arch={cfg.name} device={device} batch={args.batch}x{args.seq}")

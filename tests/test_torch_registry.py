@@ -41,8 +41,12 @@ ATOL = 1e-4
 #: init: the reference's own f32 forward differs from its f64 forward by
 #: 3.4e-4 in the logits and by 2.4e-2 in the gradients (of largest
 #: magnitude 254), so f32 rounding alone moves it past 1e-4. It is held at
-#: 1e-3 on the logits and 1e-3 of the largest gradient (its loss at ATOL).
-ILL_CONDITIONED = {"xlstm-350m": 1e-3}
+#: (logits atol, gradient tolerance per leaf): 1e-3 on the logits (its loss
+#: at ATOL), and each leaf's gradient within a relative L2 error of 1.5e-3,
+#: ||got - want|| <= 1.5e-3 ||want||. The reference's own f32 gradients
+#: are up to 4.4e-4 from its f64 ones in that measure on a leaf, and the
+#: port's up to 7.5e-4 from the reference's f32 ones.
+ILL_CONDITIONED = {"xlstm-350m": (1e-3, 1.5e-3)}
 #: held in tests/test_torch_registry_recurrent.py
 RECURRENT = ("xlstm-350m", "jamba-1.5-large-398b")
 B, S = 2, 16
@@ -133,7 +137,7 @@ def test_forward_loss_and_grads_match_reference(arch, reference):
 def check_forward_and_grads(arch, ref):
     """The port against :func:`reference_case`'s ``ref`` (xlstm-350m: see
     ILL_CONDITIONED)."""
-    atol = ILL_CONDITIONED.get(arch, ATOL)
+    atol, grad_rtol = ILL_CONDITIONED.get(arch, (ATOL, None))
     cfg = get_smoke(arch)
     model = params_from_numpy(ref["params"], cfg, device="cpu").requires_grad_(True)
     batch = _tensors(ref["batch"])
@@ -153,10 +157,13 @@ def check_forward_and_grads(arch, ref):
     flat_got = jax.tree_util.tree_flatten_with_path(grads)[0]
     assert [jax.tree_util.keystr(k) for k, _ in flat_got] == [
         jax.tree_util.keystr(k) for k, _ in flat_ref]
-    scale = max(np.abs(g).max() for _, g in flat_ref) if arch in ILL_CONDITIONED else 1.0
     for (path, want), (_, got) in zip(flat_ref, flat_got):
-        np.testing.assert_allclose(got.numpy(), want, atol=atol * scale, rtol=0,
-                                   err_msg=jax.tree_util.keystr(path))
+        if grad_rtol is None:
+            np.testing.assert_allclose(got.numpy(), want, atol=atol, rtol=0,
+                                       err_msg=jax.tree_util.keystr(path))
+        else:
+            err = np.linalg.norm(got.numpy() - want) / np.linalg.norm(want)
+            assert err <= grad_rtol, (jax.tree_util.keystr(path), err)
     assert any(np.abs(g).sum() > 0 for _, g in flat_ref)
 
 
