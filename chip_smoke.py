@@ -117,9 +117,11 @@ result unless every phase passed):
    tie-limited; both equal to the eager chunk's), the cached admit adding
    0 to every kernel counter. It prints decode-step time, tokens/s, admit
    time, capture time, peak memory and a profiler breakdown of 8 replayed
-   decode steps (a trace each; a step whose trace lost device kernel
-   records is run but not counted), whose w4a8 kernels, counted by name,
-   must equal the launch counter's 224 a step. Every count by name is
+   decode steps (a trace each, at most 48 traced; a step whose trace lost
+   device kernel records is run but not counted, and says where it lost
+   them; with no complete trace the breakdown is "not measured"), whose
+   w4a8 kernels, counted by name, must equal the launch counter's 224 a
+   step. Every count by name is
    taken on a trace that holds a device record for each launch it
    recorded, and for each graph node of each replay (phase 3 and phase 8
    profile a call again until one does).
@@ -441,6 +443,9 @@ RMSNORM_DRIVEN = [(256, 960), (512, 1024), (1024, 4096), (4, 16384)]
 RMSNORM_ROUNDS = 3
 #: phase 7: the paged engine's configuration
 PAGED_BLOCK, PAGED_BLOCKS, PAGED_SLOTS, PAGED_CHUNK = 64, 64, 4, 8
+#: phase 7's profile: replayed decode steps traced at most, one trace each,
+#: for PAGED_CHUNK complete ones
+PAGED_PROFILE_TRIES = 48
 TRACE_REQUESTS, PREFIX_LEN = 12, 128
 #: phase 11: granite-moe-3b-a800m, its expert sites (K, N) (wg and wu, then
 #: wd), its dense (attention) sites, the kernel cases' expert counts and
@@ -2065,8 +2070,11 @@ def phase_paged_slice(torch):
     # replayed decode steps under the profiler, a trace each (a trace of a
     # whole 8-step chunk, about 45000 kernels, mostly loses device records):
     # the profiled engine runs each chunk one step at a time, its first step
-    # (the capture) untraced, and the first PAGED_CHUNK steps whose traces
-    # hold every node of the graph are counted
+    # (the capture) untraced, and traces at most PAGED_PROFILE_TRIES steps
+    # until PAGED_CHUNK of them hold every node of the graph; those are
+    # counted, and each lost trace says where it lost its records
+    from repro_torch.trace import WARMUP, record_gaps
+
     prof_eng = engine()
     orig_chunk = prof_eng._chunk
     steps, lost = [], []
@@ -2075,7 +2083,8 @@ def phase_paged_slice(torch):
         bufs = []
         for _ in range(k):
             program = prof_eng._program
-            if len(steps) == PAGED_CHUNK or program is None or program.graph is None:
+            if (len(steps) == PAGED_CHUNK or len(steps) + len(lost) == PAGED_PROFILE_TRIES
+                    or program is None or program.graph is None):
                 bufs.append(orig_chunk(1))
                 continue
             before = read_counts()["w4a8_matmul"]
@@ -2087,18 +2096,31 @@ def phase_paged_slice(torch):
                 t.append(time.perf_counter())
 
             prof, _, complete = traced(torch, step, graph_ops=program.device_ops)
-            (steps if complete else lost).append(
-                {"wall_ms": 1e3 * (t[1] - t[0]), "prof": prof,
-                 "launches": read_counts()["w4a8_matmul"] - before})
+            if complete:
+                steps.append({"wall_ms": 1e3 * (t[1] - t[0]), "prof": prof,
+                              "launches": read_counts()["w4a8_matmul"] - before})
+            else:
+                gaps, graph_records = record_gaps(prof.profiler.kineto_results.events())
+                lost.append({"launches_lost": gaps, "graph_records": graph_records,
+                             "graph_ops": program.device_ops})
         buf = bufs[0].copy()
         for t, b in enumerate(bufs):
             buf[:, t] = b[:, 0]
         return buf
 
     prof_eng._chunk = profiled
-    prof_eng.generate(prompts, 3 * PAGED_CHUNK + 2)
-    check(len(steps) == PAGED_CHUNK, f"{len(steps)} of {len(steps) + len(lost)} profiled decode "
-                                     f"steps had complete traces, {PAGED_CHUNK} needed")
+    prof_eng.generate(prompts, PAGED_PROFILE_TRIES + 2)
+    for i, g in enumerate(lost[:4]):
+        gaps = g["launches_lost"]
+        where = f"{gaps}" if len(gaps) <= 8 else f"{gaps[:4]} ... {gaps[-2:]}"
+        print(f"[profile] lost trace {i}: {len(gaps)} host launches without a device record, "
+              f"at {where} (launch order; the first {WARMUP} are the opening sleeps); the "
+              f"graph replays' device records {g['graph_records']} of {g['graph_ops']}")
+    if not steps:  # the run goes on: the kernels are held to the counters above
+        print(f"[profile] not measured: the profiler lost device kernel records in all "
+              f"{len(lost)} traced decode steps")
+        return {"a": cmp_a, "runs": runs, "c": cmp_c, "model": model, "profile": None}
+    n = len(steps)
     print(steps[0]["prof"].key_averages().table(sort_by="self_cuda_time_total", row_limit=12))
     wall = sum(st["wall_ms"] for st in steps)
     launches = sum(st["launches"] for st in steps)
@@ -2112,12 +2134,12 @@ def phase_paged_slice(torch):
         b1 += sum(e.self_device_time_total for e in kernels if "w4a8_kernel" in e.key) / 1e3
         seen += w4a8_seen(kernels)
     check(b2 > 0 and b1 > 0, "the profiler saw no B2 or B1 kernel in the profiled decode steps")
-    check(seen == launches == 7 * cfg.n_layers * PAGED_CHUNK,
-          f"the profiler saw {seen} w4a8 kernels in {PAGED_CHUNK} replayed decode steps, the "
+    check(seen == launches == 7 * cfg.n_layers * n,
+          f"the profiler saw {seen} w4a8 kernels in {n} replayed decode steps, the "
           f"launch counter {launches}")
-    check(b2_calls == cfg.n_layers * PAGED_CHUNK,
-          f"the profiler saw {b2_calls} B2 kernels in {PAGED_CHUNK} replayed decode steps")
-    print(f"[profile] {PAGED_CHUNK} replayed decode steps, {PAGED_SLOTS} slots, a trace each "
+    check(b2_calls == cfg.n_layers * n,
+          f"the profiler saw {b2_calls} B2 kernels in {n} replayed decode steps")
+    print(f"[profile] {n} replayed decode steps, {PAGED_SLOTS} slots, a trace each "
           f"({len(lost)} more steps' traces lost device records and are not counted): "
           f"{wall:.3f} ms on the host clock, device busy {busy:.3f} ms "
           f"({100 * busy / wall:.1f}%), B2 {b2:.3f} ms in {b2_calls} launches "
@@ -2125,7 +2147,7 @@ def phase_paged_slice(torch):
           f"by name (launch counter {launches})")
     return {"a": cmp_a, "runs": runs, "c": cmp_c, "model": model,
             "profile": {"steps_wall_ms": wall, "busy_ms": busy, "b2_ms": b2,
-                        "b2_launches": b2_calls, "b1_ms": b1, "steps": PAGED_CHUNK,
+                        "b2_launches": b2_calls, "b1_ms": b1, "steps": n,
                         "steps_lost": len(lost)}}
 
 

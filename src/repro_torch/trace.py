@@ -20,12 +20,29 @@ from collections import Counter
 
 import torch
 
-#: short device sleeps that open every trace before the traced work
-WARMUP = 16
+#: short device sleeps that open every trace before the traced work (16
+#: were too few late in a long process, where one run of ``chip_smoke.py``
+#: lost the records of 22 of 24 traced decode steps)
+WARMUP = 64
 #: kernel launch records of the CUDA runtime and driver APIs
 LAUNCH_RECORD = re.compile(r"cu(da)?LaunchKernel")
 #: CUDA graph launch records of the same
 GRAPH_RECORD = re.compile(r"cu(da)?GraphLaunch")
+
+
+def record_gaps(events) -> tuple[list[int], list[int]]:
+    """Where a trace lost device records: the indices, in launch order, of
+    the host launch records of ``events`` (kineto events) that have no
+    device record with their correlation id, and for each graph launch the
+    number of device records under its correlation id."""
+    cpu = torch.autograd.DeviceType.CPU
+    launches = sorted((e.start_ns(), e.correlation_id()) for e in events
+                      if e.device_type() == cpu and LAUNCH_RECORD.match(e.name()))
+    graphs = [e.correlation_id() for e in events
+              if e.device_type() == cpu and GRAPH_RECORD.match(e.name())]
+    recorded = Counter(e.correlation_id() for e in events if e.device_type() != cpu)
+    return ([i for i, (_, c) in enumerate(launches) if not recorded[c]],
+            [recorded[c] for c in graphs])
 
 
 def launches_recorded(events, skip: int = WARMUP, graph_ops: int | None = None) -> bool:
@@ -34,14 +51,8 @@ def launches_recorded(events, skip: int = WARMUP, graph_ops: int | None = None) 
     ``skip`` has a device record with its correlation id, and every graph
     launch has ``graph_ops`` of them (a trace with a graph launch and no
     ``graph_ops`` is not complete)."""
-    cpu = torch.autograd.DeviceType.CPU
-    launches = sorted((e.start_ns(), e.correlation_id()) for e in events
-                      if e.device_type() == cpu and LAUNCH_RECORD.match(e.name()))
-    graphs = [e.correlation_id() for e in events
-              if e.device_type() == cpu and GRAPH_RECORD.match(e.name())]
-    recorded = Counter(e.correlation_id() for e in events if e.device_type() != cpu)
-    return (all(recorded[c] for _, c in launches[skip:])
-            and all(recorded[c] == graph_ops for c in graphs))
+    lost, graph_records = record_gaps(events)
+    return all(i < skip for i in lost) and all(n == graph_ops for n in graph_records)
 
 
 def replay_spans_ns(events) -> list[int]:
@@ -68,5 +79,5 @@ def traced_kernels(events):
             and "spin_kernel" not in e.key]
 
 
-__all__ = ["GRAPH_RECORD", "LAUNCH_RECORD", "WARMUP", "launches_recorded", "replay_spans_ns",
-           "traced_kernels"]
+__all__ = ["GRAPH_RECORD", "LAUNCH_RECORD", "WARMUP", "launches_recorded", "record_gaps",
+           "replay_spans_ns", "traced_kernels"]

@@ -16,7 +16,13 @@ import pytest
 import torch
 
 from repro_torch.serving.graphs import COUNTERS, count_kernels
-from repro_torch.trace import WARMUP, launches_recorded, replay_spans_ns, traced_kernels
+from repro_torch.trace import (
+    WARMUP,
+    launches_recorded,
+    record_gaps,
+    replay_spans_ns,
+    traced_kernels,
+)
 
 
 def complete_trace(fn, attempts: int = 4, graph_ops: int | None = None):
@@ -113,6 +119,17 @@ def test_graph_replay_with_lost_or_unknown_nodes_is_incomplete(recorded, graph_o
     """A replay that lost a node's record, or one whose graph's node count
     the caller did not give, leaves the trace incomplete."""
     assert not launches_recorded(_graph_trace(recorded), graph_ops=graph_ops)
+
+
+@pytest.mark.parametrize("lost", [(), (0, 3), (WARMUP + 1,), tuple(range(WARMUP + 4))])
+def test_record_gaps_name_the_lost_launches(lost):
+    """The gaps are the launches without a device record, in launch order,
+    whatever the order of the records."""
+    assert record_gaps(_trace(WARMUP + 4, lost=lost)) == (sorted(lost), [])
+
+
+def test_record_gaps_count_each_replays_records():
+    assert record_gaps(_graph_trace(37)) == ([], [37])
 
 
 def test_traced_kernels_keep_kernels_and_copies():
