@@ -330,7 +330,28 @@ result unless every phase passed):
    times them in its timed loop beside the plain versions and SDPA (rows
    of B2's and B3's ``shapes``, each naming its ``arch``). The kernels
    line gains ``training_launches`` on B1, B2, B3 and B5 and
-   ``registry_sites`` on B1.
+   ``registry_sites`` on B1;
+16. mesh-sharded paged serving over ``torch.distributed``. (a) The
+   production backend at world size 1: NCCL, ``parse_mesh_spec("auto")``
+   (one rank on the data axis), smollm-360m bf16 RTN at full width through
+   ``PagedEngine(mesh=)`` with the reference attention (the mesh rule) and
+   its decode step captured with the collectives inside, phase 7's trace
+   with float and int8 pages: B1 exactly 224 a forward, B2/B3 none,
+   streams and digest identical to a one-device engine with the same
+   attention (size-1 collectives are identities), the collectives a step
+   issues, and a replayed chunk of each in turns. (b) Two ranks sharing
+   the card over gloo (NCCL refuses two ranks on one device), mesh (1, 2),
+   phi4-mini-3.8b bf16 RTN at full width (24/8 heads, d_ff 8192, vocab
+   200064: q/k/v, wg/wu and the head shard N, wo/wd K): B1 bit-equal to
+   its plain version at every sharded (K, N), checked here before the
+   ranks start (this script with ``--mesh-rank``; the kernels are built
+   in this process first), then each rank serves phase 7's trace with
+   float and int8 pages, eagerly (gloo stages through the host):
+   tie-limited against a one-device engine on the card, the logits'
+   largest relative error, digests equal on both ranks, each rank's
+   placed weights and peak memory against half the packed weight bytes,
+   the eager step time. The kernels line gains ``mesh_launches`` and
+   ``mesh_sites`` on B1.
 
 Before driving a path, every launch counter is set to 0, and the counts are
 read just after it. Phase 3 ends with a ``torch.profiler`` breakdown of one
@@ -343,6 +364,7 @@ the device JSON ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import gc
+import hashlib
 import json
 import math
 import os
@@ -4876,6 +4898,334 @@ def phase_training_slice(torch, smi: str) -> dict:
             "b5": {"trained_checkpoint": served["b5"], "trained_rung": rung["b5"]}}
 
 
+MESH_A_ARCH, MESH_B_ARCH = "smollm-360m", "phi4-mini-3.8b"
+#: a phase-16 engine's block-table row: the trace's longest request (300 +
+#: 32 tokens) needs 6 pages, and the reference attention (the mesh rule)
+#: gathers a slot's whole row, 512 pages at phi4's 32768-token default
+MESH_MAX_PAGES = 8
+#: seconds a phase-16 rank may take before the phase fails (and a gloo
+#: collective waits for its peer)
+MESH_RANK_TIMEOUT = 420
+
+
+def mesh_driven(torch, cfg, engine, reqs, tag: str) -> dict:
+    """Serve ``reqs`` on a mesh (or its one-device twin) engine with the
+    launch counters set to 0 just before and read just after: B1 exactly
+    the model's sites a forward, B2/B3 none (the reference attention, the
+    mesh rule), every request complete and every page back on the free
+    list. Returns the run's figures."""
+    before = program_counts(engine)
+    reset_counts()
+    res, wall, spent = serve_timed(torch, engine, reqs)
+    counts = read_counts()
+    ran = {k: v - before[k] for k, v in program_counts(engine).items()}
+    forwards = ran["steps"] + ran["admits"] + ran["suffix"] + ran["batch"] + ran["chunks"]
+    sites = sites_per_forward(cfg)
+    check(counts["w4a8_matmul"] == sites * forwards and sum(counts.values()) ==
+          counts["w4a8_matmul"], f"{tag}: launches {counts} for {forwards} forwards of "
+                                 f"{sites} B1 sites, and nothing else")
+    for r in reqs:
+        check(res[r.uid].size == r.prompt.size + r.max_new, f"{tag}: request {r.uid} incomplete")
+    pool = engine.pool_state
+    check(pool.free_top == 0 and not pool.page_rc.any()
+          and engine.cache["free_list"].cpu().tolist() == pool.free_list.tolist(),
+          f"{tag}: pages not all back on the free list")
+    return {"res": res, "counts": counts, "ran": ran, "wall": wall,
+            "step_ms": 1e3 * spent["chunk"] / max(ran["steps"], 1),
+            "admit_ms_per_request": 1e3 * (spent["admit"] + spent["batch"]) / len(reqs),
+            "digest": pool.digest()}
+
+
+def mesh_paged_config(kv: str):
+    from repro_torch.serving import PagedConfig
+
+    return PagedConfig(block_size=PAGED_BLOCK, num_blocks=PAGED_BLOCKS,
+                       max_concurrency=PAGED_SLOTS, max_pages_per_seq=MESH_MAX_PAGES,
+                       chunk_max=PAGED_CHUNK, kv_dtype=kv, attn_impl="reference")
+
+
+def mesh_world_one(torch, smi: str, root: str) -> dict:
+    """(a) NCCL at world size 1: ``parse_mesh_spec("auto")`` (one rank on
+    the data axis), smollm-360m bf16 RTN at full width, phase 7's trace
+    with float and int8 pages through the mesh engine, its decode step
+    captured with the collectives inside, against a one-device engine
+    with the same attention on the same trace: identical streams and
+    digests (size-1 collectives are identities); then a decode chunk of
+    each, replayed in turns."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import parse_mesh_spec
+    from repro_torch.models import transformer as T
+    from repro_torch.quant.serve_packed import pack_decode_params
+    from repro_torch.runtime import collectives
+    from repro_torch.serving import PagedEngine, Request, SamplerConfig
+
+    mesh = parse_mesh_spec("auto", device="cuda:0", init_method=f"file://{root}/rdv_a",
+                           rank=0, world_size=1)
+    check(mesh.backend == "nccl" and mesh.shape == {"data": 1},
+          f"phase 16 (a): mesh {mesh.shape} over {mesh.backend}")
+    greedy = SamplerConfig(temperature=0.0)
+    cfg = get_config(MESH_A_ARCH)
+    model = pack_decode_params(T.init_model(cfg, 0, device="cuda"))
+    specs, _ = trace_specs(cfg)
+    reqs = [Request(uid=u, prompt=p, max_new=n) for u, p, n in specs]
+    prompts = [p[:PROMPT] for _, p, _ in specs if p.size >= PROMPT]
+    out = {}
+    try:
+        for kv in ("act", "int8"):
+            one = PagedEngine(model, cfg, mesh_paged_config(kv), greedy, device="cuda")
+            meshed = PagedEngine(model, cfg, mesh_paged_config(kv), greedy, device="cuda",
+                                 mesh=mesh)
+            check(meshed.step_mode == "captured", f"(a) {kv}: step mode {meshed.step_mode}")
+            warm_paged(one, specs[0][1])
+            warm_paged(meshed, specs[0][1])  # the capture, collectives inside
+            # the step a replay runs, eagerly once: the collectives it issues
+            collectives.reset_counts()
+            with torch.inference_mode():
+                meshed._chunk(1, eager=True)
+            step_calls, step_bytes = collectives.calls, collectives.nbytes
+            nccl = sum("nccl" in n.lower() for n in meshed._program.names)
+            run_one = mesh_driven(torch, cfg, one, reqs, f"(a) {kv} one device")
+            run_mesh = mesh_driven(torch, cfg, meshed, reqs, f"(a) {kv} mesh")
+            same = all(np.array_equal(run_mesh["res"][u], run_one["res"][u]) for u, _, _ in specs)
+            check(same, f"(a) {kv}: the world-size-1 mesh engine's streams differ from the "
+                        f"one-device engine's")
+            check(run_mesh["digest"] == run_one["digest"], f"(a) {kv}: digests differ")
+            turns = mesh_step_turns(torch, {"mesh": meshed, "one device": one}, prompts)
+            out[kv] = {"counts": run_mesh["counts"], "one_counts": run_one["counts"],
+                       "ran": run_mesh["ran"], "turns": turns, "step_calls": step_calls,
+                       "step_bytes": step_bytes, "nccl_nodes": nccl,
+                       "capture_ms": 1e3 * meshed._program.capture_s,
+                       "device_ops": meshed._program.device_ops,
+                       "one_device_ops": one._program.device_ops,
+                       "wall": run_mesh["wall"], "one_wall": run_one["wall"]}
+            print(f"[mesh] (a) {MESH_A_ARCH} {kv} pages, NCCL world size 1, mesh "
+                  f"{mesh.shape}: phase 7's trace, streams and digest identical to the "
+                  f"one-device engine (reference attention both); B1 {run_mesh['counts']['w4a8_matmul']}"
+                  f" ({sites_per_forward(cfg)} a forward), B2/B3 0; decode step captured, "
+                  f"{step_calls} collectives of {step_bytes} bytes a step inside it, "
+                  f"{nccl} NCCL kernel nodes ({meshed._program.device_ops} device operations "
+                  f"against the one-device step's {one._program.device_ops}); replayed step mesh "
+                  f"{fmt_spread(turns['mesh'])}, one device {fmt_spread(turns['one device'])}; "
+                  f"serve wall {run_mesh['wall']:.3f} s against {run_one['wall']:.3f} s; {smi}")
+            del one, meshed
+            gc.collect()
+    finally:
+        dist.destroy_process_group()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_step_turns(torch, engines: dict, prompts, runs: int = 6) -> dict:
+    """Per-step host-clock time of a decode chunk of PAGED_CHUNK replayed
+    steps over PAGED_SLOTS live slots of each engine, in turns."""
+    import numpy as np
+    from repro_torch.models.layers import use_packed_backend
+    from repro_torch.serving import Request
+
+    with torch.inference_mode():
+        for engine in engines.values():
+            sched = engine._make_scheduler()
+            for b in range(PAGED_SLOTS):
+                sched.submit(Request(uid=20_000 + b, prompt=np.asarray(prompts[b % len(prompts)]),
+                                     max_new=2 * runs * PAGED_CHUNK + 1))
+            with use_packed_backend(engine.backend):
+                adm = sched.try_admit()
+                while adm is not None:
+                    engine._do_admit(adm)
+                    adm = sched.try_admit()
+            check(len(sched.active) == PAGED_SLOTS, "the timing slots were not all admitted")
+        return in_turns(torch, {n: (lambda e=e: e._chunk(PAGED_CHUNK))
+                                for n, e in engines.items()}, runs=runs, scale=PAGED_CHUNK)
+
+
+def mesh_local_shapes(cfg, shape) -> list[tuple[int, int]]:
+    """The distinct local (K, N) of a model's packed sites on a mesh under
+    the serving rules (what one rank's B1 launches take)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import sharding as S
+
+    model = T.abstract_params(cfg)
+    mesh = make_mesh(shape, abstract=True)
+    specs = S.param_shardings(model, mesh, S.SERVING_QUANT_RULES)
+    out = []
+    for name, t in model.named_parameters():
+        if t.dim() != 2 or not name.startswith("layers."):
+            continue
+        k, n = t.shape
+        ks, ns = specs[name]
+        out.append((k // mesh.axes_size(S.spec_axes(ks)), n // mesh.axes_size(S.spec_axes(ns))))
+    return list(dict.fromkeys(out))
+
+
+def mesh_two_ranks(torch, smi: str, root: str) -> dict:
+    """(b) two ranks sharing the card over gloo, mesh (1, 2): B1 bit-equal
+    at every sharded (K, N) of phi4-mini-3.8b (here, before the ranks
+    start: the kernels are built in this process, and the build's lock
+    holds within a process only); then the ranks (this script with
+    ``--mesh-rank``) serve phase 7's trace with float and int8 pages at
+    full width, their streams tie-limited against a one-device engine on
+    the card and their digests equal."""
+    cfg_shapes = mesh_local_shapes(_config(MESH_B_ARCH), (1, 2))
+    b1_rows = b1_site_check(torch, f"{MESH_B_ARCH} (1, 2) shard", cfg_shapes, smi, tag="mesh")
+    gc.collect()
+    torch.cuda.empty_cache()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
+                               "--mesh-root", root], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            try:
+                logs.append(p.communicate(timeout=MESH_RANK_TIMEOUT)[0])
+            except subprocess.TimeoutExpired:
+                p.kill()
+                logs.append(p.communicate()[0] + "\n(timed out)")
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        for line in log.splitlines():
+            if line.startswith("[mesh]"):
+                print(line)
+        check(p.returncode == 0, f"phase 16 (b): rank {r} failed (rc {p.returncode}):\n"
+                                 f"{log[-4000:]}")
+    ranks = [json.load(open(os.path.join(root, f"rank{r}.json"))) for r in range(2)]
+    for kv in ("act", "int8"):
+        check(ranks[0][kv]["digest"] == ranks[1][kv]["digest"], f"(b) {kv}: digests differ")
+    return {"b1": b1_rows, "ranks": ranks}
+
+
+def _config(arch):
+    from repro_torch.configs import get_config
+
+    return get_config(arch)
+
+
+def mesh_rank_main(argv) -> int:
+    """One rank of phase 16 (b): ``--mesh-rank R --mesh-root DIR``."""
+    import numpy as np
+    import torch
+
+    rank = int(argv[argv.index("--mesh-rank") + 1])
+    root = argv[argv.index("--mesh-root") + 1]
+    sys.path.insert(0, SRC)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.quant.serve_packed import pack_decode_params, packed_weight_bytes
+    from repro_torch.runtime.collectives import gather_dim
+    from repro_torch.serving import PagedEngine, Request, SamplerConfig
+
+    t0 = time.perf_counter()
+    mesh = make_mesh((1, 2), device="cuda:0", backend="gloo",
+                     init_method=f"file://{root}/rdv_b", rank=rank, world_size=2,
+                     timeout=MESH_RANK_TIMEOUT)
+    greedy = SamplerConfig(temperature=0.0)
+    cfg = _config(MESH_B_ARCH)
+    model = pack_decode_params(T.init_model(cfg, 0, device="cuda"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    engines = {kv: PagedEngine(model, cfg, mesh_paged_config(kv), greedy, device="cuda:0",
+                               mesh=mesh) for kv in ("act", "int8")}
+    placed = sum(t.numel() * t.element_size() for t in engines["act"].model.state_dict().values())
+    half = packed_weight_bytes(cfg)["packed_bytes"] / 2
+    if rank:
+        del model  # rank 0 keeps the full model for its one-device engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    setup_s = time.perf_counter() - t0
+    specs, _ = trace_specs(cfg)
+    reqs = [Request(uid=u, prompt=p, max_new=n) for u, p, n in specs]
+    out = {"setup_s": setup_s, "placed_bytes": placed, "half_packed_bytes": half}
+    for kv, meshed in engines.items():
+        check(meshed.step_mode == "eager (gloo)", f"(b) {kv}: step mode {meshed.step_mode}")
+        torch.cuda.reset_peak_memory_stats()
+        with ReplayRecorder(meshed) as rec:
+            meshed.serve([Request(uid=10_000, prompt=specs[0][1][:8], max_new=2)])
+            run = mesh_driven(torch, cfg, meshed, reqs, f"(b) {kv} rank {rank}")
+        peak = torch.cuda.max_memory_allocated()
+        h = hashlib.blake2b(digest_size=16)
+        for u, _, _ in specs:
+            h.update(np.asarray(run["res"][u], np.int32).tobytes())
+        h.update(run["digest"].encode())
+        mine = torch.frombuffer(bytearray(h.digest()), dtype=torch.uint8).to("cuda:0")
+        every = gather_dim(mine[None], 0, mesh, mesh.axis_names).cpu()
+        check(all(torch.equal(every[r], every[0]) for r in range(2)),
+              f"(b) {kv}: the ranks' digests differ")
+        rec_out = {"counts": run["counts"], "ran": run["ran"], "step_ms": run["step_ms"],
+                   "admit_ms_per_request": run["admit_ms_per_request"], "wall": run["wall"],
+                   "peak_mib": peak / 2**20, "digest": h.hexdigest()}
+        if rank == 0:
+            one = PagedEngine(model, cfg, mesh_paged_config(kv), greedy, device="cuda:0")
+            with ReplayRecorder(one) as rec_one:
+                warm_paged(one, specs[0][1])
+                run_one = mesh_driven(torch, cfg, one, reqs, f"(b) {kv} one device")
+            tie = tie_vs(specs, run["res"], rec.rows, run_one["res"], rec_one.rows, cfg.vocab)
+            # the logits of each step whose history both runs share
+            same = []
+            for u, p, n in specs:
+                a, b = run["res"][u][p.size:], run_one["res"][u][p.size:]
+                first = next((t for t in range(n) if a[t] != b[t]), n - 1)
+                same += [(u, t) for t in range(first + 1)]
+            rel = max(((rec.rows[k] - rec_one.rows[k]).abs().max()
+                       / rec_one.rows[k].abs().max()).item() for k in same)
+            rec_out.update({"tie": {k: v for k, v in tie.items() if k != "partings"},
+                            "partings": tie["partings"], "logits_max_rel_err": rel,
+                            "one_step_ms": run_one["step_ms"], "one_wall": run_one["wall"]})
+            print(f"[mesh] (b) {MESH_B_ARCH} {kv} pages, 2 ranks sharing the card over gloo, "
+                  f"mesh (1, 2): phase 7's trace, {tie['agree']} / {tie['total']} tokens "
+                  f"agree with the one-device engine (tie band {tie['band']:.4f}, partings "
+                  f"{tie['partings']}), logits' largest relative error {rel:.3e} over the steps "
+                  f"whose history both share; B1 "
+                  f"{run['counts']['w4a8_matmul']} a rank ({sites_per_forward(cfg)} a forward); "
+                  f"eager step {run['step_ms']:.3f} ms (gloo stages every collective through "
+                  f"the host: not an NCCL figure) against the one-device captured step "
+                  f"{run_one['step_ms']:.3f} ms; digests equal on both ranks; {_smi()}")
+            del one
+        print(f"[mesh] (b) rank {rank} {kv}: placed weights {placed / 2**20:.1f} MiB against "
+              f"half the packed weight bytes {half / 2**20:.1f} MiB; peak during the serve "
+              f"{peak / 2**20:.1f} MiB{' (this rank also holds the full model)' if rank == 0 else ''}"
+              f"; serve wall {run['wall']:.3f} s; {_smi()}")
+        out[kv] = rec_out
+        gc.collect()
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+def _smi() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          check=True, capture_output=True, text=True).stdout.strip()
+
+
+def phase_mesh_slice(torch, smi: str) -> dict:
+    """Phase 16: mesh-sharded paged serving over torch.distributed: (a)
+    NCCL at world size 1, (b) two gloo ranks sharing the card."""
+    t0 = time.perf_counter()
+    root = os.path.join(ROOT, "build", "phase16")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    a = mesh_world_one(torch, smi, root)
+    t_a = time.perf_counter() - t0
+    b = mesh_two_ranks(torch, smi, root)
+    wall_s = time.perf_counter() - t0
+    print(f"[mesh] phase 16 wall {wall_s:.3f} s ((a) {t_a:.3f} s, (b) {wall_s - t_a:.3f} s)")
+    return {"a": a, "b": b, "wall_s": wall_s,
+            "b1": {"a": {kv: a[kv]["counts"]["w4a8_matmul"] for kv in a},
+                   "b": [{kv: r[kv]["counts"]["w4a8_matmul"] for kv in ("act", "int8")}
+                         for r in b["ranks"]]}}
+
+
 def expert_record(name, rows, err, launches, ms_key, plain_key, replaces, pallas):
     """One record for B1e or B4e: times summed over the 3 expert sites of
     one granite MoE layer at decode (M = 4, E = 40); the same at M = 64 (a
@@ -5099,6 +5449,7 @@ def main() -> int:
     observe = phase_observe_slice(torch, smi, search, paged)
     recurrent = phase_recurrent_slice(torch, smi)
     training = phase_training_slice(torch, smi)
+    mesh = phase_mesh_slice(torch, smi)
     records = [
         kernel_record(rows, max_err, launches, host),
         paged_record("paged_decode_attention", paged_rows["float"], paged_err["float"],
@@ -5143,6 +5494,10 @@ def main() -> int:
     for rec, key in zip(records[:3] + records[4:5], ("b1", "b2", "b3", "b5")):
         rec["training_launches"] = training[key]
     records[0]["registry_sites"] = {r["arch"]: r["b1_sites"] for r in training["registry"]}
+    # phase 16's launches: B1 on the world-size-1 NCCL mesh (a) and on each
+    # of the two gloo ranks (b), and B1 at phi4-mini-3.8b's sharded sites
+    records[0]["mesh_launches"] = mesh["b1"]
+    records[0]["mesh_sites"] = mesh["b"]["b1"]
     print(json.dumps({"kernels": records}))
     # one card: every phase runs on cuda:0
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -5152,4 +5507,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--mesh-rank" in sys.argv:
+        sys.exit(mesh_rank_main(sys.argv))
     sys.exit(main())

@@ -3,8 +3,8 @@ the reference's ten architectures in its order (``ARCH_IDS``), each with
 its published ``config()`` and its reduced ``smoke()``, and the paper's
 ``tiny-*`` rungs. llama3-405b, dbrx-132b, internvl2-76b and
 jamba-1.5-large-398b do not fit one card; the port runs them as smoke
-configs (and the Jamba-width Mamba block). ``configs/shapes.py``, the dry
-run's shape stand-ins, is not ported."""
+configs (and the Jamba-width Mamba block). ``configs/shapes.py`` holds the
+dry run's shape stand-ins (meta tensors)."""
 
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ from . import (
     xlstm_350m,
 )
 from .paper import PAPER_MODELS
+from .shapes import SHAPES, ShapeSpec, applicable, batch_specs, cache_specs
 
 _MODULES = (
     musicgen_medium,
@@ -58,4 +59,5 @@ def get_smoke(arch: str) -> ModelConfig:
     raise KeyError(f"unknown arch {arch!r}")
 
 
-__all__ = ["ARCH_IDS", "REGISTRY", "get_config", "get_smoke"]
+__all__ = ["ARCH_IDS", "REGISTRY", "SHAPES", "ShapeSpec", "applicable", "batch_specs",
+           "cache_specs", "get_config", "get_smoke"]

@@ -7,7 +7,7 @@ from __future__ import annotations
 import torch
 
 
-def quantize_activations(x: torch.Tensor, *, per_expert: bool = False):
+def quantize_activations(x: torch.Tensor, *, per_expert: bool = False, range_reduce=None):
     """Dynamic per-tensor asymmetric 8-bit activation quantization (the A8
     half of W4A8 when no calibrated activation quantizer ships with the
     artifact). Returns (codes uint8, scale f32, zp f32), the scale and zero
@@ -17,7 +17,12 @@ def quantize_activations(x: torch.Tensor, *, per_expert: bool = False):
     slice is quantized on its own, as the reference's quantizer is under
     ``vmap``: its min and max include the capacity rows the dispatch left
     at zero, and an expert that got no token takes the 1e-8 scale floor.
-    The scale and zero point are then (E,)."""
+    The scale and zero point are then (E,).
+
+    ``range_reduce`` takes the per-tensor range as the f32 pair (max,
+    -min) and returns it reduced over whatever else holds parts of the
+    tensor (a K-sharded site's ranks), so every part quantizes with the
+    whole tensor's scale and zero point."""
     xf = x.to(torch.float32)
     if per_expert:
         flat = xf.reshape(xf.shape[0], -1)
@@ -26,6 +31,9 @@ def quantize_activations(x: torch.Tensor, *, per_expert: bool = False):
     else:
         lo = torch.clamp(torch.amin(xf), max=0.0)
         hi = torch.clamp(torch.amax(xf), min=0.0)
+        if range_reduce is not None:
+            both = range_reduce(torch.stack([hi, -lo]))
+            hi, lo = both[0], -both[1]
     scale = torch.clamp((hi - lo) / 255.0, min=1e-8)
     zp = torch.clamp(torch.round(-lo / scale), 0.0, 255.0)
     shape = (-1,) + (1,) * (xf.dim() - 1) if per_expert else ()

@@ -64,17 +64,30 @@ the prefix cache and batched or chunked admission on such patterns.
 checkpoint under DIR (written by either package's ``launch.train``) over
 the seeded init, as the reference does, before ``--packed`` packs them or
 ``--artifact`` loads its sites over them (the artifact carries no
-embedding). ``--mesh`` is accepted and refused: multi-device serving is
-not ported.
+embedding).
+
+``--mesh dp,tp`` (with ``--paged``) serves the paged engine
+tensor-parallel over a (data, model) mesh of ``torch.distributed`` ranks,
+one process a device: kv-head-sharded pools, replicated admin leaves, the
+reference attention on each rank's heads; ``dp * tp`` must equal the world
+size, ``auto`` spreads every rank over ``data``. Rank ``r`` runs on
+``cuda:{LOCAL_RANK}`` over NCCL (the decode step captured with its
+collectives inside), or on the CPU over gloo. Only rank 0 prints the timing
+and ``sample:`` lines, which carry the tokens of the one-device run::
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.serve --arch smollm-360m \
+        --packed --paged --block-size 64 --mesh 1,2
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
+import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke
@@ -95,10 +108,6 @@ from repro_torch.serving import (
     SchedulerPolicy,
 )
 from repro_torch.serving.scheduler import blocks_for_budget, kv_pool_bytes
-
-#: flags of the reference launcher that are not ported
-_UNPORTED = {"--mesh": "multi-device serving"}
-
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
@@ -163,15 +172,24 @@ def main(argv=None):
                          "clip counts and per-site / per-head accumulator watermarks, "
                          "reported after generation; the decode step gains only the taps "
                          "(structurally asserted)")
-    for flag, what in _UNPORTED.items():
-        ap.add_argument(flag, nargs="*", default=None,
-                        help=f"not yet ported ({what})")
+    ap.add_argument("--mesh", type=str, default=None, metavar="DP,TP",
+                    help="serve tensor-parallel over a (data, model) mesh of torch.distributed "
+                         "ranks (--paged): 'dp,tp' whose product equals the world size, or "
+                         "'auto' for every rank data-parallel")
     args = ap.parse_args(argv)
-    for flag in _UNPORTED:
-        if getattr(args, flag[2:].replace("-", "_")) is not None:
-            raise SystemExit(f"{flag} is not yet ported: {_UNPORTED[flag]}")
+    if args.mesh is not None and not args.paged:
+        raise SystemExit("--mesh applies to the paged engine only (add --paged)")
 
     device = resolve_device(args.device)
+    mesh = None
+    if args.mesh is not None:
+        from repro_torch.launch.mesh import parse_mesh_spec
+
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        mesh = parse_mesh_spec(args.mesh, device=device)
+        print(f"[serve] mesh: {mesh.shape} over {mesh.size} ranks ({mesh.backend}), this rank "
+              f"{mesh.rank} at {mesh.coords} on {device}")
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
     if args.float32:
         from repro_torch.launch.search import f32_config
@@ -212,7 +230,7 @@ def main(argv=None):
         if args.host_loop:
             raise SystemExit("--host-loop applies to the fixed-slot engine only")
         engine = _paged_engine(args, model, cfg, sampler, device,
-                               kv_scales=plan.kv if plan is not None else None)
+                               kv_scales=plan.kv if plan is not None else None, mesh=mesh)
         gen = engine.generate
     else:
         engine = GenerationEngine(model, cfg, sampler, device=device,
@@ -224,11 +242,16 @@ def main(argv=None):
     dt = time.perf_counter() - t0
     n_new = out.shape[1] - prompts.shape[1]
     loop = "paged" if args.paged else ("host-loop" if args.host_loop else "device-loop")
-    print(f"[serve] device={device} batch={args.batch} new_tokens={n_new} {loop} "
-          f"{dt:.4f}s  {args.batch * n_new / dt:.1f} tok/s")
-    print("[serve] sample:", out[0, -min(16, out.shape[1]):].tolist())
+    if mesh is None or mesh.rank == 0:
+        print(f"[serve] device={device} batch={args.batch} new_tokens={n_new} {loop} "
+              f"{dt:.4f}s  {args.batch * n_new / dt:.1f} tok/s")
+        print("[serve] sample:", out[0, -min(16, out.shape[1]):].tolist())
     if args.observe:
         _print_observation(engine)
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return out
 
 
@@ -271,7 +294,7 @@ def _validated_plan(args, model, cfg):
     return plan
 
 
-def _paged_engine(args, model, cfg, sampler, device, kv_scales=None) -> PagedEngine:
+def _paged_engine(args, model, cfg, sampler, device, kv_scales=None, mesh=None) -> PagedEngine:
     """The paged engine the flags describe; prints the reference's
     ``[serve] paged engine: ...`` line (pool MB, policy, attention
     datapath)."""
@@ -299,9 +322,11 @@ def _paged_engine(args, model, cfg, sampler, device, kv_scales=None) -> PagedEng
             model, cfg,
             PagedConfig(block_size=args.block_size, num_blocks=num_blocks,
                         max_concurrency=args.max_concurrency, kv_dtype=args.kv_dtype,
-                        prefix_cache=args.prefix_cache, sched=policy),
+                        prefix_cache=args.prefix_cache, sched=policy,
+                        # a mesh runs the reference attention on each rank's heads
+                        attn_impl="auto" if mesh is None else "reference"),
             sampler, device=device, backend=args.packed_backend, kv_scales=kv_scales,
-            observe=args.observe)
+            observe=args.observe, mesh=mesh)
     except ValueError as e:
         raise SystemExit(f"paged engine: {e}") from None
     pool_mb = kv_pool_bytes(cfg, num_blocks, args.block_size, args.kv_dtype) / 2**20
@@ -314,7 +339,8 @@ def _paged_engine(args, model, cfg, sampler, device, kv_scales=None) -> PagedEng
            f"chunk={policy.prefill_chunk} watermark={policy.watermark})")
     print(f"[serve] paged engine: block_size={args.block_size} num_blocks={num_blocks} "
           f"slots={args.max_concurrency} kv_dtype={args.kv_dtype} "
-          f"pool={pool_mb:.2f}MB{pc}{pol}{attn_dp}")
+          f"pool={pool_mb:.2f}MB{pc}{pol}{attn_dp}"
+          f"{f' decode_step={engine.step_mode}' if mesh is not None else ''}")
     return engine
 
 

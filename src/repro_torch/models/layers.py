@@ -5,6 +5,16 @@ matmul dispatch that routes every quantized site onto the W4A8 datapath,
 and the serving observer's taps on it (``attach_observer``,
 ``site_scope``).
 
+Under a mesh (:func:`~repro_torch.runtime.sharding.shard_model`) a site,
+an attention layer and the embedding carry their layouts (``_shard``) and
+hold this rank's slice; the functions here then run on local shards: a
+site's input is relaid to its weight's K layout, a K-sharded site sums its
+ranks' partial products (a packed site its integer accumulators) over the
+K axes, and its output carries its N layout
+(:func:`pmm`'s ``have``/``want``); attention runs on the rank's heads; the
+embedding looks up its rows and sums, the head gathers the vocab. Without
+``_shard`` every function is the single-device one, op for op.
+
 Parameters are ``nn.Module``s: :class:`Linear` (a float (K, N) weight),
 :class:`PackedLinear` (a packed-int4 serving site) and the component
 containers :class:`Norm`, :class:`Attention`, :class:`MLP`,
@@ -43,6 +53,13 @@ from repro_torch.quant.spec import (
     DatapathMismatchError,
     DatapathSpec,
     validate_attn_datapath,
+)
+from repro_torch.runtime.collectives import (
+    all_reduce_max,
+    all_reduce_sum,
+    gather_dim,
+    relayout,
+    shard_range,
 )
 
 from .config import ModelConfig
@@ -114,7 +131,16 @@ class Linear(nn.Module):
         self.register_buffer("bias", bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _add_bias(x @ self.w, self.bias, self.w.dim() == 3)
+        sh = getattr(self, "_shard", None)
+        if sh is None:
+            return _add_bias(x @ self.w, self.bias, self.w.dim() == 3)
+        if sh.k:  # K-sharded: f32 partial products, summed, rounded once
+            y = all_reduce_sum(x.to(torch.float32) @ self.w.to(torch.float32), sh.mesh,
+                               sh.k).to(x.dtype)
+        else:
+            y = x @ self.w
+        bias = None if self.bias is None else relayout(self.bias, -1, sh.bias, sh.n, sh.mesh)
+        return _add_bias(y, bias, False)
 
 
 class PackedLinear(nn.Module):
@@ -197,7 +223,18 @@ def packed_linear(x, leaf: PackedLinear, *, spec: DatapathSpec | None = None,
     from the site's embedded spec; ``spec`` is a request, and one that
     disagrees raises :class:`DatapathMismatchError`. Static activation
     quantizers run when the site ships them; otherwise the dynamic
-    per-tensor quantizer runs."""
+    per-tensor quantizer runs.
+
+    A sharded site (``leaf._shard``, its input already in the K layout)
+    runs on its local codes, and its output holds this rank's N columns. A
+    K-sharded one takes the dynamic quantizer's range over every rank's
+    part of the row (so its codes are the unsharded codes), has the kernel
+    return its integer accumulator alone (``s_w * s_a`` = 1, correction 0:
+    the epilogue gives ``float(acc)``), sums those over the K axes and
+    applies the unsharded epilogue ``(acc - zp * col_sums) * s_w * s_a`` in
+    the kernel's order, then the bias: the output is the unsharded site's
+    bit for bit while every partial and their sum stay below 2^24 in
+    magnitude (a certified site's do where K / T * 2^(P_I - 1) < 2^24)."""
     embedded = leaf.spec
     if spec is not None and embedded is not None:
         embedded.require_matches(spec, context="packed_linear")
@@ -222,47 +259,68 @@ def packed_linear(x, leaf: PackedLinear, *, spec: DatapathSpec | None = None,
     else:
         *lead, k = x.shape
         x2 = x.reshape(-1, k)
+    sh = getattr(leaf, "_shard", None)
+    k_sharded = sh is not None and bool(sh.k)
     if resolved.static_act and leaf.act_scale is not None:
         codes, act_scale, act_zp = _static_act_codes(x2, leaf, resolved)
     else:
-        codes, act_scale, act_zp = quantize_activations(x2, per_expert=stacked)
+        codes, act_scale, act_zp = quantize_activations(
+            x2, per_expert=stacked,
+            range_reduce=(lambda r: all_reduce_max(r, sh.mesh, sh.k)) if k_sharded else None)
     col_sums = leaf.col_sums
     if col_sums is None:  # legacy artifact without the pack-time term
         col_sums = site_codes(leaf).to(torch.int32).sum(dim=-2)
+    scale, bias = leaf.scale, leaf.bias
+    if sh is not None:
+        col_sums = relayout(col_sums, -1, sh.col_sums, sh.n, sh.mesh)
+        scale = relayout(scale, -1, sh.scale, sh.n, sh.mesh)
+        bias = None if bias is None else relayout(bias, -1, sh.bias, sh.n, sh.mesh)
     if leaf.meta is not None:
         weights = (leaf.packed, leaf.meta)
         matmul = w4a8_sparse_expert_matmul if stacked else w4a8_sparse_decode_matmul
     else:
         weights = (leaf.packed,)
         matmul = w4a8_expert_matmul if stacked else w4a8_decode_matmul
+    kernel_args = (scale.to(torch.float32), col_sums, act_scale, act_zp)
+    if k_sharded:  # the accumulator alone
+        kernel_args = (torch.ones_like(kernel_args[0]), col_sums, 1.0, 0.0)
     y = matmul(
         codes,
         *weights,
-        leaf.scale.to(torch.float32),  # (1, N), or (E, 1, N): the wrappers take either
-        col_sums,
-        act_scale,
-        act_zp,
+        *kernel_args,  # scale (1, N), or (E, 1, N): the wrappers take either
         **datapath_kernel_args(resolved),
         assert_inner=assert_inner,
-        out_dtype=x.dtype,
+        out_dtype=torch.float32 if k_sharded else x.dtype,
         reference=(backend == "reference"),
     )
+    if k_sharded:
+        acc = all_reduce_sum(y, sh.mesh, sh.k)
+        corr = col_sums.reshape(-1).to(torch.float32) * act_zp
+        sw = scale.reshape(-1).to(torch.float32) * act_scale
+        y = ((acc - corr) * sw).to(x.dtype)
     if not stacked:
         y = y.reshape(*lead, y.shape[-1])
-    return _add_bias(y, leaf.bias, stacked)
+    return _add_bias(y, bias, stacked)
 
 
-def pmm(p: nn.Module, name: str, x):
+def pmm(p: nn.Module, name: str, x, have=(), want=()):
     """``x @ p.<name>`` through whichever site module sits there: the seam
     every quantizable-site matmul goes through, and where the serving
-    observer taps a packed site's input."""
+    observer taps a packed site's input. On a sharded site ``x``'s last
+    dim is in layout ``have`` and is relaid to the weight's K layout, and
+    the output is relaid from the weight's N layout to ``want``
+    (replicated by default); unsharded sites ignore both."""
     site = getattr(p, name)
     obs = active_observer()
     if obs is not None and isinstance(site, PackedLinear) and not site.stacked:
         scope = getattr(_observe_state, "scope", None)
         if scope is not None:
             _record_site_observation(obs, f"{scope}.{name}", x, site)
-    return site(x)
+    sh = getattr(site, "_shard", None)
+    if sh is None:
+        return site(x)
+    y = site(relayout(x, -1, have, sh.k, sh.mesh))
+    return relayout(y, -1, sh.n, want, sh.mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -400,14 +458,52 @@ class Attention(nn.Module):
 
 
 def _qkv(p: Attention, x, cfg: ModelConfig, positions):
+    """RoPE'd q, k, v of (B, S, heads, hd): all heads, or under a mesh this
+    rank's q heads and kv heads (the sites' outputs relaid to whole heads
+    before RoPE)."""
     B, S, _ = x.shape
-    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    q = pmm(p, "wq", x).reshape(B, S, nh, hd)
-    k = pmm(p, "wk", x).reshape(B, S, nkv, hd)
-    v = pmm(p, "wv", x).reshape(B, S, nkv, hd)
+    hd = cfg.head_dim
+    sh = getattr(p, "_shard", None)
+    q_axes, kv_axes = (sh.q, sh.kv) if sh is not None else ((), ())
+    q = pmm(p, "wq", x, want=q_axes).reshape(B, S, -1, hd)
+    k = pmm(p, "wk", x, want=kv_axes).reshape(B, S, -1, hd)
+    v = pmm(p, "wv", x, want=kv_axes).reshape(B, S, -1, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _local_groups(p: Attention, q, k, v):
+    """Under a mesh: ``q`` (..., this rank's q heads, hd) padded with zero
+    heads to whole groups over the kv heads it reads, and ``k``/``v`` (or
+    pools, heads on dim -2) cut to those kv heads, so grouped attention runs
+    unchanged; :func:`_unpad_heads` takes the rank's heads back out."""
+    sh = getattr(p, "_shard", None)
+    if sh is None:
+        return q, k, v
+    if any(sh.pad):
+        q = F.pad(q, (0, 0, *sh.pad))
+    return q, _kv_cut(sh, k), _kv_cut(sh, v)
+
+
+def _kv_cut(sh, t):
+    """``t``'s kv heads (dim -2) cut to those the rank's q heads read."""
+    a, b = sh.need_lo - sh.kv_lo, sh.need_hi - sh.kv_lo
+    return t if (a, b) == (0, t.shape[-2]) else t.narrow(-2, a, b - a)
+
+
+def _unpad_heads(p: Attention, out):
+    sh = getattr(p, "_shard", None)
+    if sh is None or not any(sh.pad):
+        return out
+    return out.narrow(-2, sh.pad[0], sh.q_hi - sh.q_lo)
+
+
+def _heads_out(p: Attention, out, B: int, S: int):
+    """Attention output (B, S, heads, hd) -> the ``wo`` input (B, S, heads *
+    hd) and its layout."""
+    sh = getattr(p, "_shard", None)
+    return out.reshape(B, S, -1), (() if sh is None else sh.q)
 
 
 def _softcap(scores, cap):
@@ -484,16 +580,18 @@ def attention(p: Attention, x, cfg: ModelConfig, positions, prefix_kv=None):
     ``L + i``; the returned (k, v) stay suffix-only."""
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions)
+    k_all, v_all = k, v
     if prefix_kv is not None:
         pk, pv = prefix_kv
         k_all = torch.cat([pk.to(k.dtype), k], dim=1)
         v_all = torch.cat([pv.to(v.dtype), v], dim=1)
-        out = _full_causal_attention(q, k_all, v_all, cfg)
-    elif S > cfg.attn_chunk_threshold:
-        out = _chunked_causal_attention(q, k, v, cfg)
+    qa, ka, va = _local_groups(p, q, k_all, v_all)
+    if prefix_kv is None and S > cfg.attn_chunk_threshold:
+        out = _chunked_causal_attention(qa, ka, va, cfg)
     else:
-        out = _full_causal_attention(q, k, v, cfg)
-    y = pmm(p, "wo", out.reshape(B, S, cfg.n_heads * cfg.head_dim))
+        out = _full_causal_attention(qa, ka, va, cfg)
+    out, have = _heads_out(p, _unpad_heads(p, out), B, S)
+    y = pmm(p, "wo", out, have=have)
     return y, (k, v)
 
 
@@ -580,6 +678,9 @@ def paged_attention_decode(p: Attention, x, cfg: ModelConfig, pool: dict, block_
     given them raises.
 
     The pool is updated in place (the reference returns a new one).
+    Under a mesh the pool holds this rank's kv heads and ``static_kv_scales``
+    their rows; attention runs on the rank's q heads.
+
     Returns (y, pool)."""
     B = x.shape[0]
     q, k, v = _qkv(p, x, cfg, seq_lens[:, None])  # per-slot RoPE positions
@@ -614,17 +715,22 @@ def paged_attention_decode(p: Attention, x, cfg: ModelConfig, pool: dict, block_
         v_pages[page, off] = v[:, 0].to(v_pages.dtype)
         scale_kw = {}
     lens_now = seq_lens + 1  # attend over positions < lens_now (self included)
-    q0, softcap = q[:, 0].contiguous(), cfg.attn_logit_softcap
+    q0, kp, vp = _local_groups(p, q[:, 0], k_pages[:nb], v_pages[:nb])
+    sh = getattr(p, "_shard", None)
+    if scale_kw and sh is not None:
+        scale_kw = {n: _kv_cut(sh, t[..., None])[..., 0] for n, t in scale_kw.items()}
+    q0, softcap = q0.contiguous(), cfg.attn_logit_softcap
     if impl == "reference":
-        out = paged_attention_reference(q0, k_pages[:nb], v_pages[:nb], block_table, lens_now,
+        out = paged_attention_reference(q0, kp, vp, block_table, lens_now,
                                         softcap=softcap, **scale_kw)
     else:
         resolve_paged_attn_impl(impl, q0.device)
-        out = paged_decode_attention(q0, k_pages[:nb], v_pages[:nb], block_table, lens_now,
+        out = paged_decode_attention(q0, kp, vp, block_table, lens_now,
                                      softcap=softcap, attn_spec=attn_spec,
                                      assert_bounds=assert_bounds, watermarks=watermarks,
                                      **scale_kw)
-    y = pmm(p, "wo", out.reshape(B, 1, cfg.n_heads * cfg.head_dim))
+    out, have = _heads_out(p, _unpad_heads(p, out)[:, None], B, 1)
+    y = pmm(p, "wo", out, have=have)
     return y, pool
 
 
@@ -676,11 +782,13 @@ class MLP(nn.Module):
 
 
 def mlp(p: MLP, x, cfg: ModelConfig):
+    sh = getattr(p.wd, "_shard", None)
+    mid = () if sh is None else sh.k  # the hidden layer in wd's K layout
     if cfg.act == "swiglu":
-        h = F.silu(pmm(p, "wg", x)) * pmm(p, "wu", x)
+        h = F.silu(pmm(p, "wg", x, want=mid)) * pmm(p, "wu", x, want=mid)
     else:
-        h = F.gelu(pmm(p, "wi", x), approximate="tanh")  # jax.nn.gelu default
-    return pmm(p, "wd", h)
+        h = F.gelu(pmm(p, "wi", x, want=mid), approximate="tanh")  # jax.nn.gelu default
+    return pmm(p, "wd", h, have=mid)
 
 
 # ---------------------------------------------------------------------------
@@ -696,12 +804,33 @@ class Embedding(nn.Module):
 
 
 def embed(p: Embedding, tokens, cfg: ModelConfig):
-    return p.embed[tokens]
+    sh = getattr(p, "_shard", None)
+    if sh is None:
+        return p.embed[tokens]
+    # vocab rows sharded: look up the ids in this rank's range, zero
+    # elsewhere, and sum over the vocab axes (one rank holds each row: exact)
+    lo, hi = shard_range(cfg.vocab_padded, sh.mesh, sh.rows)
+    ids = tokens - lo
+    inside = (ids >= 0) & (ids < hi - lo)
+    x = p.embed[torch.clamp(ids, 0, hi - lo - 1)].masked_fill(~inside[..., None], 0)
+    x = all_reduce_sum(x, sh.mesh, sh.rows, exact=True)
+    return relayout(x, -1, sh.cols, (), sh.mesh)
 
 
 def lm_logits(p: Embedding, x, cfg: ModelConfig):
     head = p.head if p.head is not None else p.embed
-    logits = x @ head.t()
+    sh = getattr(p, "_shard", None)
+    if sh is None:
+        logits = x @ head.t()
+    else:
+        # vocab-sharded head: local logits over this rank's d columns
+        # (summed over them), then gathered over the vocab, so every rank
+        # samples from the same full row
+        rows, cols = (sh.head_rows, sh.head_cols) if p.head is not None else (sh.rows, sh.cols)
+        logits = relayout(x, -1, (), cols, sh.mesh) @ head.t()
+        if cols:
+            logits = all_reduce_sum(logits.to(torch.float32), sh.mesh, cols).to(x.dtype)
+        logits = gather_dim(logits, -1, sh.mesh, rows)
     if cfg.vocab_padded != cfg.vocab:
         # mask pad rows so softmax/logsumexp are exact over the real vocab
         pad_mask = torch.arange(cfg.vocab_padded, device=x.device) >= cfg.vocab

@@ -221,6 +221,13 @@ def init_model(cfg: ModelConfig, seed: int = 0, *, device="cuda",
     return Transformer(cfg, embedding, layers, final_norm)
 
 
+def abstract_params(cfg: ModelConfig) -> Transformer:
+    """The model's parameter tree on the ``meta`` device: shapes and dtypes,
+    nothing allocated (the reference's ``abstract_params``, for the
+    sharding rules and the analytic budget)."""
+    return init_model(cfg, device="meta", generator=torch.Generator())
+
+
 # ---------------------------------------------------------------------------
 # Forward / loss
 # ---------------------------------------------------------------------------
@@ -306,13 +313,15 @@ def _zero_state(spec: LayerSpec, cfg: ModelConfig, batch: int, device) -> dict:
             for name, (shape, dt) in recurrent_state_shapes(spec, cfg, batch).items()}
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda"):
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda",
+               kv_heads: int | None = None):
     """Per-layer decode caches: ``{"k", "v"}`` of (B, max_len, nkv, hd) in
     the act dtype for an attention layer, the zeroed dense state of a
-    recurrent one (:func:`recurrent_state_shapes`)."""
+    recurrent one (:func:`recurrent_state_shapes`). ``kv_heads`` overrides
+    nkv (a rank's kv heads under a mesh)."""
     _check_ported(cfg)
     dev = resolve_device(device)
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    shape = (batch, max_len, kv_heads or cfg.n_kv_heads, cfg.head_dim)
     dt = torch_dtype(cfg.act_dtype)
     caches = []
     for i in range(cfg.n_layers):
@@ -365,7 +374,7 @@ def prefill(model: Transformer, batch: dict, max_len: int, prefix_kv=None,
     x, positions = _embed_inputs(model, batch, pos_offset)
     B, S, _ = x.shape
     if caches is None:
-        caches = init_cache(cfg, B, max_len, device=x.device)
+        caches = init_cache(cfg, B, max_len, device=x.device, kv_heads=_local_kv_heads(model))
     for i, (block, cache) in enumerate(zip(model.layers, caches)):
         if block.mixer is not None:
             h = norm(block.norm1, x, cfg.norm)
@@ -383,6 +392,16 @@ def prefill(model: Transformer, batch: dict, max_len: int, prefix_kv=None,
             x = _ffn(block, cfg, x)
     x = norm(model.final_norm, x, cfg.norm)
     return lm_logits(model.embedding, x, cfg), caches
+
+
+def _local_kv_heads(model: Transformer) -> int | None:
+    """The kv heads of this rank's attention layers under a mesh (None
+    without one)."""
+    for block in model.layers:
+        sh = getattr(block.mixer, "_shard", None)
+        if sh is not None and hasattr(sh, "kv_lo"):
+            return sh.kv_hi - sh.kv_lo
+    return None
 
 
 def decode_step(model: Transformer, tokens, caches, index):

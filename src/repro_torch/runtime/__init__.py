@@ -1,5 +1,17 @@
-"""Training runtime (port of ``repro/runtime``; one device)."""
+"""Runtime (port of ``repro/runtime``): the train step (``steps``, one
+device), the sharding rules and placement (``sharding``) and the mesh
+collectives (``collectives``). The train step's names load on first use,
+so the model code can import ``collectives`` without the training stack."""
 
-from .steps import TrainRunConfig, init_train_state, make_train_step
+_STEPS = ("TrainRunConfig", "init_train_state", "make_train_step")
 
-__all__ = ["TrainRunConfig", "init_train_state", "make_train_step"]
+
+def __getattr__(name):
+    if name in _STEPS:
+        from . import steps
+
+        return getattr(steps, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+__all__ = list(_STEPS)

@@ -1,0 +1,119 @@
+"""Collectives over a mesh axis group, and the relayout of one dimension
+between shardings (no reference counterpart: the reference's GSPMD
+partitioner inserts these itself).
+
+Every collective is written on ``all_reduce``, which gloo runs on CUDA
+tensors too (staging through the host) and NCCL runs inside a captured
+CUDA graph. A gather fills a zeroed full buffer with the local slice and
+sums over the group; it sums the *bits* (the buffer viewed as int32, or
+bytes), at most one rank contributing a nonzero to each element, so the
+gathered value is exact in any dtype. This moves the group size times the
+bytes of NCCL's ``all_gather_into_tensor``.
+
+A layout is the tuple of mesh axes a dimension is sharded over, the first
+major; ``()`` is replicated. ``calls`` and ``bytes`` count the collectives
+issued on the host (a captured step counts at its capture) and the bytes
+of their buffers.
+"""
+
+from __future__ import annotations
+
+import torch
+
+#: collectives issued and the bytes of their buffers, since the last reset
+calls = 0
+nbytes = 0
+
+
+def reset_counts() -> None:
+    global calls, nbytes
+    calls = nbytes = 0
+
+
+def _count(x: torch.Tensor) -> None:
+    global calls, nbytes
+    calls += 1
+    nbytes += x.numel() * x.element_size()
+
+
+def all_reduce_sum(x: torch.Tensor, mesh, axes, *, exact: bool = False) -> torch.Tensor:
+    """Sum ``x`` over the ranks that differ on ``axes``, in place; returns
+    ``x``. ``exact``: at most one rank holds a nonzero in each element, and
+    the bits are summed (so any dtype is exact, NaN and -0.0 included)."""
+    import torch.distributed as dist
+
+    if not axes:
+        return x
+    buf = _bits(x) if exact else x
+    _count(buf)
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group(axes))
+    return x
+
+
+def all_reduce_max(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The elementwise max of ``x`` over the ranks that differ on ``axes``,
+    in place; returns ``x``."""
+    import torch.distributed as dist
+
+    if not axes:
+        return x
+    _count(x)
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=mesh.group(axes))
+    return x
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    """``x``'s storage as integers: int32 where its bytes allow, else uint8."""
+    flat = x.reshape(-1).view(torch.uint8)
+    return flat.view(torch.int32) if flat.numel() % 4 == 0 else flat
+
+
+def shard_range(length: int, mesh, axes) -> tuple[int, int]:
+    """This rank's [lo, hi) of a dimension of ``length`` sharded over ``axes``."""
+    if not axes:
+        return 0, length
+    size = length // mesh.axes_size(axes)
+    lo = mesh.index(axes) * size
+    return lo, lo + size
+
+
+def gather_dim(x: torch.Tensor, dim: int, mesh, axes) -> torch.Tensor:
+    """The full tensor of a dimension sharded over ``axes`` (``x`` this
+    rank's block): a zeroed buffer holding the local block, summed bitwise
+    over the group."""
+    if not axes:
+        return x
+    dim = dim % x.dim()
+    n = x.shape[dim]
+    shape = list(x.shape)
+    shape[dim] = n * mesh.axes_size(axes)
+    full = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    full.narrow(dim, mesh.index(axes) * n, n).copy_(x)
+    return all_reduce_sum(full, mesh, axes, exact=True)
+
+
+def relayout(x: torch.Tensor, dim: int, have, want, mesh) -> torch.Tensor:
+    """Move dimension ``dim`` of ``x`` from layout ``have`` to ``want``: a
+    local slice where ``want`` refines ``have`` (``have``'s axes of more
+    than one rank lead ``want``'s: replicated to sharded, or to a finer
+    sharding), so every rank's ``want`` block lies inside its ``have``
+    block; else a gather over ``have`` and a slice. The choice depends on
+    the layouts alone, so every rank of a group issues the same
+    collectives."""
+    have, want = tuple(have), tuple(want)
+    if have == want:
+        return x
+    dim = dim % x.dim()
+    length = x.shape[dim] * mesh.axes_size(have)
+    h_lo, _ = shard_range(length, mesh, have)
+    w_lo, w_hi = shard_range(length, mesh, want)
+    # axes of size 1 split nothing: ("model", "data") on a (1, tp) mesh is ("model",)
+    h, w = ([a for a in axes if mesh.shape[a] > 1] for axes in (have, want))
+    if w[:len(h)] != h:
+        x = gather_dim(x, dim, mesh, have)
+        h_lo = 0
+    return x.narrow(dim, w_lo - h_lo, w_hi - w_lo)
+
+
+__all__ = ["all_reduce_max", "all_reduce_sum", "gather_dim", "relayout", "reset_counts",
+           "shard_range"]

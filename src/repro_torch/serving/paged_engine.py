@@ -87,7 +87,22 @@ in :meth:`saturation_report`; counts accumulate across serves until the
 observer's ``reset()``. :meth:`assert_observation_transparent` holds the
 observer off the plain step, structurally.
 
-Left for a later slice, raising ``NotImplementedError``: ``mesh``.
+``mesh`` (a :class:`~repro_torch.launch.mesh.Mesh`, one process a rank)
+serves tensor-parallel over ``torch.distributed``, the multi-controller
+design of the reference's ``docs/multihost.md``: every rank runs the same
+host scheduler, allocator and prefix cache on the same requests, and holds
+its slice of the model and the cache, placed by
+:func:`~repro_torch.runtime.sharding.paged_engine_shardings` under
+``shard_rules`` (default ``SERVING_QUANT_RULES``): pools shard kv heads
+over ``model``, admin leaves are whole on every rank, and the logits are
+gathered before sampling, so every rank samples the same tokens and a chunk
+still makes one host read of replicated tokens. Batched-admit prompt rows
+are placed by ``rows_sharding`` and gathered. Under NCCL the decode step is
+captured with its collectives inside; under gloo (CPU ranks, or ranks
+sharing one card) it steps eagerly (``step_mode``). As in the reference a
+mesh refuses the paged attention kernels (``attn_impl`` resolving to
+them), ``observe=True`` and ``arrivals=`` with more than one process;
+MoE and recurrent patterns are not ported under a mesh.
 """
 
 from __future__ import annotations
@@ -127,7 +142,9 @@ from repro_torch.quant.spec import (
     validate_attn_datapath,
     validate_datapath,
 )
-from repro_torch.serving.engine import SamplerConfig, sample_rows
+from repro_torch.runtime import sharding as shardlib
+from repro_torch.runtime.collectives import all_reduce_sum, gather_dim, relayout
+from repro_torch.serving.engine import SamplerConfig, _uniforms, sample_rows
 from repro_torch.serving.graphs import ProgramText, StepProgram, count_kernels, record_step
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.scheduler import PoolState, Request, Scheduler, SchedulerPolicy
@@ -201,16 +218,14 @@ class PagedEngine:
     calibrated static KV page scales (a plan's ``kv`` section, or
     ``{slot: {"k": (R, nkv), "v": (R, nkv)}}``); they need an int8 pool and
     name attention slots only. ``observe`` attaches the serving saturation
-    counters (:meth:`saturation_report`)."""
+    counters (:meth:`saturation_report`). ``mesh``/``shard_rules`` serve
+    tensor-parallel (module docstring); ``device`` is then the rank's."""
 
     def __init__(self, model, cfg=None, paged: PagedConfig = PagedConfig(),
                  sampler: SamplerConfig = SamplerConfig(), datapath=None,
                  attn_datapath=None, *, device="cuda", backend: str = "kernel",
                  assert_bounds: bool = False, observe: bool = False, kv_scales=None,
-                 mesh=None):
-        if mesh is not None:
-            raise NotImplementedError("mesh-native serving arrives with the multi-device "
-                                      "slice of the port")
+                 mesh=None, shard_rules=None):
         if backend not in _PACKED_BACKENDS:
             raise ValueError(f"packed backend {backend!r} not in {_PACKED_BACKENDS}")
         if paged.kv_dtype not in ("act", "int8"):
@@ -219,6 +234,8 @@ class PagedEngine:
             raise ValueError(f"config {cfg.name} does not describe the model ({model.cfg.name})")
         check_servable(model)
         self.device = resolve_device(device)
+        if mesh is not None:
+            _check_mesh(model.cfg, paged, self.device, observe)
         resolve_paged_attn_impl(paged.attn_impl, self.device)
         self.model = upgrade_packed_params(model.to(self.device))
         self.cfg = cfg = self.model.cfg
@@ -262,6 +279,14 @@ class PagedEngine:
         #: B3's (|QK^T|, |PV|) watermarks since construction
         self.watermarks = (torch.zeros(2, dtype=torch.int32, device=self.device)
                            if self.assert_bounds else None)
+        #: the mesh, the (param, cache) specs the engine placed its model and
+        #: cache by, and how its decode step runs: "captured" (a CUDA graph,
+        #: NCCL's collectives inside), "eager" (the CPU) or "eager (gloo)"
+        self.mesh = mesh
+        self.shardings = None
+        self.step_mode = "captured" if self.device.type == "cuda" else "eager"
+        if mesh is not None:
+            self._place(mesh, shard_rules)
         self.cache = self._new_cache()
         #: program runs since construction
         self.admits = self.suffix_admits = self.cached_admits = 0
@@ -280,13 +305,36 @@ class PagedEngine:
         self.chunk_traces = 0
         self._program = None
 
-    def _new_cache(self) -> dict:
-        """A zeroed paged cache of this engine's shapes on its device."""
+    def _new_cache(self, device=None) -> dict:
+        """A zeroed paged cache of this engine's shapes on its device (under
+        a mesh, this rank's slice of it)."""
         paged = self.paged
-        return init_paged_cache(
+        cache = init_paged_cache(
             self.cfg, paged.max_concurrency, paged.num_blocks, paged.block_size,
             paged.max_pages_per_seq, kv_dtype="int8" if paged.kv_dtype == "int8" else None,
-            device=self.device)
+            device=device or self.device)
+        if self.mesh is not None and device is None:
+            cache = shardlib.host_to_global(cache, self.shardings[1], self.mesh)
+        return cache
+
+    def _place(self, mesh, rules) -> None:
+        """Place the model by the engine's shardings (every rank holds the
+        same full model; each keeps its slice), slice the static KV scales
+        to the rank's kv heads and warm the communicator."""
+        self.shardings = shardlib.paged_engine_shardings(
+            self.model, self._new_cache("meta"), self.cfg, mesh, rules)
+        pools = [sp for sp in self.shardings[1]["pools"] if "k_pages" in sp]
+        kv_axes = shardlib.spec_axes(pools[0]["k_pages"][2]) if pools else ()
+        self.model = shardlib.shard_model(self.model, mesh, rules, kv_axes=kv_axes)
+        if self._kv_scales_seq is not None:
+            lo, n = mesh.index(kv_axes), self.cfg.n_kv_heads // mesh.axes_size(kv_axes)
+            self._kv_scales_seq = tuple(
+                {side: t[:, lo * n:(lo + 1) * n].contiguous() for side, t in sec.items()}
+                for sec in self._kv_scales_seq)
+        if self.device.type == "cuda" and not mesh.captures_collectives:
+            self.step_mode = "eager (gloo)"
+        # the first collective sets the communicator up, before any capture
+        all_reduce_sum(torch.zeros(1, device=self.device), mesh, mesh.axis_names)
 
     def _static_kv_scales(self, kv_scales, cfg, kv_dtype: str):
         """The engine's static KV scales, one entry per pattern slot, as f32
@@ -473,7 +521,14 @@ class PagedEngine:
         tokens = np.zeros((n, P * bs), np.int32)
         for j, a in enumerate(group):
             tokens[j, :s0s[j]] = a.req.prompt
-        logits, dense = prefill(self.model, {"tokens": self._dev(tokens)}, P * bs)
+        tokens = self._dev(tokens)
+        if self.mesh is not None:
+            # the prompt block placed by rows over the data axis (where the
+            # group size divides it), then gathered for the replicated stream
+            rows = shardlib.spec_axes(shardlib.rows_sharding(tokens.shape, self.mesh)[0])
+            tokens = shardlib.local_slice(tokens, (rows or None, None), self.mesh)
+            tokens = relayout(tokens.contiguous(), 0, rows, (), self.mesh)
+        logits, dense = prefill(self.model, {"tokens": tokens}, P * bs)
         s0_dev = self._dev(s0s, torch.long)
         pos = torch.arange(P * bs, device=self.device)
         pad = (pos[None, :] >= s0_dev[:, None])[..., None, None]  # (n, L, 1, 1)
@@ -556,7 +611,7 @@ class PagedEngine:
             self._program = StepProgram(self._decode_step, self.device)
         self._buf.zero_()
         self._col.zero_()
-        if eager:
+        if eager or self.step_mode == "eager (gloo)":
             for _ in range(k):
                 self._decode_step()
         else:
@@ -625,6 +680,13 @@ class PagedEngine:
         admit, chunk and release (the throughput loop probes an admission
         pass once, after all its programs ran); ``_late(sched, pass_idx)``
         once per scheduler pass, and may submit mid-flight arrivals."""
+        if arrivals is not None and self.mesh is not None and _processes() > 1:
+            # wall-clock pacing is single-controller: two processes would
+            # see different clocks, submit in different orders and issue
+            # diverging programs
+            raise ValueError("arrivals= is wall-clock-paced and single-controller; "
+                             "multi-process serving needs deterministic submission "
+                             "(submit everything up front or use the _late hook)")
         run = _Run(self, requests, arrivals, metrics, _probe)
         observing = (attach_observer(self.observer) if self.observer is not None
                      else nullcontext())
@@ -839,6 +901,28 @@ class PagedEngine:
                                  f"counted kernels, the plain step "
                                  f"{count_kernels(bare.nodes)}")
 
+    @torch.inference_mode()
+    def assert_sampling_keys_collective_safe(self) -> None:
+        """The per-request sampling stream must be identical on every rank:
+        the noise of :func:`~repro_torch.serving.engine._uniforms` for the
+        live (uids, steps), computed on each rank from the replicated admin
+        leaves, is gathered over every rank and held equal across ranks and
+        to an eager one-rank computation on the host. Mesh engines only;
+        raises AssertionError on any divergence."""
+        if self.mesh is None:
+            raise ValueError("engine has no mesh — the single-controller sampling stream is "
+                             "trivially host-consistent")
+        uids, steps = self.cache["uids"], self.cache["steps"]
+        n = self.cfg.vocab_padded
+        mine = _uniforms(self.sampler.seed, uids, steps, n)
+        axes = self.mesh.axis_names
+        every = gather_dim(mine[None], 0, self.mesh, axes).cpu()
+        want = _uniforms(self.sampler.seed, uids.cpu(), steps.cpu(), n)
+        for r in range(every.shape[0]):
+            if not torch.equal(every[r], want):
+                raise AssertionError(f"rank {r}'s sampling noise diverges from the one-rank "
+                                     f"stream — per-request determinism is broken")
+
     def generate(self, prompts: np.ndarray, max_new_tokens: int) -> np.ndarray:
         """Fixed-slot-compatible entry: prompts (B, S0) -> (B, S0 + max_new),
         post-EOS positions EOS-padded as :meth:`GenerationEngine.generate`."""
@@ -855,6 +939,35 @@ class PagedEngine:
             seq = results[r.uid]
             out[i, :seq.size] = seq
         return out
+
+
+def _processes() -> int:
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _check_mesh(cfg, paged: PagedConfig, device, observe: bool) -> None:
+    """What a mesh refuses: the paged attention kernels (as the reference
+    refuses its Pallas kernel: only the reference attention runs on local
+    heads), observation with more than one process, and the patterns this
+    slice does not shard."""
+    impl = paged.attn_impl
+    if impl == "kernel" or (impl == "auto" and device.type == "cuda"):
+        raise ValueError(f"mesh-native serving requires the reference attention impl "
+                         f"(attn_impl {impl!r} resolves to the paged attention kernels on "
+                         f"{device.type}): B2/B3 are single-device programs (ROADMAP item 4)")
+    if observe and _processes() > 1:
+        raise ValueError("observe=True is single-controller: the saturation counters would "
+                         "count per process on partial shards — run observation on a "
+                         "one-process mesh")
+    if any(s.ffn == "moe" for s in cfg.pattern):
+        raise NotImplementedError(f"{cfg.name}: MoE under a mesh (expert parallelism) is not "
+                                  f"ported yet (ROADMAP Queue A item 4)")
+    recurrent = sorted({s.mixer for s in cfg.pattern if s.mixer not in ("attn", "none")})
+    if recurrent:
+        raise NotImplementedError(f"{cfg.name}: recurrent states ({recurrent}) under a mesh "
+                                  f"are not ported yet (ROADMAP Queue A item 4)")
 
 
 class _Run:

@@ -26,6 +26,7 @@ from repro.serving import SamplerConfig as JSampler
 from repro_torch.configs import get_smoke
 from repro_torch.interop import params_from_numpy
 from repro_torch.kernels.paged_attention import paged_decode_attention
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.kernels.w4a8_mm import w4a8_matmul
 from repro_torch.quant.spec import AttnDatapathSpec, DatapathMismatchError
 from repro_torch.serving import (
@@ -426,8 +427,11 @@ def test_datapath_requests_and_refusals(setup):
         _paged(model, sched=SchedulerPolicy(prefill_chunk=12))
     with pytest.raises(ValueError, match="admission could never resume"):
         _paged(model, num_blocks=4, sched=SchedulerPolicy(watermark=(1, 8)))
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        PagedEngine(model, None, PagedConfig(**BASE), device="cpu", mesh=object())
+    # mesh serving is ported (tests/test_torch_mesh_serving.py); a mesh
+    # refuses the paged attention kernels before it needs any process group
+    with pytest.raises(ValueError, match="reference attention"):
+        PagedEngine(model, None, PagedConfig(**{**BASE, "attn_impl": "kernel"}), device="cpu",
+                    mesh=make_mesh((1, 2), abstract=True))
     # the serving observers are ported (tests/test_torch_saturation.py): the
     # counter block is made with the engine, one row per packed slot site
     observed = PagedEngine(model, None, PagedConfig(**BASE), device="cpu", observe=True)

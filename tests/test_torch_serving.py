@@ -235,8 +235,9 @@ def test_serve_launcher_cpu(capsys):
     # --observe is ported (tests/test_torch_saturation.py): the paged engine's
     with pytest.raises(SystemExit, match="--observe applies to the paged engine only"):
         serve.main(["--arch", ARCH, "--observe", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="not yet ported"):
-        serve.main(["--arch", ARCH, "--paged", "--mesh", "1,1", "--device", "cpu"])
+    # --mesh is ported (tests/test_torch_mesh_serving.py): the paged engine's
+    with pytest.raises(SystemExit, match="--mesh applies to the paged engine only"):
+        serve.main(["--arch", ARCH, "--mesh", "1,1", "--device", "cpu"])
 
 
 def test_kernel_launch_counter_counts_only_launches(setup):
