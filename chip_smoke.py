@@ -321,10 +321,12 @@ result unless every phase passed):
    (28 B5 solves, every site certified): quantized against float
    perplexity, the quantized under 1.5x the float. (c) stablelm-3b,
    phi4-mini-3.8b and musicgen-medium, bf16 from a seeded init at full
-   width, RTN-packed, one at a time: B1 bit-equal at each packed (K, N) at
-   M = 4 and 256; batch 4 x prompt 64 + 16 new on the captured fixed-slot
-   step (B1 exactly sites x 16, tokens equal to the eager host loop's, a
-   replayed and an eager step in turns); phase 7's trace through the FIFO
+   width cut to REGISTRY_LAYERS layers, RTN-packed, one at a time: B1
+   bit-equal at each packed (K, N) at M = 4 and 256; batch 4 x prompt 64
+   + 16 new on the captured fixed-slot step (B1 exactly sites x 16, tokens equal to the eager host loop's, a
+   replayed and an eager step in turns); the short trace (phase 7's
+   PAGED_SLOTS + 1 shortest prompts and its longest, at most SHORT_MAX_NEW
+   new tokens each: requests queue and take freed slots) through the FIFO
    paged engine, float and int8 pages. Phase 6 holds B2/B3 at the
    registry's attention shapes (head dim 80 and 128, groups 1-16) and
    times them in its timed loop beside the plain versions and SDPA (rows
@@ -342,16 +344,43 @@ result unless every phase passed):
    issues, and a replayed chunk of each in turns. (b) Two ranks sharing
    the card over gloo (NCCL refuses two ranks on one device), mesh (1, 2),
    phi4-mini-3.8b bf16 RTN at full width (24/8 heads, d_ff 8192, vocab
-   200064: q/k/v, wg/wu and the head shard N, wo/wd K): B1 bit-equal to
+   200064: q/k/v, wg/wu and the head shard N, wo/wd K), cut to
+   MESH_B_LAYERS of its 32 layers: B1 bit-equal to
    its plain version at every sharded (K, N), checked here before the
    ranks start (this script with ``--mesh-rank``; the kernels are built
-   in this process first), then each rank serves phase 7's trace with
+   in this process first), then each rank serves the short trace with
    float and int8 pages, eagerly (gloo stages through the host):
    tie-limited against a one-device engine on the card, the logits'
    largest relative error, digests equal on both ranks, each rank's
    placed weights and peak memory against half the packed weight bytes,
    the eager step time. The kernels line gains ``mesh_launches`` and
-   ``mesh_sites`` on B1.
+   ``mesh_sites`` on B1;
+17. MoE and recurrent patterns under the mesh. (a) NCCL at world size 1:
+   granite-moe-3b-a800m bf16 RTN at full width through ``PagedEngine(
+   mesh=)``, phase 7's trace on float pages, its decode step captured with
+   B1e inside (96 B1e and 128 B1 kernel nodes by name): streams and digest
+   identical to a one-device engine with the same attention, B1e 96 and B1
+   128 a forward, a replayed step of each in turns. Then, before the ranks
+   start: B1e and B4e, and their accumulator-only form, bit-equal to their
+   plain versions at granite's expert shards (E, K, N) in
+   GRANITE_SHARD_SITES at M = 1, 4 and 64, timed beside a bf16 ``bmm`` and
+   the byte bound; B1 at the (1, 2) shards of xlstm-350m and of the
+   Jamba-width Mamba block (with ``_int_mm`` beside). Then two gloo ranks
+   sharing the card (this script with ``--family-rank``): (b) granite on a
+   (2, 1) mesh, 20 experts a rank, (c) xlstm-350m on a (1, 2) mesh, each
+   serving the short trace on float pages (more requests than slots: a
+   freed slot reused and, for xlstm, an end state installed into a
+   recycled lane while the others decode): B1e/B1 exactly their
+   sites a forward, streams tie-limited against a one-device engine on the
+   card, digests equal on both ranks, the placed expert bytes a rank
+   against half the stacks' bytes, the state MiB a slot a rank against
+   the one-device figure, the serve's peak memory; (d) the Mamba block on
+   8192 of its 16384 channels, a 4 x 64 prefill and 16 decode steps within
+   MAMBA_STEP_TOL (relative L2) of its one-device run. The kernels line
+   gains ``family_launches`` on B1 and B1e, ``family_sites`` on B1 and
+   ``family_shards`` on B1e and B4e.
+
+Each phase prints its wall (``[wall] phase N``) and the script its total.
 
 Before driving a path, every launch counter is set to 0, and the counts are
 read just after it. Phase 3 ends with a ``torch.profiler`` breakdown of one
@@ -1839,6 +1868,25 @@ def serve_timed(torch, engine, reqs):
             else:
                 setattr(engine, name, fn)
     return out, time.perf_counter() - t0, spent
+
+
+#: the short trace (phases 15 (c), 16 (b) and 17 (b), (c)): phase 7's
+#: requests with the PAGED_SLOTS + 1 shortest prompts and the one with the
+#: longest (five pages of PAGED_BLOCK), the i-th in uid order given
+#: min(its new tokens, SHORT_MAX_NEW) - i % 3: more requests than slots, so
+#: requests queue and are admitted into slots freed mid-run (a recurrent
+#: end state installed into a recycled lane while the others decode); a
+#: gloo rank's eager step takes up to a second, and the script must finish
+#: well inside its limit
+SHORT_MAX_NEW = 8
+
+
+def short_trace_specs(cfg):
+    """The short trace's (uid, prompt, max_new), in uid order."""
+    specs, _ = trace_specs(cfg)
+    by_size = sorted(specs, key=lambda s: s[1].size)
+    keep = sorted(by_size[:PAGED_SLOTS + 1] + by_size[-1:], key=lambda s: s[0])
+    return [(u, p, min(n, SHORT_MAX_NEW) - i % 3) for i, (u, p, n) in enumerate(keep)]
 
 
 def trace_specs(cfg):
@@ -4075,7 +4123,9 @@ def packed_site_shapes(model) -> list[tuple[int, int]]:
 def b1_site_check(torch, what: str, shapes, smi: str, tag: str = "recurrent") -> list[dict]:
     """B1 bit-equal to its plain version at a model's packed (K, N), at the
     decode and the prefill M of phase 14, with its plan, time (cold L2) and
-    bound at each."""
+    bound at each, and ``torch._int_mm`` on the same codes (phase 2's
+    yardstick: rows padded to 32, N to a multiple of 8, codes shifted by
+    -128) where K is a multiple of 8."""
     from repro_torch.kernels import w4a8_mm as W
 
     dev = torch.device("cuda")
@@ -4096,11 +4146,24 @@ def b1_site_check(torch, what: str, shapes, smi: str, tag: str = "recurrent") ->
             sw, corr = scale * 0.0213, col.float() * 131.0
             ms = time_ms(torch, lambda: W.w4a8_matmul_kernel(x, wp, sw, corr, torch.bfloat16),
                          flush=flush)
+            lib = None
+            if k % 8 == 0:
+                mp, n8 = max(m, 32), -(-n // 8) * 8
+                xs = torch.zeros((mp, k), dtype=torch.int8, device=dev)
+                xs[:m] = (x.to(torch.int16) - 128).to(torch.int8)
+                w8 = torch.zeros((k, n8), dtype=torch.int8, device=dev)
+                w8[:, :n] = q
+                check(torch.equal((torch._int_mm(xs, w8)[:m, :n] + 128 * col).double(),
+                                  x.double() @ q.double()),
+                      "the _int_mm yardstick disagrees with the exact product")
+                lib = time_ms(torch, lambda: torch._int_mm(xs, w8), flush=flush)
+                del xs, w8
             b, by = bound_ms(m, k, n)
             rows.append({"m": m, "k": k, "n": n, "ms": ms, "bound_ms": b, "bound_by": by,
-                         "plan": plan})
+                         "plan": plan, "library_ms": lib})
             print(f"[{tag}] B1 at {what}'s site M={m:3d} K={k:5d} N={n:5d}: bit-equal, "
-                  f"{ms:.5f} ms, bound {b:.5f} ms ({by}), {plan}; {smi}")
+                  f"{ms:.5f} ms, bound {b:.5f} ms ({by}), _int_mm "
+                  f"{'n/a' if lib is None else f'{lib:.5f} ms'}, {plan}; {smi}")
             del q, x, wp, y, r
     return rows
 
@@ -4528,8 +4591,10 @@ TRAIN_LR = 5e-3
 #: calibration batches from 50000, 4 eval batches; AXE-GPFQ at P_I = 16
 RUNG, RUNG_STEPS, RUNG_BATCH, RUNG_SEQ, RUNG_LR, RUNG_WARMUP, RUNG_DATA_SEED = (
     "tiny-lm-l", 400, 8, 96, 1e-3, 20, 7)
-#: (c) the registry's models that fit one card, bf16 at full width
+#: (c) the registry's models that fit one card, bf16 at full width, each cut
+#: to REGISTRY_LAYERS layers (their B1 sites are checked at every shape)
 REGISTRY_FULL = ("stablelm-3b", "phi4-mini-3.8b", "musicgen-medium")
+REGISTRY_LAYERS = 8
 
 
 def sites_per_forward(cfg) -> int:
@@ -4771,12 +4836,15 @@ def trained_rung(torch, smi: str) -> dict:
 
 
 def registry_model(torch, arch: str, smi: str) -> dict:
-    """(c) one registry model, bf16 from a seeded init at full width,
-    RTN-packed: B1 bit-equal at every packed (K, N) at M = 4 and 256; batch
-    4 x prompt 64 + 16 new through the captured fixed-slot step (B1 exactly
+    """(c) one registry model, bf16 from a seeded init at full width cut to
+    REGISTRY_LAYERS layers, RTN-packed: B1 bit-equal at every packed (K, N)
+    at M = 4 and 256; batch 4 x prompt 64 + 16 new through the captured
+    fixed-slot step (B1 exactly
     sites x 16, tokens equal to the eager host loop's), a replayed and an
-    eager step in turns; then phase 7's trace through the FIFO paged engine
+    eager step in turns; then the short trace through the FIFO paged engine
     with float and int8 pages (B2/B3 exactly one a layer a decode step)."""
+    from dataclasses import replace
+
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, TokenBatcher
     from repro_torch.models import transformer as T
@@ -4790,7 +4858,7 @@ def registry_model(torch, arch: str, smi: str) -> dict:
     )
 
     greedy = SamplerConfig(temperature=0.0)
-    cfg = get_config(arch)
+    cfg = replace(get_config(arch), n_layers=REGISTRY_LAYERS)
     sites = sites_per_forward(cfg)
     t0 = time.perf_counter()
     model = pack_decode_params(T.init_model(cfg, 0, device="cuda"))
@@ -4827,7 +4895,7 @@ def registry_model(torch, arch: str, smi: str) -> dict:
     del caches
     nbytes = packed_weight_bytes(cfg)
 
-    specs, _ = trace_specs(cfg)
+    specs = short_trace_specs(cfg)
     reqs = [Request(uid=u, prompt=p, max_new=n) for u, p, n in specs]
     paged = {}
     for kv in ("act", "int8"):
@@ -4851,7 +4919,7 @@ def registry_model(torch, arch: str, smi: str) -> dict:
           f"step replay {fmt_spread(step_t['replay'])}, eager {fmt_spread(step_t['eager'])}; "
           f"peak memory {peak / 2**20:.1f} MiB; {smi}")
     for kv, run in paged.items():
-        print(f"[registry] {arch} paged FIFO, {kv} pages, phase 7's trace: launches "
+        print(f"[registry] {arch} paged FIFO, {kv} pages, the short trace: launches "
               f"{run['counts']} ({run['ran']}), every page back on the free list; decode step "
               f"{run['step_ms']:.3f} ms, admits {run['admit_ms_per_request']:.3f} ms a request, "
               f"{run['tok_s']:.1f} tok/s, wall {run['wall']:.3f} s, peak {run['peak_mib']:.1f} "
@@ -4899,6 +4967,9 @@ def phase_training_slice(torch, smi: str) -> dict:
 
 
 MESH_A_ARCH, MESH_B_ARCH = "smollm-360m", "phi4-mini-3.8b"
+#: (b) runs phi4-mini at full width cut to MESH_B_LAYERS of its 32 layers:
+#: a gloo rank's eager step is its collectives, about 8 a layer
+MESH_B_LAYERS = 8
 #: a phase-16 engine's block-table row: the trace's longest request (300 +
 #: 32 tokens) needs 6 pages, and the reference attention (the mesh rule)
 #: gathers a slot's whole row, 512 pages at phi4's 32768-token default
@@ -4908,22 +4979,24 @@ MESH_MAX_PAGES = 8
 MESH_RANK_TIMEOUT = 420
 
 
-def mesh_driven(torch, cfg, engine, reqs, tag: str) -> dict:
+def mesh_driven(torch, cfg, engine, reqs, tag: str, per_forward=None) -> dict:
     """Serve ``reqs`` on a mesh (or its one-device twin) engine with the
-    launch counters set to 0 just before and read just after: B1 exactly
-    the model's sites a forward, B2/B3 none (the reference attention, the
-    mesh rule), every request complete and every page back on the free
-    list. Returns the run's figures."""
+    launch counters set to 0 just before and read just after: each counter
+    of ``per_forward`` (default: B1 at the dense model's sites) exactly its
+    launches a forward and nothing else, B2/B3 none (the reference
+    attention, the mesh rule), every request complete and every page back
+    on the free list. Returns the run's figures."""
     before = program_counts(engine)
     reset_counts()
     res, wall, spent = serve_timed(torch, engine, reqs)
     counts = read_counts()
     ran = {k: v - before[k] for k, v in program_counts(engine).items()}
     forwards = ran["steps"] + ran["admits"] + ran["suffix"] + ran["batch"] + ran["chunks"]
-    sites = sites_per_forward(cfg)
-    check(counts["w4a8_matmul"] == sites * forwards and sum(counts.values()) ==
-          counts["w4a8_matmul"], f"{tag}: launches {counts} for {forwards} forwards of "
-                                 f"{sites} B1 sites, and nothing else")
+    per_forward = per_forward or {"w4a8_matmul": sites_per_forward(cfg)}
+    check(all(counts[c] == n * forwards for c, n in per_forward.items())
+          and sum(counts.values()) == sum(counts[c] for c in per_forward),
+          f"{tag}: launches {counts} for {forwards} forwards of {per_forward} a forward, "
+          f"and nothing else")
     for r in reqs:
         check(res[r.uid].size == r.prompt.size + r.max_new, f"{tag}: request {r.uid} incomplete")
     pool = engine.pool_state
@@ -5042,35 +5115,15 @@ def mesh_step_turns(torch, engines: dict, prompts, runs: int = 6) -> dict:
                                 for n, e in engines.items()}, runs=runs, scale=PAGED_CHUNK)
 
 
-def mesh_local_shapes(cfg, shape) -> list[tuple[int, int]]:
-    """The distinct local (K, N) of a model's packed sites on a mesh under
-    the serving rules (what one rank's B1 launches take)."""
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import transformer as T
-    from repro_torch.runtime import sharding as S
-
-    model = T.abstract_params(cfg)
-    mesh = make_mesh(shape, abstract=True)
-    specs = S.param_shardings(model, mesh, S.SERVING_QUANT_RULES)
-    out = []
-    for name, t in model.named_parameters():
-        if t.dim() != 2 or not name.startswith("layers."):
-            continue
-        k, n = t.shape
-        ks, ns = specs[name]
-        out.append((k // mesh.axes_size(S.spec_axes(ks)), n // mesh.axes_size(S.spec_axes(ns))))
-    return list(dict.fromkeys(out))
-
-
 def mesh_two_ranks(torch, smi: str, root: str) -> dict:
     """(b) two ranks sharing the card over gloo, mesh (1, 2): B1 bit-equal
     at every sharded (K, N) of phi4-mini-3.8b (here, before the ranks
     start: the kernels are built in this process, and the build's lock
     holds within a process only); then the ranks (this script with
-    ``--mesh-rank``) serve phase 7's trace with float and int8 pages at
-    full width, their streams tie-limited against a one-device engine on
+    ``--mesh-rank``) serve the short trace with float and int8 pages at
+    full width (MESH_B_LAYERS layers), their streams tie-limited against a one-device engine on
     the card and their digests equal."""
-    cfg_shapes = mesh_local_shapes(_config(MESH_B_ARCH), (1, 2))
+    cfg_shapes = mesh_site_shapes(_config(MESH_B_ARCH), (1, 2))[0]
     b1_rows = b1_site_check(torch, f"{MESH_B_ARCH} (1, 2) shard", cfg_shapes, smi, tag="mesh")
     gc.collect()
     torch.cuda.empty_cache()
@@ -5108,6 +5161,8 @@ def _config(arch):
 
 def mesh_rank_main(argv) -> int:
     """One rank of phase 16 (b): ``--mesh-rank R --mesh-root DIR``."""
+    from dataclasses import replace
+
     import numpy as np
     import torch
 
@@ -5128,7 +5183,7 @@ def mesh_rank_main(argv) -> int:
                      init_method=f"file://{root}/rdv_b", rank=rank, world_size=2,
                      timeout=MESH_RANK_TIMEOUT)
     greedy = SamplerConfig(temperature=0.0)
-    cfg = _config(MESH_B_ARCH)
+    cfg = replace(_config(MESH_B_ARCH), n_layers=MESH_B_LAYERS)
     model = pack_decode_params(T.init_model(cfg, 0, device="cuda"))
     gc.collect()
     torch.cuda.empty_cache()
@@ -5141,7 +5196,7 @@ def mesh_rank_main(argv) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     setup_s = time.perf_counter() - t0
-    specs, _ = trace_specs(cfg)
+    specs = short_trace_specs(cfg)
     reqs = [Request(uid=u, prompt=p, max_new=n) for u, p, n in specs]
     out = {"setup_s": setup_s, "placed_bytes": placed, "half_packed_bytes": half}
     for kv, meshed in engines.items():
@@ -5180,7 +5235,7 @@ def mesh_rank_main(argv) -> int:
                             "partings": tie["partings"], "logits_max_rel_err": rel,
                             "one_step_ms": run_one["step_ms"], "one_wall": run_one["wall"]})
             print(f"[mesh] (b) {MESH_B_ARCH} {kv} pages, 2 ranks sharing the card over gloo, "
-                  f"mesh (1, 2): phase 7's trace, {tie['agree']} / {tie['total']} tokens "
+                  f"mesh (1, 2): the short trace, {tie['agree']} / {tie['total']} tokens "
                   f"agree with the one-device engine (tie band {tie['band']:.4f}, partings "
                   f"{tie['partings']}), logits' largest relative error {rel:.3e} over the steps "
                   f"whose history both share; B1 "
@@ -5224,6 +5279,473 @@ def phase_mesh_slice(torch, smi: str) -> dict:
             "b1": {"a": {kv: a[kv]["counts"]["w4a8_matmul"] for kv in a},
                    "b": [{kv: r[kv]["counts"]["w4a8_matmul"] for kv in ("act", "int8")}
                          for r in b["ranks"]]}}
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: MoE and recurrent patterns under the mesh
+# ---------------------------------------------------------------------------
+#: (E, K, N) a rank's B1e/B4e take of granite's expert sites: 20 experts a
+#: rank on (2, 1) (expert-parallel); all 40 on (1, 2), wg/wu N-sharded and
+#: wd K-sharded (the accumulator-only form)
+GRANITE_SHARD_SITES = [(20, 1536, 512), (20, 512, 1536), (40, 1536, 256), (40, 256, 1536)]
+#: seconds the two phase-17 ranks may take together
+FAMILY_RANK_TIMEOUT = 600
+
+
+def packed_per_forward(model) -> dict:
+    """Launches a forward of a packed model: B1 at its dense sites, B1e at
+    its expert stacks (one launch a stacked site)."""
+    from repro_torch.models.layers import PackedLinear
+
+    sites = [m for m in model.modules() if isinstance(m, PackedLinear)]
+    out = {"w4a8_matmul": sum(not m.stacked for m in sites)}
+    stacked = sum(m.stacked for m in sites)
+    if stacked:
+        out["w4a8_expert_matmul"] = stacked
+    return out
+
+
+def mesh_site_shapes(cfg, shape) -> tuple[list, list]:
+    """The distinct local (K, N) of a model's packed dense sites and (E, K,
+    N) of its expert stacks on a mesh under the serving rules (what one
+    rank's B1 and B1e launches take), from the RTN-packed model on meta
+    tensors."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import PackedLinear
+    from repro_torch.quant.serve_packed import pack_decode_params
+    from repro_torch.runtime import sharding as S
+
+    model = pack_decode_params(T.abstract_params(cfg))
+    mesh = make_mesh(shape, abstract=True)
+    specs = S.param_shardings(model, mesh, S.SERVING_QUANT_RULES)
+    dense, stacked = [], []
+    for name, mod in model.named_modules():
+        if not isinstance(mod, PackedLinear):
+            continue
+        sizes = [mesh.axes_size(S.spec_axes(e)) for e in specs[name + ".packed"]]
+        kn = (2 * mod.packed.shape[-2] // sizes[-2], mod.packed.shape[-1] // sizes[-1])
+        if mod.stacked:
+            stacked.append((mod.packed.shape[0] // sizes[0], *kn))
+        else:
+            dense.append(kn)
+    return list(dict.fromkeys(dense)), list(dict.fromkeys(stacked))
+
+
+def stacked_bytes(model) -> int:
+    """Bytes of a model's expert-stacked site buffers (codes, scales,
+    col_sums and the rest)."""
+    from repro_torch.models.layers import PackedLinear
+
+    return sum(t.numel() * t.element_size() for m in model.modules()
+               if isinstance(m, PackedLinear) and m.stacked for t in m.buffers())
+
+
+def expert_shard_check(torch, smi: str) -> list[dict]:
+    """B1e and B4e bit-equal to their plain versions at every (E, K, N) of
+    GRANITE_SHARD_SITES and M in {1, 4, 64}, with the accumulator-only form
+    of both (the K-sharded stacked site's partial); at M = 4 and 64 B1e's,
+    B4e's and the accumulator form's time (cold L2), one bf16 ``torch.bmm``
+    on the dequantized stack and the byte bound."""
+    from repro_torch.core.sparsity import mask_2to4
+    from repro_torch.kernels import w4a8_mm as W
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    rows = []
+    for e, k, n in GRANITE_SHARD_SITES:
+        q = torch.randint(-8, 8, (e, k, n), generator=gen, device=dev, dtype=torch.int8)
+        qs = q * mask_2to4(q)
+        wp, (sp, meta) = W.pack_int4(q), W.compress_2to4(qs)
+        col, scol = q.sum(1, dtype=torch.int32), qs.sum(1, dtype=torch.int32)
+        scale = torch.rand((e, n), generator=gen, device=dev) * 0.05 + 1e-3
+        act_scale = torch.rand(e, generator=gen, device=dev) * 0.04 + 0.01
+        zp = torch.randint(0, 256, (e,), generator=gen, device=dev).float()
+        for m in (1, BATCH, PROMPT):
+            x = torch.randint(0, 256, (e, m, k), generator=gen, device=dev).to(torch.uint8)
+            x[e // 2] = 0  # an expert that got no token
+            for name, fn, ws, cs in (("b1e", W.w4a8_expert_matmul, (wp,), col),
+                                     ("b4e", W.w4a8_sparse_expert_matmul, (sp, meta), scol)):
+                # the full epilogue, then the accumulator-only form (ones and zeros an expert)
+                for form, qargs, out in (
+                        ("epilogue", (scale, cs, act_scale, zp), torch.bfloat16),
+                        ("accumulator", (torch.ones_like(scale), cs, torch.ones_like(act_scale),
+                                         torch.zeros_like(zp)), torch.float32)):
+                    args = (x, *ws, *qargs)
+                    y = fn(*args, out_dtype=out)
+                    r = fn(*args, out_dtype=out, reference=True)
+                    check(torch.equal(y, r), f"{name} != plain at a granite shard E={e} M={m} "
+                                             f"K={k} N={n} ({form} form)")
+            if m == 1:
+                continue
+            sw, corr = W._expert_epilogue(scale, col, act_scale, zp, e, n)
+            _, scorr = W._expert_epilogue(scale, scol, act_scale, zp, e, n)
+            one, nil = torch.ones_like(sw), torch.zeros_like(corr)
+            row = {"E": e, "M": m, "K": k, "N": n,
+                   "ms": time_ms(torch, lambda: W._launch(
+                       "w4a8_expert_matmul", x, (wp,), sw, corr, torch.bfloat16, 2),
+                       flush=flush),
+                   "b4e_ms": time_ms(torch, lambda: W._launch(
+                       "w4a8_sparse_expert_matmul", x, (sp, meta), sw, scorr, torch.bfloat16,
+                       4), flush=flush),
+                   "acc_ms": time_ms(torch, lambda: W._launch(
+                       "w4a8_expert_matmul", x, (wp,), one, nil, torch.float32, 2),
+                       flush=flush)}
+            row.update(plan_fields(W.w4a8_expert_plan(m, n, k, e, True, W._sm_count(0))))
+            xb = x.to(torch.bfloat16)
+            wb = (q.to(torch.bfloat16) * scale[:, None, :].to(torch.bfloat16)).contiguous()
+            row["library_ms"] = time_ms(torch, lambda: torch.bmm(xb, wb), flush=flush)
+            row["bound_ms"], row["bound_by"] = expert_bound_ms(e, m, k, n)
+            rows.append(row)
+            print(f"[family] B1e/B4e at granite's shard E={e} M={m:2d} K={k:4d} N={n:4d}: "
+                  f"bit-equal (and the accumulator-only form); B1e {row['ms']:.5f} ms, B4e "
+                  f"{row['b4e_ms']:.5f} ms, accumulator form {row['acc_ms']:.5f} ms, bf16 bmm "
+                  f"{row['library_ms']:.5f} ms, bound {row['bound_ms']:.5f} ms "
+                  f"({row['bound_by']}), {row['plan']}; {smi}")
+    del flush
+    return rows
+
+
+def family_world_one(torch, smi: str, root: str) -> dict:
+    """(a) NCCL at world size 1: granite-moe-3b-a800m bf16 RTN at full width
+    through ``PagedEngine(mesh=)``, phase 7's trace on float pages, its
+    decode step captured with B1e (and the collectives) inside, against a
+    one-device engine with the same attention: streams and digest
+    identical, B1e and B1 exactly their sites a forward, the captured
+    step's nodes by name."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import parse_mesh_spec
+    from repro_torch.models import transformer as T
+    from repro_torch.quant.serve_packed import pack_decode_params
+    from repro_torch.serving import PagedEngine, Request, SamplerConfig
+    from repro_torch.serving.graphs import COUNTERS, count_kernels
+
+    mesh = parse_mesh_spec("auto", device="cuda:0", init_method=f"file://{root}/rdv_a",
+                           rank=0, world_size=1)
+    check(mesh.backend == "nccl" and mesh.shape == {"data": 1},
+          f"phase 17 (a): mesh {mesh.shape} over {mesh.backend}")
+    greedy = SamplerConfig(temperature=0.0)
+    cfg = _config(GRANITE)
+    model = pack_decode_params(T.init_model(cfg, 0, device="cuda"))
+    per_forward = packed_per_forward(model)
+    specs, _ = trace_specs(cfg)
+    reqs = [Request(uid=u, prompt=p, max_new=n) for u, p, n in specs]
+    prompts = [p[:PROMPT] for _, p, _ in specs if p.size >= PROMPT]
+    try:
+        one = PagedEngine(model, cfg, mesh_paged_config("act"), greedy, device="cuda")
+        meshed = PagedEngine(model, cfg, mesh_paged_config("act"), greedy, device="cuda",
+                             mesh=mesh)
+        check(meshed.step_mode == "captured", f"(a): step mode {meshed.step_mode}")
+        warm_paged(one, specs[0][1])
+        warm_paged(meshed, specs[0][1])  # the capture, B1e and the collectives inside
+        nodes = dict(zip((fn.__name__ for fn, _, _ in COUNTERS),
+                         count_kernels(meshed._program.names)))
+        check(nodes["w4a8_expert_matmul"] == per_forward["w4a8_expert_matmul"]
+              and nodes["w4a8_matmul"] == per_forward["w4a8_matmul"],
+              f"(a): the captured step's kernel nodes {nodes}, {per_forward} a forward wanted")
+        run_one = mesh_driven(torch, cfg, one, reqs, "(a) one device", per_forward)
+        run_mesh = mesh_driven(torch, cfg, meshed, reqs, "(a) mesh", per_forward)
+        check(all(np.array_equal(run_mesh["res"][u], run_one["res"][u]) for u, _, _ in specs),
+              "(a): the world-size-1 mesh engine's streams differ from the one-device engine's")
+        check(run_mesh["digest"] == run_one["digest"], "(a): digests differ")
+        turns = mesh_step_turns(torch, {"mesh": meshed, "one device": one}, prompts)
+        out = {"counts": run_mesh["counts"], "ran": run_mesh["ran"], "nodes": nodes,
+               "turns": turns, "capture_ms": 1e3 * meshed._program.capture_s,
+               "device_ops": meshed._program.device_ops,
+               "one_device_ops": one._program.device_ops, "wall": run_mesh["wall"],
+               "one_wall": run_one["wall"], "per_forward": per_forward}
+        print(f"[family] (a) {GRANITE} float pages, NCCL world size 1, mesh {mesh.shape}: "
+              f"phase 7's trace, streams and digest identical to the one-device engine "
+              f"(reference attention both); B1e {run_mesh['counts']['w4a8_expert_matmul']} "
+              f"({per_forward['w4a8_expert_matmul']} a forward), B1 "
+              f"{run_mesh['counts']['w4a8_matmul']} ({per_forward['w4a8_matmul']} a forward); "
+              f"the captured step holds {nodes['w4a8_expert_matmul']} B1e and "
+              f"{nodes['w4a8_matmul']} B1 kernel nodes ({meshed._program.device_ops} device "
+              f"operations against the one-device step's {one._program.device_ops}), capture "
+              f"{out['capture_ms']:.1f} ms; replayed step mesh {fmt_spread(turns['mesh'])}, one "
+              f"device {fmt_spread(turns['one device'])}; serve wall {run_mesh['wall']:.3f} s "
+              f"against {run_one['wall']:.3f} s; {smi}")
+        del one, meshed
+    finally:
+        dist.destroy_process_group()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_rank_serve(torch, mesh, arch: str, rank: int, tag: str) -> dict:
+    """One model at full width, bf16 RTN, on this rank's shard: the short
+    trace (``short_trace_specs``) on float pages through the gloo mesh
+    engine (B1/B1e exactly
+    their sites a forward, its logits recorded), the placed expert bytes
+    and recurrent state against the one-device figures, the serve's peak
+    memory, the digest held across the ranks; rank 0 then runs the
+    one-device engine on the card and holds the streams tie-limited."""
+    import numpy as np
+    from repro_torch.models import transformer as T
+    from repro_torch.quant.serve_packed import pack_decode_params
+    from repro_torch.runtime.collectives import gather_dim
+    from repro_torch.serving import PagedEngine, Request, SamplerConfig
+
+    greedy = SamplerConfig(temperature=0.0)
+    cfg = _config(arch)
+    t0 = time.perf_counter()
+    model = pack_decode_params(T.init_model(cfg, 0, device=mesh.device))
+    per_forward = packed_per_forward(model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    meshed = PagedEngine(model, cfg, mesh_paged_config("act"), greedy, device=mesh.device,
+                         mesh=mesh)
+    check(meshed.step_mode == ("eager (gloo)" if mesh.device.type == "cuda" else "eager"),
+          f"{tag}: step mode {meshed.step_mode}")
+    placed_experts, half_experts = stacked_bytes(meshed.model), stacked_bytes(model) / 2
+    if rank:
+        del model  # rank 0 keeps the full model for its one-device engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    setup_s = time.perf_counter() - t0
+    specs = short_trace_specs(cfg)
+    reqs = [Request(uid=u, prompt=p, max_new=n) for u, p, n in specs]
+    torch.cuda.reset_peak_memory_stats()
+    with ReplayRecorder(meshed) as rec:
+        meshed.serve([Request(uid=10_000, prompt=specs[0][1][:8], max_new=2)])
+        run = mesh_driven(torch, cfg, meshed, reqs, f"{tag} rank {rank}", per_forward)
+    peak = torch.cuda.max_memory_allocated()
+    check(run["ran"]["admits"] == len(reqs) > meshed.paged.max_concurrency,
+          f"{tag}: {run['ran']['admits']} admits of {len(reqs)} requests in "
+          f"{meshed.paged.max_concurrency} slots (the trace must reuse freed slots)")
+    h = hashlib.blake2b(digest_size=16)
+    for u, _, _ in specs:
+        h.update(np.asarray(run["res"][u], np.int32).tobytes())
+    h.update(run["digest"].encode())
+    mine = torch.frombuffer(bytearray(h.digest()), dtype=torch.uint8).to(mesh.device)
+    every = gather_dim(mine[None], 0, mesh, mesh.axis_names).cpu()
+    check(all(torch.equal(every[r], every[0]) for r in range(every.shape[0])),
+          f"{tag}: the ranks' digests differ")
+    slots = meshed.paged.max_concurrency
+    out = {"arch": arch, "counts": run["counts"], "ran": run["ran"], "step_ms": run["step_ms"],
+           "admit_ms_per_request": run["admit_ms_per_request"], "wall": run["wall"],
+           "peak_mib": peak / 2**20, "digest": h.hexdigest(), "setup_s": setup_s,
+           "per_forward": per_forward, "placed_expert_bytes": placed_experts,
+           "half_expert_bytes": half_experts,
+           "state_mib_slot": meshed.state_bytes / slots / 2**20,
+           "state_mib_slot_one_device": meshed.state_bytes_one_device / slots / 2**20}
+    if rank == 0:
+        one = PagedEngine(model, cfg, mesh_paged_config("act"), greedy, device=mesh.device)
+        with ReplayRecorder(one) as rec_one:
+            warm_paged(one, specs[0][1])
+            run_one = mesh_driven(torch, cfg, one, reqs, f"{tag} one device", per_forward)
+        tie = tie_vs(specs, run["res"], rec.rows, run_one["res"], rec_one.rows, cfg.vocab)
+        same = []
+        for u, p, n in specs:
+            a, b = run["res"][u][p.size:], run_one["res"][u][p.size:]
+            first = next((t for t in range(n) if a[t] != b[t]), n - 1)
+            same += [(u, t) for t in range(first + 1)]
+        rel = max(((rec.rows[k] - rec_one.rows[k]).abs().max()
+                   / rec_one.rows[k].abs().max()).item() for k in same)
+        out.update({"tie": {k: v for k, v in tie.items() if k != "partings"},
+                    "partings": tie["partings"], "logits_max_rel_err": rel,
+                    "one_step_ms": run_one["step_ms"], "one_wall": run_one["wall"]})
+        print(f"[family] {tag} {arch} float pages, 2 ranks sharing the card over gloo, mesh "
+              f"{tuple(mesh.axis_sizes)}: the short trace ({len(specs)} requests in "
+              f"{PAGED_SLOTS} slots, at most {SHORT_MAX_NEW} new tokens each), "
+              f"{tie['agree']} / {tie['total']} tokens agree with the one-device engine "
+              f"(tie band {tie['band']:.4f}, partings "
+              f"{tie['partings']}), logits' largest relative error {rel:.3e} over the steps "
+              f"whose history both share; {per_forward} a forward on a rank; eager step "
+              f"{run['step_ms']:.3f} ms (gloo stages every collective through the host) "
+              f"against the one-device captured step {run_one['step_ms']:.3f} ms; digests "
+              f"equal on both ranks; {_smi()}")
+        del one, model
+    held = (f"placed expert stacks {placed_experts / 2**20:.1f} MiB against half the stacks "
+            f"{half_experts / 2**20:.1f} MiB; " if half_experts else "")
+    held += (f"recurrent state {out['state_mib_slot']:.3f} MiB a slot against "
+             f"{out['state_mib_slot_one_device']:.3f} on one device; "
+             if meshed.state_bytes_one_device else "")
+    print(f"[family] {tag} rank {rank} {arch}: {held}peak during the serve {peak / 2**20:.1f} "
+          f"MiB{' (this rank also holds the full model)' if rank == 0 else ''}; serve wall "
+          f"{run['wall']:.3f} s, set-up {setup_s:.1f} s; {_smi()}")
+    del meshed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_rank_mamba(torch, mesh, rank: int) -> dict:
+    """(d) the Jamba-width Mamba block (d_in 16384) on this rank's 8192
+    channels: a 4 x 64 parallel prefill and 16 decode steps from its state
+    (B1 4 a forward), against the one-device block on the same input
+    (relative L2 within MAMBA_STEP_TOL: the outputs, and this rank's
+    channels of the SSM state)."""
+    from dataclasses import replace
+
+    from repro_torch.models import ssm as S
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import LayerSpec
+    from repro_torch.models.layers import use_packed_backend
+    from repro_torch.quant.serve_packed import pack_decode_params
+    from repro_torch.runtime import sharding as shardlib
+
+    cfg = replace(_config(JAMBA), name="jamba-mamba-block", n_layers=1, moe=None, vocab=128,
+                  pattern=(LayerSpec("mamba", "none"),))
+    model = pack_decode_params(T.init_model(cfg, 0, device=mesh.device))
+    placed = shardlib.shard_model(model, mesh)
+    gen = torch.Generator(device=mesh.device).manual_seed(MAMBA_SEEDS[0])
+    x = torch.randn((BATCH, PROMPT + MAX_NEW, cfg.d_model), generator=gen,
+                    device=mesh.device).to(torch.bfloat16)
+
+    def run(p):
+        with torch.inference_mode(), use_packed_backend("kernel"):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            y_pre, st = S.mamba(p, x[:, :PROMPT], cfg, return_state=True)
+            torch.cuda.synchronize()
+            pre_ms = 1e3 * (time.perf_counter() - t0)
+            pre_b1 = read_counts()["w4a8_matmul"]
+            reset_counts()
+            ys, step_ms = [], []
+            for t in range(PROMPT, PROMPT + MAX_NEW):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ys.append(S.mamba_decode(p, x[:, t:t + 1], cfg, st["conv"], st["ssm"])[0])
+                torch.cuda.synchronize()
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+        return (y_pre, torch.cat(ys, dim=1), st["ssm"], pre_ms, spread_ms(step_ms[1:]),
+                (pre_b1, read_counts()["w4a8_matmul"]))
+
+    one, mine = run(model.layers[0].mixer), run(placed.layers[0].mixer)
+    sh = placed.layers[0].mixer._shard
+
+    def rel(a, b):
+        return (torch.linalg.vector_norm((a - b).float())
+                / torch.linalg.vector_norm(b.float())).item()
+
+    errs = (rel(mine[0], one[0]), rel(mine[1], one[1]),
+            rel(mine[2], shardlib.local_slice(one[2], (None, sh.ch, None), mesh)))
+    check(mine[5] == (4, 4 * MAX_NEW), f"(d) rank {rank}: B1 launches (prefill, decode) "
+                                       f"{mine[5]}, (4, {4 * MAX_NEW}) wanted")
+    check(all(math.isfinite(v) and v <= MAMBA_STEP_TOL for v in errs),
+          f"(d) rank {rank}: the sharded Mamba block against its one-device run: prefill "
+          f"{errs[0]:.3e}, decode {errs[1]:.3e}, SSM state {errs[2]:.3e} (relative L2, "
+          f"tolerance {MAMBA_STEP_TOL})")
+    d_in = cfg.ssm.expand * cfg.d_model
+    print(f"[family] (d) rank {rank}: the Mamba block at {JAMBA}'s widths on {d_in // 2} of "
+          f"{d_in} channels, mesh {tuple(mesh.axis_sizes)}: relative L2 against its "
+          f"one-device run prefill {errs[0]:.3e}, decode {errs[1]:.3e}, SSM state {errs[2]:.3e} "
+          f"(tolerance {MAMBA_STEP_TOL}); prefill {BATCH} x {PROMPT} {mine[3]:.3f} ms (one "
+          f"device {one[3]:.3f}), decode step {fmt_spread(mine[4])} (one device "
+          f"{fmt_spread(one[4])}); B1 {mine[5]}; {_smi()}")
+    out = {"errs": errs, "prefill_ms": mine[3], "one_prefill_ms": one[3], "step": mine[4],
+           "one_step": one[4], "b1": mine[5]}
+    del model, placed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_rank_main(argv) -> int:
+    """One rank of phase 17 (b)-(d): ``--family-rank R --mesh-root DIR``:
+    granite on a (2, 1) mesh, then xlstm-350m and the Mamba block on a
+    (1, 2) mesh of the same two gloo ranks."""
+    import torch
+
+    rank = int(argv[argv.index("--family-rank") + 1])
+    root = argv[argv.index("--mesh-root") + 1]
+    sys.path.insert(0, SRC)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+
+    init = dict(device="cuda:0", backend="gloo", init_method=f"file://{root}/rdv_17",
+                rank=rank, world_size=2, timeout=FAMILY_RANK_TIMEOUT)
+    out, walls = {}, {}
+    t0 = time.perf_counter()
+    out["b"] = family_rank_serve(torch, make_mesh((2, 1), **init), GRANITE, rank, "(b)")
+    walls["b"] = time.perf_counter() - t0
+    mesh = make_mesh((1, 2), **init)
+    t0 = time.perf_counter()
+    out["c"] = family_rank_serve(torch, mesh, XLSTM, rank, "(c)")
+    walls["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["d"] = family_rank_mamba(torch, mesh, rank)
+    walls["d"] = time.perf_counter() - t0
+    out["walls"] = walls
+    with open(os.path.join(root, f"family{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_family_mesh(torch, smi: str) -> dict:
+    """Phase 17: MoE and recurrent patterns under the mesh. (a) granite at
+    NCCL world size 1; B1e/B4e at granite's expert shards, B1 at
+    xlstm-350m's and the Mamba block's (1, 2) shards (here, before the ranks
+    start: the kernels are built in this process); then two gloo ranks
+    sharing the card: (b) granite expert-parallel on (2, 1), (c)
+    xlstm-350m on (1, 2), (d) the Jamba-width Mamba block on (1, 2)."""
+    from dataclasses import replace
+
+    from repro_torch.models.config import LayerSpec
+
+    t0 = time.perf_counter()
+    root = os.path.join(ROOT, "build", "phase17")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    a = family_world_one(torch, smi, root)
+    walls = {"a": time.perf_counter() - t0}
+    t1 = time.perf_counter()
+    expert_rows = expert_shard_check(torch, smi)
+    block = replace(_config(JAMBA), name="jamba-mamba-block", n_layers=1, moe=None, vocab=128,
+                    pattern=(LayerSpec("mamba", "none"),))
+    b1_rows = {what: b1_site_check(torch, f"{what} (1, 2) shard",
+                                   mesh_site_shapes(cfg, (1, 2))[0], smi, tag="family")
+               for what, cfg in ((XLSTM, _config(XLSTM)), ("the Mamba block", block))}
+    walls["kernels"] = time.perf_counter() - t1
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--family-rank",
+                               str(r), "--mesh-root", root], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            try:
+                logs.append(p.communicate(timeout=FAMILY_RANK_TIMEOUT)[0])
+            except subprocess.TimeoutExpired:
+                p.kill()
+                logs.append(p.communicate()[0] + "\n(timed out)")
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        for line in log.splitlines():
+            if line.startswith("[family]"):
+                print(line)
+        check(p.returncode == 0, f"phase 17: rank {r} failed (rc {p.returncode}):\n"
+                                 f"{log[-4000:]}")
+    ranks = [json.load(open(os.path.join(root, f"family{r}.json"))) for r in range(2)]
+    for part in ("b", "c"):
+        check(ranks[0][part]["digest"] == ranks[1][part]["digest"],
+              f"({part}): digests differ")
+    walls["ranks"] = time.perf_counter() - t1
+    wall_s = time.perf_counter() - t0
+    print(f"[family] phase 17 wall {wall_s:.3f} s ((a) {walls['a']:.3f} s, kernel checks "
+          f"{walls['kernels']:.3f} s, ranks {walls['ranks']:.3f} s: "
+          + ", ".join(f"({k}) {v:.3f} s" for k, v in ranks[0]["walls"].items()) + ")")
+    b1e = {"a": a["counts"]["w4a8_expert_matmul"],
+           "b": [r["b"]["counts"]["w4a8_expert_matmul"] for r in ranks]}
+    b1 = {"a": a["counts"]["w4a8_matmul"], "b": [r["b"]["counts"]["w4a8_matmul"] for r in ranks],
+          "c": [r["c"]["counts"]["w4a8_matmul"] for r in ranks],
+          "d": [sum(r["d"]["b1"]) for r in ranks]}
+    return {"a": a, "ranks": ranks, "expert_rows": expert_rows, "b1_rows": b1_rows,
+            "wall_s": wall_s, "walls": walls, "b1e": b1e, "b1": b1}
 
 
 def expert_record(name, rows, err, launches, ms_key, plain_key, replaces, pallas):
@@ -5431,25 +5953,38 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
 
-    smi = phase_card(torch)
-    rows, max_err, host = phase_kernel(torch)
-    b6_host = rmsnorm_host_us(torch, torch.Generator(device="cuda").manual_seed(0))
-    launches = phase_slice(torch)
-    gpfq_rows, gpfq_err = phase_gpfq(torch)
-    calib = phase_calibration(torch)
-    paged_rows, paged_err = phase_paged_kernels(torch)
-    paged = phase_paged_slice(torch)
-    sparse_k = phase_sparse_kernels(torch, gpfq_rows)
-    b6 = phase_rmsnorm(torch)
-    sparse = phase_sparse_slice(torch, calib, paged)
-    throughput = phase_throughput_slice(torch, paged)
-    expert_rows, expert_err = phase_expert_kernels(torch)
-    moe = phase_moe_slice(torch)
-    search = phase_search_slice(torch, smi)
-    observe = phase_observe_slice(torch, smi, search, paged)
-    recurrent = phase_recurrent_slice(torch, smi)
-    training = phase_training_slice(torch, smi)
-    mesh = phase_mesh_slice(torch, smi)
+    walls, t_start = {}, time.perf_counter()
+
+    def phase(n, fn, *args):
+        """Run one phase (or a part of one) and print its wall."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[n] = walls.get(n, 0.0) + time.perf_counter() - t0
+        print(f"[wall] phase {n} ({fn.__name__}): {time.perf_counter() - t0:.1f} s", flush=True)
+        return out
+
+    smi = phase(1, phase_card, torch)
+    rows, max_err, host = phase(2, phase_kernel, torch)
+    b6_host = phase(2, rmsnorm_host_us, torch, torch.Generator(device="cuda").manual_seed(0))
+    launches = phase(3, phase_slice, torch)
+    gpfq_rows, gpfq_err = phase(4, phase_gpfq, torch)
+    calib = phase(5, phase_calibration, torch)
+    paged_rows, paged_err = phase(6, phase_paged_kernels, torch)
+    paged = phase(7, phase_paged_slice, torch)
+    sparse_k = phase(8, phase_sparse_kernels, torch, gpfq_rows)
+    b6 = phase(8, phase_rmsnorm, torch)
+    sparse = phase(9, phase_sparse_slice, torch, calib, paged)
+    throughput = phase(10, phase_throughput_slice, torch, paged)
+    expert_rows, expert_err = phase(11, phase_expert_kernels, torch)
+    moe = phase(11, phase_moe_slice, torch)
+    search = phase(12, phase_search_slice, torch, smi)
+    observe = phase(13, phase_observe_slice, torch, smi, search, paged)
+    recurrent = phase(14, phase_recurrent_slice, torch, smi)
+    training = phase(15, phase_training_slice, torch, smi)
+    mesh = phase(16, phase_mesh_slice, torch, smi)
+    family = phase(17, phase_family_mesh, torch, smi)
+    print(f"[wall] total {time.perf_counter() - t_start:.1f} s: "
+          + ", ".join(f"{n}: {w:.1f}" for n, w in walls.items()), flush=True)
     records = [
         kernel_record(rows, max_err, launches, host),
         paged_record("paged_decode_attention", paged_rows["float"], paged_err["float"],
@@ -5498,6 +6033,19 @@ def main() -> int:
     # of the two gloo ranks (b), and B1 at phi4-mini-3.8b's sharded sites
     records[0]["mesh_launches"] = mesh["b1"]
     records[0]["mesh_sites"] = mesh["b"]["b1"]
+    # phase 17's launches: B1e and B1 on granite at NCCL world size 1 (a)
+    # and on each gloo rank of (b); B1 on each rank of xlstm-350m (c) and
+    # the Mamba block (d); B1e/B4e at granite's expert shards, B1 at the
+    # (1, 2) shards of xlstm-350m and the Mamba block
+    records[0]["family_launches"] = family["b1"]
+    records[0]["family_sites"] = family["b1_rows"]
+    records[6]["family_launches"] = family["b1e"]
+    records[6]["family_shards"] = [{k: r[k] for k in (
+        "E", "M", "K", "N", "ms", "acc_ms", "bound_ms", "bound_by", "library_ms", "plan")}
+        for r in family["expert_rows"]]
+    records[7]["family_shards"] = [{k: r[k] for k in (
+        "E", "M", "K", "N", "b4e_ms", "bound_ms", "bound_by", "library_ms")}
+        for r in family["expert_rows"]]
     print(json.dumps({"kernels": records}))
     # one card: every phase runs on cuda:0
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -5509,4 +6057,6 @@ def main() -> int:
 if __name__ == "__main__":
     if "--mesh-rank" in sys.argv:
         sys.exit(mesh_rank_main(sys.argv))
+    if "--family-rank" in sys.argv:
+        sys.exit(family_rank_main(sys.argv))
     sys.exit(main())

@@ -19,10 +19,11 @@ def quantize_activations(x: torch.Tensor, *, per_expert: bool = False, range_red
     at zero, and an expert that got no token takes the 1e-8 scale floor.
     The scale and zero point are then (E,).
 
-    ``range_reduce`` takes the per-tensor range as the f32 pair (max,
-    -min) and returns it reduced over whatever else holds parts of the
-    tensor (a K-sharded site's ranks), so every part quantizes with the
-    whole tensor's scale and zero point."""
+    ``range_reduce`` takes the range as the f32 pair (max, -min), stacked
+    on a leading axis of 2 (each (E,) with ``per_expert``), and returns it
+    reduced over whatever else holds parts of the tensor (a K-sharded
+    site's ranks), so every part quantizes with the whole tensor's (or
+    each whole expert's) scale and zero point."""
     xf = x.to(torch.float32)
     if per_expert:
         flat = xf.reshape(xf.shape[0], -1)
@@ -31,9 +32,9 @@ def quantize_activations(x: torch.Tensor, *, per_expert: bool = False, range_red
     else:
         lo = torch.clamp(torch.amin(xf), max=0.0)
         hi = torch.clamp(torch.amax(xf), min=0.0)
-        if range_reduce is not None:
-            both = range_reduce(torch.stack([hi, -lo]))
-            hi, lo = both[0], -both[1]
+    if range_reduce is not None:
+        both = range_reduce(torch.stack([hi, -lo]))
+        hi, lo = both[0], -both[1]
     scale = torch.clamp((hi - lo) / 255.0, min=1e-8)
     zp = torch.clamp(torch.round(-lo / scale), 0.0, 255.0)
     shape = (-1,) + (1,) * (xf.dim() - 1) if per_expert else ()

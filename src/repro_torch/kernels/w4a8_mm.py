@@ -606,7 +606,11 @@ def w4a8_expert_matmul(
     :func:`w4a8_decode_matmul` on the slices. CUDA tensors launch the
     kernel once for all E (``w4a8_expert_matmul.launches`` counts it, apart
     from B1's count); CPU tensors, or ``reference``, take the plain
-    version. Never falls back. Returns (E, M, N)."""
+    version. Never falls back. Returns (E, M, N).
+
+    With ``w_scale`` ones, ``act_scale`` ones(E), ``act_zp`` zeros(E) and
+    f32 out, the epilogue gives each expert's integer accumulator alone,
+    exactly (below 2^24): a K-sharded stacked site's shard runs so."""
     _check_expert_args("w4a8_expert_matmul", x, (w_packed,), act_scale, act_zp, out_dtype, 2)
     e, _, k = x.shape
     n = w_packed.shape[-1]

@@ -77,6 +77,11 @@ and ``sample:`` lines, which carry the tokens of the one-device run::
 
     torchrun --nproc-per-node 2 -m repro_torch.launch.serve --arch smollm-360m \
         --packed --paged --block-size 64 --mesh 1,2
+
+MoE and recurrent patterns serve on a mesh too (``tiny-moe``, ``tiny-ssm``,
+``tiny-xlstm``, ``tiny-hybrid`` on CPU ranks; ``granite-moe-3b-a800m`` and
+``xlstm-350m`` on cards): each rank prints the experts of a stacked site it
+holds and the recurrent state MiB it holds beside the one-device figure.
 """
 
 from __future__ import annotations
@@ -341,7 +346,24 @@ def _paged_engine(args, model, cfg, sampler, device, kv_scales=None, mesh=None) 
           f"slots={args.max_concurrency} kv_dtype={args.kv_dtype} "
           f"pool={pool_mb:.2f}MB{pc}{pol}{attn_dp}"
           f"{f' decode_step={engine.step_mode}' if mesh is not None else ''}")
+    if mesh is not None:
+        _print_mesh_holdings(engine, cfg)
     return engine
+
+
+def _print_mesh_holdings(engine: PagedEngine, cfg) -> None:
+    """What this rank holds of the expert stacks and the recurrent lanes."""
+    for block in engine.model.layers:
+        sh = getattr(getattr(block.ffn, "wd", None), "_shard", None)
+        if block.spec.ffn == "moe" and sh is not None:
+            lo, hi = sh.experts(cfg.moe.n_experts)
+            print(f"[serve] experts: {hi - lo} of {cfg.moe.n_experts} a stacked site on this "
+                  f"rank ({lo}..{hi - 1}), wd K over {list(sh.k)}")
+            break
+    if engine.state_bytes_one_device:
+        print(f"[serve] recurrent state: {engine.state_bytes / 2**20:.3f} MiB on this rank "
+              f"against {engine.state_bytes_one_device / 2**20:.3f} MiB on one device "
+              f"({engine.paged.max_concurrency} slots)")
 
 
 if __name__ == "__main__":

@@ -40,6 +40,7 @@ from repro_torch.kernels.paged_attention import (
     paged_decode_attention,
 )
 from repro_torch.kernels.w4a8_mm import (
+    _expert_epilogue,
     datapath_kernel_args,
     unpack_int4,
     unpack_sparse24,
@@ -140,7 +141,7 @@ class Linear(nn.Module):
         else:
             y = x @ self.w
         bias = None if self.bias is None else relayout(self.bias, -1, sh.bias, sh.n, sh.mesh)
-        return _add_bias(y, bias, False)
+        return _add_bias(y, bias, self.w.dim() == 3)
 
 
 class PackedLinear(nn.Module):
@@ -195,19 +196,21 @@ def dequant_weight(leaf: PackedLinear) -> torch.Tensor:
     return site_codes(leaf).to(leaf.scale.dtype) * leaf.scale
 
 
-def _static_act_raw(x2, leaf: PackedLinear):
-    """``rint(x / scale) + zp`` under the site's calibrated static quantizer,
+def _static_act_raw(x2, leaf: PackedLinear, act_scale=None, act_zp=None):
+    """``rint(x / scale) + zp`` under the site's calibrated static quantizer
+    (``act_scale``/``act_zp`` where given: an expert shard's entries),
     before the clip (f32), with the scale and zero point."""
     shape = (-1, 1, 1) if leaf.stacked else ()  # one quantizer an expert
-    scale = leaf.act_scale.to(torch.float32).reshape(shape)
-    zp = leaf.act_zp.to(torch.float32).reshape(shape)
+    scale = (leaf.act_scale if act_scale is None else act_scale).to(torch.float32).reshape(shape)
+    zp = (leaf.act_zp if act_zp is None else act_zp).to(torch.float32).reshape(shape)
     return torch.round(x2.to(torch.float32) / scale) + zp, scale, zp
 
 
-def _static_act_codes(x2, leaf: PackedLinear, spec: DatapathSpec):
+def _static_act_codes(x2, leaf: PackedLinear, spec: DatapathSpec, act_scale=None,
+                      act_zp=None):
     """Activation codes from the site's calibrated static quantizer: pure
     elementwise ops, codes in the certificate's alphabet."""
-    raw, scale, zp = _static_act_raw(x2, leaf)
+    raw, scale, zp = _static_act_raw(x2, leaf, act_scale, act_zp)
     alpha = act_alphabet(spec.act_bits, signed=spec.act_signed)
     codes = torch.clamp(raw, alpha.qmin, alpha.qmax)
     return codes.to(torch.int8 if spec.act_signed else torch.uint8), scale, zp
@@ -226,15 +229,19 @@ def packed_linear(x, leaf: PackedLinear, *, spec: DatapathSpec | None = None,
     per-tensor quantizer runs.
 
     A sharded site (``leaf._shard``, its input already in the K layout)
-    runs on its local codes, and its output holds this rank's N columns. A
-    K-sharded one takes the dynamic quantizer's range over every rank's
-    part of the row (so its codes are the unsharded codes), has the kernel
-    return its integer accumulator alone (``s_w * s_a`` = 1, correction 0:
-    the epilogue gives ``float(acc)``), sums those over the K axes and
-    applies the unsharded epilogue ``(acc - zp * col_sums) * s_w * s_a`` in
-    the kernel's order, then the bias: the output is the unsharded site's
-    bit for bit while every partial and their sum stay below 2^24 in
-    magnitude (a certified site's do where K / T * 2^(P_I - 1) < 2^24)."""
+    runs on its local codes, and its output holds this rank's N columns;
+    a stacked one takes its experts' rows, (E_local, M, K), and cuts its
+    replicated per-expert static quantizer to them. A K-sharded one takes
+    the dynamic quantizer's range over every rank's part of the row (of
+    each expert's rows when stacked), so its codes are the unsharded codes,
+    has the kernel return its integer accumulator alone (``s_w * s_a`` =
+    1, correction 0: the epilogue gives ``float(acc)``; one and zero an
+    expert when stacked), sums those over the K axes and applies the
+    unsharded epilogue ``(acc - zp * col_sums) * s_w * s_a`` in the
+    kernel's order (per expert when stacked), then the bias: the output is
+    the unsharded site's bit for bit while every partial and their sum stay
+    below 2^24 in magnitude (a certified site's do where K / T * 2^(P_I -
+    1) < 2^24)."""
     embedded = leaf.spec
     if spec is not None and embedded is not None:
         embedded.require_matches(spec, context="packed_linear")
@@ -262,7 +269,11 @@ def packed_linear(x, leaf: PackedLinear, *, spec: DatapathSpec | None = None,
     sh = getattr(leaf, "_shard", None)
     k_sharded = sh is not None and bool(sh.k)
     if resolved.static_act and leaf.act_scale is not None:
-        codes, act_scale, act_zp = _static_act_codes(x2, leaf, resolved)
+        shard_q = {}
+        if stacked and sh is not None:  # the replicated quantizer, cut to the rank's experts
+            shard_q = {n: relayout(getattr(leaf, n), 0, (), sh.e, sh.mesh)
+                       for n in ("act_scale", "act_zp")}
+        codes, act_scale, act_zp = _static_act_codes(x2, leaf, resolved, **shard_q)
     else:
         codes, act_scale, act_zp = quantize_activations(
             x2, per_expert=stacked,
@@ -282,8 +293,10 @@ def packed_linear(x, leaf: PackedLinear, *, spec: DatapathSpec | None = None,
         weights = (leaf.packed,)
         matmul = w4a8_expert_matmul if stacked else w4a8_decode_matmul
     kernel_args = (scale.to(torch.float32), col_sums, act_scale, act_zp)
-    if k_sharded:  # the accumulator alone
-        kernel_args = (torch.ones_like(kernel_args[0]), col_sums, 1.0, 0.0)
+    if k_sharded:  # the accumulator alone: s_w * s_a = 1, correction 0 (per expert when stacked)
+        one, zero = ((torch.ones_like(act_scale), torch.zeros_like(act_zp)) if stacked
+                     else (1.0, 0.0))
+        kernel_args = (torch.ones_like(kernel_args[0]), col_sums, one, zero)
     y = matmul(
         codes,
         *weights,
@@ -295,8 +308,13 @@ def packed_linear(x, leaf: PackedLinear, *, spec: DatapathSpec | None = None,
     )
     if k_sharded:
         acc = all_reduce_sum(y, sh.mesh, sh.k)
-        corr = col_sums.reshape(-1).to(torch.float32) * act_zp
-        sw = scale.reshape(-1).to(torch.float32) * act_scale
+        if stacked:
+            sw, corr = _expert_epilogue(scale, col_sums, act_scale, act_zp, acc.shape[0],
+                                        acc.shape[-1])
+            sw, corr = sw[:, None], corr[:, None]  # (E, 1, N): one row an expert
+        else:
+            corr = col_sums.reshape(-1).to(torch.float32) * act_zp
+            sw = scale.reshape(-1).to(torch.float32) * act_scale
         y = ((acc - corr) * sw).to(x.dtype)
     if not stacked:
         y = y.reshape(*lead, y.shape[-1])

@@ -11,6 +11,11 @@ runs all E experts of a site in one launch of the expert-axis kernel
 (:func:`~repro_torch.kernels.w4a8_mm.w4a8_expert_matmul`), as the
 reference's ``jax.vmap(packed_linear)`` runs one batched Pallas call.
 
+Under a mesh (:func:`~repro_torch.runtime.sharding.shard_model`) the
+stacked sites hold a rank's experts (expert parallelism, the ``expert``
+axis where it shards E) and, inside them, the columns and rows of tensor
+parallelism (wg/wu N-sharded, wd K-sharded); see :func:`moe`.
+
 Every shape here is static and nothing reads the host, so a decode step
 with MoE blocks is captured as a CUDA graph like a dense one. The routing
 follows the reference where torch differs from JAX:
@@ -31,6 +36,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.runtime.collectives import relayout
 
 from .config import ModelConfig
 from .layers import pmm
@@ -107,27 +114,45 @@ def route(router_w, x, cfg: ModelConfig):
     return xf, dispatch, combine, gates, topi, c
 
 
-def expert_matmul(p: MoE, name: str, xe):
+def expert_matmul(p: MoE, name: str, xe, have=(), want=()):
     """The stacked site ``name`` on the dispatched tokens: xe (E, G, C, K)
     -> (E, G, C, N). The site sees its experts' rows as (E, G*C, K), as the
     reference's vmapped ``packed_linear`` does; a packed site adds its
-    stacked bias (E, 1, N) on every backend."""
+    stacked bias (E, 1, N) on every backend. Under a mesh ``xe`` holds the
+    site's experts, its last dim in layout ``have``, and the output's last
+    dim is relaid to ``want`` (:func:`~repro_torch.models.layers.pmm`)."""
     E, G, C, D = xe.shape
-    return pmm(p, name, xe.reshape(E, G * C, D)).reshape(E, G, C, -1)
+    return pmm(p, name, xe.reshape(E, G * C, D), have, want).reshape(E, G, C, -1)
 
 
 def moe(p: MoE, x, cfg: ModelConfig, *, aux: bool = True):
     """x: (B, S, d) -> (y (B, S, d), the Switch load-balance loss (0-d f32,
-    None with ``aux=False``: decode steps skip it))."""
+    None with ``aux=False``: decode steps skip it)).
+
+    Under a mesh the tokens are replicated, so routing runs whole on every
+    rank. A rank dispatches to its experts ``[e_lo, e_hi)`` alone (each
+    dispatched row has one token or none: exact in any order), runs the
+    three sites on them (the hidden layer in wd's K layout), gathers ``ye``
+    over the expert axes and combines over all E, as the one-device model
+    does: a token's top-k expert terms are summed in the one-device order,
+    so the output is the one-device output bit for bit."""
     mo = cfg.moe
     B, S, d = x.shape
     xf, dispatch, combine, gates, topi, _ = route(p.router.w, x, cfg)
+    sh = getattr(p.wd, "_shard", None)
+    mid = ()
+    if sh is not None:  # this rank's experts; the hidden layer in wd's K layout
+        lo, hi = sh.experts(mo.n_experts)
+        dispatch, mid = dispatch[:, :, lo:hi], sh.k
     xe = torch.einsum("gsec,gsd->egcd", dispatch, xf)
     if cfg.act == "swiglu":
-        h = F.silu(expert_matmul(p, "wg", xe)) * expert_matmul(p, "wu", xe)
+        h = F.silu(expert_matmul(p, "wg", xe, want=mid)) * expert_matmul(p, "wu", xe, want=mid)
     else:
-        h = F.gelu(expert_matmul(p, "wi", xe), approximate="tanh")  # jax.nn.gelu default
-    ye = expert_matmul(p, "wd", h)
+        h = F.gelu(expert_matmul(p, "wi", xe, want=mid),
+                   approximate="tanh")  # jax.nn.gelu default
+    ye = expert_matmul(p, "wd", h, have=mid)
+    if sh is not None:  # every expert's output, gathered over the expert axes
+        ye = relayout(ye, 0, sh.e, (), sh.mesh)
     dt = torch.promote_types(combine.dtype, ye.dtype)
     y = torch.einsum("gsec,egcd->gsd", combine.to(dt), ye.to(dt))
     loss = None

@@ -14,6 +14,16 @@ captured decode step reads them at fixed addresses).
 :class:`~repro_torch.models.layers.PackedLinear`) and the float leaves
 ``conv_w``, ``conv_b``, ``dt_bias``, ``A_log`` and ``D``, with the
 reference's (K, N) layouts.
+
+Under a mesh (``_shard``, a :class:`~repro_torch.runtime.sharding.
+MixerShard`) a rank holds the channels ``ch`` of d_in: its slices of
+``conv_w``, ``conv_b``, ``A_log``, ``D`` and ``dt_bias``, and of the
+scan and its states, which are local per channel. The fused ``in_proj``
+(N = 2 d_in, N-sharded) is gathered and each half cut to the rank's
+channels (a contiguous N shard would give one rank all of xin and another
+all of z); ``x_proj`` is K-sharded (its integer accumulators summed
+exactly), ``dt_proj`` N-sharded onto the channels, ``out_proj``
+K-sharded.
 """
 
 from __future__ import annotations
@@ -24,6 +34,8 @@ from functools import partial
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.runtime.collectives import relayout
 
 from .config import ModelConfig
 from .layers import Linear, normal_weight, pmm, torch_dtype
@@ -88,13 +100,31 @@ def _causal_conv(x, w, b, state=None):
     return y, new_state
 
 
+def split_halves(p, xz):
+    """The fused projection's output (..., 2 d_in) -> (xin, z), each in the
+    mixer's channel layout: halves of the whole row, or under a mesh the
+    rank's channels of each half (``xz`` then arrives whole)."""
+    a, b = torch.chunk(xz, 2, dim=-1)
+    sh = getattr(p, "_shard", None)
+    if sh is None:
+        return a, b
+    return relayout(a, -1, (), sh.ch, sh.mesh), relayout(b, -1, (), sh.ch, sh.mesh)
+
+
+def _channels(p) -> tuple:
+    sh = getattr(p, "_shard", None)
+    return () if sh is None else sh.ch
+
+
 def _ssm_params(p, x, cfg: ModelConfig):
-    """Input-dependent (dt, B, C) and the fixed A. x: (B, S, d_in)."""
+    """Input-dependent (dt, B, C) and the fixed A. x: (B, S, d_in), in the
+    mixer's channel layout (dt too)."""
     s = cfg.ssm
     dtr = cfg.dt_rank
-    proj = pmm(p, "x_proj", x)  # (B, S, dtr + 2N)
+    ch = _channels(p)
+    proj = pmm(p, "x_proj", x, have=ch)  # (B, S, dtr + 2N)
     dt_r, b_ssm, c_ssm = torch.split(proj, [dtr, s.d_state, s.d_state], dim=-1)
-    dt = F.softplus(pmm(p, "dt_proj", dt_r) + p.dt_bias)  # (B, S, d_in)
+    dt = F.softplus(pmm(p, "dt_proj", dt_r, want=ch) + p.dt_bias)  # (B, S, d_in)
     a = -torch.exp(p.A_log.to(torch.float32))  # (d_in, N)
     return dt, b_ssm, c_ssm, a
 
@@ -155,15 +185,14 @@ def mamba(p: Mamba, x, cfg: ModelConfig, chunk: int = 256, return_state: bool = 
     {"conv", "ssm"} (the chunkwise-parallel prefill)."""
     B, S0, _ = x.shape
     s = cfg.ssm
-    xz = pmm(p, "in_proj", x)
-    xin_raw, z = torch.chunk(xz, 2, dim=-1)
+    xin_raw, z = split_halves(p, pmm(p, "in_proj", x))
     xin, _ = _causal_conv(xin_raw, p.conv_w, p.conv_b)
     xin = F.silu(xin)
     dt, b_ssm, c_ssm, a = _ssm_params(p, xin, cfg)
     y, h_last = selective_scan(xin, dt, b_ssm, c_ssm, a, p.D, s.d_state, chunk=chunk,
                                return_state=True)
     y = y.to(x.dtype) * F.silu(z)
-    out = pmm(p, "out_proj", y)
+    out = pmm(p, "out_proj", y, have=_channels(p))
     if not return_state:
         return out
     ksz = p.conv_w.shape[0]
@@ -178,9 +207,9 @@ def mamba_decode(p: Mamba, x, cfg: ModelConfig, conv_state, ssm_state):
     """Exact single-token step. x: (B, 1, d_model); conv_state (B, d_conv-1,
     d_in) in the act dtype, ssm_state (B, d_in, N) f32. The states are
     updated in place (the reference returns new ones); returns (y,
-    conv_state, ssm_state)."""
-    xz = pmm(p, "in_proj", x)
-    xin, z = torch.chunk(xz, 2, dim=-1)
+    conv_state, ssm_state). Under a mesh the states hold the rank's
+    channels."""
+    xin, z = split_halves(p, pmm(p, "in_proj", x))
     xin, new_conv = _causal_conv(xin, p.conv_w, p.conv_b, conv_state)
     conv_state.copy_(new_conv)
     xin = F.silu(xin)
@@ -192,7 +221,7 @@ def mamba_decode(p: Mamba, x, cfg: ModelConfig, conv_state, ssm_state):
     y = torch.einsum("bdn,bn->bd", ssm_state, c_ssm[:, 0].to(torch.float32))
     y = y + p.D.to(torch.float32) * xin[:, 0].to(torch.float32)
     y = y.to(x.dtype)[:, None, :] * F.silu(z)
-    return pmm(p, "out_proj", y), conv_state, ssm_state
+    return pmm(p, "out_proj", y, have=_channels(p)), conv_state, ssm_state
 
 
 def mamba_state_shapes(cfg: ModelConfig, batch: int) -> dict:

@@ -308,9 +308,17 @@ def recurrent_state_shapes(spec: LayerSpec, cfg: ModelConfig, batch: int) -> dic
     return {} if rec is None else rec.state_shapes(cfg, batch)
 
 
-def _zero_state(spec: LayerSpec, cfg: ModelConfig, batch: int, device) -> dict:
-    return {name: torch.zeros(shape, dtype=dt, device=device)
-            for name, (shape, dt) in recurrent_state_shapes(spec, cfg, batch).items()}
+def _zero_state(spec: LayerSpec, cfg: ModelConfig, batch: int, device, shard=None) -> dict:
+    """A recurrent layer's zeroed decode state; with ``shard`` (its mixer's
+    mesh layout) the state's compute layout: the rank's channels or heads."""
+    out = {}
+    for name, (shape, dt) in recurrent_state_shapes(spec, cfg, batch).items():
+        if shard is not None:
+            dim, axes = shard.states[name]
+            shape = list(shape)
+            shape[dim] //= shard.mesh.axes_size(axes)
+        out[name] = torch.zeros(shape, dtype=dt, device=device)
+    return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda",
@@ -340,6 +348,21 @@ def _mixer_decode(block: Block, cfg: ModelConfig, h, cache: dict):
     return rec.decode(block.mixer, h, cfg, *(cache[name] for name in rec.state))[0]
 
 
+def _mixer_decode_lanes(block: Block, cfg: ModelConfig, h, pool: dict):
+    """:func:`_mixer_decode` on a paged cache's slot lanes. Under a mesh
+    the lanes are held as the engine placed them (``MixerShard.store``):
+    each state is moved to its compute layout (every slot, the rank's
+    channels or heads), stepped, and written back in place."""
+    sh = getattr(block.mixer, "_shard", None)
+    if sh is None:
+        return _mixer_decode(block, cfg, h, pool)
+    live = {name: sh.lanes_in(name, lanes) for name, lanes in pool.items()}
+    y = _mixer_decode(block, cfg, h, live)
+    for name, lanes in pool.items():
+        sh.lanes_out(name, lanes, live[name])
+    return y
+
+
 def _mixer_prefill(block: Block, cfg: ModelConfig, h):
     """A recurrent mixer over the prompt: (y, its end-of-sequence state).
     ``cfg.prefill_mode`` "parallel" runs the chunkwise-parallel forms;
@@ -348,7 +371,7 @@ def _mixer_prefill(block: Block, cfg: ModelConfig, h):
     if cfg.prefill_mode == "parallel":
         return RECURRENT[block.spec.mixer].forward(block.mixer, h, cfg, return_state=True)
     B, S, _ = h.shape
-    state = _zero_state(block.spec, cfg, B, h.device)
+    state = _zero_state(block.spec, cfg, B, h.device, getattr(block.mixer, "_shard", None))
     ys = [_mixer_decode(block, cfg, h[:, t:t + 1], state)[:, 0] for t in range(S)]
     return torch.stack(ys, dim=1), state
 
@@ -375,6 +398,10 @@ def prefill(model: Transformer, batch: dict, max_len: int, prefix_kv=None,
     B, S, _ = x.shape
     if caches is None:
         caches = init_cache(cfg, B, max_len, device=x.device, kv_heads=_local_kv_heads(model))
+        for block, cache in zip(model.layers, caches):
+            sh = getattr(block.mixer, "_shard", None)
+            if block.spec.mixer != "attn" and sh is not None:  # a mesh rank's compute layout
+                cache.update(_zero_state(block.spec, cfg, B, x.device, sh))
     for i, (block, cache) in enumerate(zip(model.layers, caches)):
         if block.mixer is not None:
             h = norm(block.norm1, x, cfg.norm)
@@ -515,7 +542,7 @@ def decode_step_paged(model: Transformer, tokens, cache: dict, *, attn_impl: str
         if block.mixer is not None and block.spec.mixer != "attn":
             h = norm(block.norm1, x, cfg.norm)
             with site_scope(f"slot{s}/mixer"):
-                x = x + _mixer_decode(block, cfg, h, pool)
+                x = x + _mixer_decode_lanes(block, cfg, h, pool)
         elif block.mixer is not None:
             h = norm(block.norm1, x, cfg.norm)
             sks = kv_scales[s] if kv_scales is not None and kv_scales[s] else None

@@ -17,6 +17,24 @@ in place (a captured decode step reads them at fixed addresses).
 and the float leaves ``conv_w``, ``conv_b``, ``wi``, ``wf``, ``f_bias``,
 ``skip`` and ``norm_w``; :class:`SLSTM` the sites ``w_in``, ``up`` and
 ``down`` and the float leaves ``r``, ``b`` and ``norm_w``.
+
+Under a mesh (``_shard``, a :class:`~repro_torch.runtime.sharding.
+MixerShard`) an mLSTM rank runs its heads: the fused ``up`` is gathered
+(so xin is whole, as ``wv`` and the gates take it), the conv runs on the
+rank's channels and its output is gathered for ``wq``/``wk`` (K whole),
+``wq``/``wk``/``wv`` N-shard onto the heads, the input gate's columns
+are the rank's ``wi`` shard, the C/n/m states are held per head, and
+``down`` is K-sharded over the merged heads. The input gate's product and
+the cell (with the merge's per-head RMS) run at every head's shape, the
+heads other ranks hold as zeros (:func:`_head_span`): cuBLAS picks a
+kernel by the product's shape, a narrower one parts from one device's in
+the last bit, and the exponential gating carries such a parting far (a
+half-ulp change of one gate moves xlstm-350m's logits by several units),
+so every value a rank keeps is one device's, bit for bit. An sLSTM rank
+holds a last-dim shard of ``r``: a step gathers the recurrent term before
+the gates, and its h/c/n/m states are whole on every rank; ``w_in`` is
+gathered, and the block FFN runs as the MLP does (``up`` N-, ``down``
+K-sharded).
 """
 
 from __future__ import annotations
@@ -28,9 +46,46 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.runtime.collectives import relayout, shard_range
+
 from .config import ModelConfig
 from .layers import Linear, normal_weight, pmm, torch_dtype
 from .ssm import _causal_conv, _float_leaf
+
+
+def _to(p, x, have, want):
+    """``x``'s last dim relaid from ``have`` to ``want`` under the mixer's
+    mesh (``x`` itself without one)."""
+    sh = getattr(p, "_shard", None)
+    return x if sh is None else relayout(x, -1, have, want, sh.mesh)
+
+
+def _axes(p, name: str) -> tuple:
+    sh = getattr(p, "_shard", None)
+    return () if sh is None else getattr(sh, name)
+
+
+def _head_span(p, name: str, n_heads: int):
+    """(lo, hi, H): the rank's heads of ``n_heads`` over the mixer's
+    ``name`` axes, or None where it holds them all (no mesh, or no
+    split)."""
+    sh = getattr(p, "_shard", None)
+    if sh is None or sh.mesh.axes_size(getattr(sh, name)) == 1:
+        return None
+    return (*shard_range(n_heads, sh.mesh, getattr(sh, name)), n_heads)
+
+
+def _pad_heads(t, span, dim: int, value: float = 0.0):
+    """``t`` with its heads (dim ``dim``, the span's [lo, hi)) padded to
+    all H with ``value``."""
+    lo, hi, n = span
+    return F.pad(t, [0, 0] * (t.dim() - 1 - dim % t.dim()) + [lo, n - hi], value=value)
+
+
+def _cut_heads(t, span, dim: int):
+    """The span's heads of ``t`` (all H heads on dim ``dim``)."""
+    lo, hi, _ = span
+    return t.narrow(dim, lo, hi - lo)
 
 NEG = -1e30  # finite stand-in for -inf in log-space stabilizers
 
@@ -74,18 +129,26 @@ def init_mlstm(cfg: ModelConfig, gen, device) -> MLSTM:
 def _mlstm_qkvgates(p: MLSTM, xin, cfg: ModelConfig, conv_state=None):
     """The pre-cell computation. xin: (B, S, d_in). Returns q, k, v (B, H,
     S, dh), the f32 gate pre-activations ig, fg (B, H, S), the conv output
-    xc and the conv's new state."""
+    xc and the conv's new state. Under a mesh q, k, v and the gates hold
+    the rank's heads, the conv and its state its channels, and xc is
+    whole."""
     h = cfg.xlstm.mlstm_heads
     B, S, d_in = xin.shape
     dh = d_in // h
-    xc, conv_state = _causal_conv(xin, p.conv_w, p.conv_b, conv_state)
-    xc = F.silu(xc)
-    q = pmm(p, "wq", xc).reshape(B, S, h, dh).transpose(1, 2)
-    k = pmm(p, "wk", xc).reshape(B, S, h, dh).transpose(1, 2)
-    v = pmm(p, "wv", xin).reshape(B, S, h, dh).transpose(1, 2)
+    ch, heads = _axes(p, "ch"), _axes(p, "heads")
+    xc, conv_state = _causal_conv(_to(p, xin, (), ch), p.conv_w, p.conv_b, conv_state)
+    xc = _to(p, F.silu(xc), ch, ())
+    q = pmm(p, "wq", xc, want=heads).reshape(B, S, -1, dh).transpose(1, 2)
+    k = pmm(p, "wk", xc, want=heads).reshape(B, S, -1, dh).transpose(1, 2)
+    v = pmm(p, "wv", xin, want=heads).reshape(B, S, -1, dh).transpose(1, 2)
     q = q * (dh ** -0.5)
-    ig = (xin @ p.wi).transpose(1, 2).to(torch.float32)  # (B, H, S)
-    fg = (xin @ p.wf + p.f_bias).transpose(1, 2).to(torch.float32)
+    span = _head_span(p, "wi", h)
+    if span is None:
+        ig = xin @ p.wi
+    else:  # at all H columns' shape, the others' zero
+        ig = _cut_heads(xin @ _pad_heads(p.wi, span, 1), span, -1)
+    ig = _to(p, ig, _axes(p, "wi"), heads).transpose(1, 2).to(torch.float32)  # (B, H, S)
+    fg = _to(p, xin @ p.wf + p.f_bias, (), heads).transpose(1, 2).to(torch.float32)
     return q, k, v, ig, fg, xc, conv_state
 
 
@@ -180,21 +243,31 @@ def mlstm_cell_chunkwise(q, k, v, ig, fg, chunk: int = 64, return_state: bool = 
     return out
 
 
-def _mlstm_merge(norm_w, skip, h_cell, xc, z):
+def _mlstm_merge(norm_w, skip, h_cell, xc, z, span=None):
     """Head merge, per-head RMS norm, learnable conv skip and z gate: all
     between the cell and the down projection (the PTQ adapter taps the down
-    projection on its output)."""
-    B, H, S, dh = h_cell.shape
+    projection on its output). ``span``: ``h_cell`` holds all H heads, and
+    the merge keeps the span's (the others', zero, only shape the RMS's
+    reduction as one device's)."""
     h = h_cell.transpose(1, 2)  # (B, S, H, dh)
     var = torch.mean(h * h, dim=-1, keepdim=True)
+    if span is not None:
+        h, var = _cut_heads(h, span, 2), _cut_heads(var, span, 2)
+    B, S, H, dh = h.shape
     h = h * torch.rsqrt(var + 1e-6)
     h = h.reshape(B, S, H * dh).to(z.dtype) * norm_w
     h = h + skip * xc
     return h * F.silu(z)
 
 
-def _mlstm_out(p: MLSTM, h_cell, xc, z):
-    return pmm(p, "down", _mlstm_merge(p.norm_w, p.skip, h_cell, xc, z))
+def _mlstm_out(p: MLSTM, h_cell, xc, z, span=None):
+    """The merge and ``down``: under a mesh on the rank's heads (its
+    channels of ``norm_w``, ``skip``, xc and z; ``h_cell`` at all H heads
+    where ``span`` splits them), ``down`` K-sharded."""
+    heads = _axes(p, "heads")
+    merged = _mlstm_merge(_to(p, p.norm_w, (), heads), _to(p, p.skip, _axes(p, "ch"), heads),
+                          h_cell, _to(p, xc, (), heads), _to(p, z, (), heads), span)
+    return pmm(p, "down", merged, have=heads)
 
 
 def mlstm(p: MLSTM, x, cfg: ModelConfig, return_state: bool = False):
@@ -203,14 +276,17 @@ def mlstm(p: MLSTM, x, cfg: ModelConfig, return_state: bool = False):
     xz = pmm(p, "up", x)
     xin, z = torch.chunk(xz, 2, dim=-1)
     q, k, v, ig, fg, xc, _ = _mlstm_qkvgates(p, xin, cfg)
+    span = _head_span(p, "heads", cfg.xlstm.mlstm_heads)
+    if span is not None:  # the cell at all H heads' shape, the others' zero
+        q, k, v, ig, fg = (_pad_heads(t, span, 1) for t in (q, k, v, ig, fg))
     cell = mlstm_cell_chunkwise(q, k, v, ig, fg, cfg.xlstm.chunk, return_state=return_state)
     h_cell, state = cell if return_state else (cell, None)
-    y = _mlstm_out(p, h_cell, xc, z)
+    y = _mlstm_out(p, h_cell, xc, z, span)
     if not return_state:
         return y
-    C, n, m = state
+    C, n, m = state if span is None else (_cut_heads(t, span, 1).contiguous() for t in state)
     S0 = x.shape[1]
-    tail = xin[:, max(S0 - 3, 0):, :]
+    tail = _to(p, xin, (), _axes(p, "ch"))[:, max(S0 - 3, 0):, :]
     if S0 < 3:
         tail = F.pad(tail, (0, 0, 3 - S0, 0))
     return y, {"conv": tail.to(torch_dtype(cfg.act_dtype)), "C": C, "n": n, "m": m}
@@ -225,9 +301,19 @@ def mlstm_decode(p: MLSTM, x, cfg: ModelConfig, conv_state, C, n, m):
     q, k, v, ig, fg, xc, new_conv = _mlstm_qkvgates(p, xin, cfg, conv_state)
     conv_state.copy_(new_conv)
     qt, kt, vt = (t[:, :, 0].to(torch.float32) for t in (q, k, v))
-    h, m_new = _mlstm_step(qt, kt, vt, ig[:, :, 0], F.logsigmoid(fg[:, :, 0]), C, n, m)
+    it, lft = ig[:, :, 0], F.logsigmoid(fg[:, :, 0])
+    span = _head_span(p, "heads", cfg.xlstm.mlstm_heads)
+    if span is None:
+        h, m_new = _mlstm_step(qt, kt, vt, it, lft, C, n, m)
+    else:  # the step at all H heads' shape, the others' zero; the rank's written back
+        Cp, n_p = _pad_heads(C, span, 1), _pad_heads(n, span, 1)
+        h, m_new = _mlstm_step(*(_pad_heads(t, span, 1) for t in (qt, kt, vt, it, lft)), Cp,
+                               n_p, _pad_heads(m, span, 1, NEG))
+        C.copy_(_cut_heads(Cp, span, 1))
+        n.copy_(_cut_heads(n_p, span, 1))
+        m_new = _cut_heads(m_new, span, 1)
     m.copy_(m_new)
-    y = _mlstm_out(p, h[:, :, None, :], xc, z)
+    y = _mlstm_out(p, h[:, :, None, :], xc, z, span)
     return y, conv_state, C, n, m
 
 
@@ -279,16 +365,21 @@ def init_slstm(cfg: ModelConfig, gen, device) -> SLSTM:
                  torch.ones(d, dtype=dt, device=device))
 
 
-def _slstm_step(r, xt_proj, state, cfg: ModelConfig):
+def _slstm_step(r, xt_proj, state, cfg: ModelConfig, sh=None):
     """One recurrence step. xt_proj: (B, 4d) input projection; ``state``
-    (h, c, n, m), each (B, d) f32. Returns the new state."""
+    (h, c, n, m), each (B, d) f32. Returns the new state. ``sh`` (a
+    mixer's mesh layout): ``r`` holds the rank's last-dim shard, and the
+    recurrent term is gathered before the gates."""
     h_heads = cfg.xlstm.slstm_heads
     d = cfg.d_model
     dh = d // h_heads
     h_prev, c, n, m = state
     B = h_prev.shape[0]
     hh = h_prev.reshape(B, h_heads, dh).to(torch.float32)
-    rec = torch.einsum("bhd,ghde->gbhe", hh, r.to(torch.float32)).reshape(4, B, d)
+    rec = torch.einsum("bhd,ghde->gbhe", hh, r.to(torch.float32))
+    if sh is not None:
+        rec = relayout(rec, -1, sh.rec, (), sh.mesh)
+    rec = rec.reshape(4, B, d)
     pre = xt_proj.to(torch.float32).reshape(B, 4, d).transpose(0, 1) + rec
     zt = torch.tanh(pre[0])
     it, ft, ot = pre[1], pre[2], pre[3]
@@ -301,16 +392,17 @@ def _slstm_step(r, xt_proj, state, cfg: ModelConfig):
     return h_new, c, n, m_new
 
 
-def slstm_scan(r, proj, cfg: ModelConfig):
+def slstm_scan(r, proj, cfg: ModelConfig, sh=None):
     """The sequential sLSTM recurrence over precomputed input projections.
-    proj: (B, S, 4d). Returns (h (B, S, d) f32, final (h, c, n, m))."""
+    proj: (B, S, 4d). Returns (h (B, S, d) f32, final (h, c, n, m)); ``sh``
+    as :func:`_slstm_step` takes it."""
     B, S, _ = proj.shape
     d = cfg.d_model
     z0 = torch.zeros((B, d), dtype=torch.float32, device=proj.device)
     state = (z0, z0, z0, torch.full((B, d), NEG, dtype=torch.float32, device=proj.device))
     hs = []
     for t in range(S):
-        state = _slstm_step(r, proj[:, t], state, cfg)
+        state = _slstm_step(r, proj[:, t], state, cfg, sh)
         hs.append(state[0])
     return torch.stack(hs, dim=1), state
 
@@ -325,14 +417,16 @@ def slstm_headnorm(norm_w, h, cfg: ModelConfig):
 
 
 def _slstm_ffn(p: SLSTM, hn):
-    return pmm(p, "down", F.gelu(pmm(p, "up", hn), approximate="tanh"))
+    sh = getattr(p.down, "_shard", None)
+    mid = () if sh is None else sh.k  # the hidden layer in down's K layout
+    return pmm(p, "down", F.gelu(pmm(p, "up", hn, want=mid), approximate="tanh"), have=mid)
 
 
 def slstm(p: SLSTM, x, cfg: ModelConfig, return_state: bool = False):
     """Prefill sLSTM block, a sequential scan (no parallel form). x: (B, S,
     d_model). ``return_state`` also returns {"h", "c", "n", "m"}."""
     proj = pmm(p, "w_in", x) + p.b  # (B, S, 4d)
-    hs, final = slstm_scan(p.r, proj, cfg)
+    hs, final = slstm_scan(p.r, proj, cfg, getattr(p, "_shard", None))
     h = hs.to(x.dtype)
     y = _slstm_ffn(p, slstm_headnorm(p.norm_w, h, cfg))
     if not return_state:
@@ -347,7 +441,7 @@ def slstm_decode(p: SLSTM, x, cfg: ModelConfig, h, c, n, m):
     B = x.shape[0]
     d = cfg.d_model
     proj = (pmm(p, "w_in", x[:, 0]) + p.b).to(torch.float32)
-    new = _slstm_step(p.r, proj, (h, c, n, m), cfg)
+    new = _slstm_step(p.r, proj, (h, c, n, m), cfg, getattr(p, "_shard", None))
     for dst, src in zip((h, c, n, m), new):
         dst.copy_(src)
     hheads = h.reshape(B, 1, cfg.xlstm.slstm_heads, -1)

@@ -35,10 +35,12 @@ from __future__ import annotations
 import copy
 import threading
 from contextlib import contextmanager
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+from repro_torch.runtime.collectives import relayout, shard_range
 
 DEFAULT_RULES: dict[str, tuple[str, ...]] = {
     "batch": ("pod", "data"),
@@ -390,7 +392,10 @@ def host_read(x: torch.Tensor) -> np.ndarray:
 class SiteShard:
     """A sharded matmul site: its input dim ``k`` and output dim ``n`` are
     sharded over these axes (() replicated); ``scale``/``bias`` are the
-    axes its per-channel vectors were placed under."""
+    axes its per-channel vectors were placed under. An expert-stacked
+    site's experts are sharded over ``e``: it holds experts ``[e_lo,
+    e_hi)`` (:meth:`experts`) of every leaf but its replicated per-expert
+    quantizer (``act_scale``/``act_zp``), which it slices."""
 
     mesh: object
     k: tuple
@@ -398,6 +403,63 @@ class SiteShard:
     scale: tuple = ()
     bias: tuple = ()
     col_sums: tuple = ()
+    e: tuple = ()
+
+    def experts(self, n_experts: int) -> tuple[int, int]:
+        """This rank's [lo, hi) of ``n_experts`` stacked experts."""
+        return shard_range(n_experts, self.mesh, self.e)
+
+
+@dataclass(frozen=True)
+class MixerShard:
+    """A recurrent mixer's layout on this rank: the d_in channels of its
+    float leaves (conv, D, dt_bias, A_log, skip) over ``ch``, the heads its
+    cell steps over ``heads`` (mLSTM: C/n/m and q/k/v), the mLSTM input
+    gate's head columns over ``wi``, the sLSTM recurrent matrix's last dim
+    over ``rec``. ``states`` maps each decode state to the dim and axes it
+    is computed in; ``store`` (set by the paged engine) to the spec its
+    slot lanes are held under, whose slot axis (dim 0, ``batch``) may be
+    sharded too. :meth:`lanes_in` and :meth:`lanes_out` move a state
+    between the two; both pick slices or gathers from the layouts alone, so
+    every rank issues the same collectives."""
+
+    mesh: object
+    ch: tuple = ()
+    heads: tuple = ()
+    wi: tuple = ()
+    rec: tuple = ()
+    states: dict = field(default_factory=dict)
+    store: dict | None = None
+
+    def lanes_in(self, name: str, lanes: torch.Tensor) -> torch.Tensor:
+        """The stored ``lanes`` of state ``name`` in its compute layout:
+        every slot, this rank's channels or heads (a view of ``lanes``
+        where no gather is needed). Where the slots are sharded (``data``
+        > 1) this gathers every slot's state, each step: a token moves the
+        whole state and a step holds it, so the slot sharding saves
+        storage between steps, not peak memory."""
+        dim, axes = self.states[name]
+        spec = self.store[name]
+        x = relayout(lanes, 0, spec_axes(spec[0]), (), self.mesh)
+        return relayout(x, dim, spec_axes(spec[dim]), axes, self.mesh)
+
+    def lanes_out(self, name: str, lanes: torch.Tensor, state: torch.Tensor) -> None:
+        """Write ``state`` (compute layout) back into the stored ``lanes``
+        in place, unless ``state`` is a view of them already."""
+        back = self.to_store(name, state)
+        back = relayout(back, 0, (), spec_axes(self.store[name][0]), self.mesh)
+        if back.data_ptr() != lanes.data_ptr():
+            lanes.copy_(back)
+
+    def to_store(self, name: str, state: torch.Tensor) -> torch.Tensor:
+        """``state`` (rows whole, compute layout) in its stored channel
+        layout; its rows are untouched."""
+        dim, axes = self.states[name]
+        return relayout(state, dim, axes, spec_axes(self.store[name][dim]), self.mesh)
+
+    def slots(self, name: str, num_slots: int) -> tuple[int, int]:
+        """The [lo, hi) of the ``num_slots`` lanes this rank holds."""
+        return shard_range(num_slots, self.mesh, spec_axes(self.store[name][0]))
 
 
 @dataclass(frozen=True)
@@ -455,13 +517,44 @@ def _attn_shard(cfg, mesh, rules, kv_axes) -> AttnShard:
                      need_hi, (q_lo - need_lo * g, need_hi * g - q_lo - nq))
 
 
+def _mixer_shard(mod, pre: str, specs: dict, cfg, mesh, rules) -> MixerShard:
+    """The layout of a Mamba, mLSTM or sLSTM mixer from its leaves' specs:
+    channels from ``conv_b`` (every d_in-long float leaf must agree), the
+    mLSTM's heads as the rules resolve ``heads`` on its head count, the
+    sLSTM recurrent matrix's last dim as ``r`` was placed."""
+    from repro_torch.models.ssm import Mamba
+    from repro_torch.models.xlstm import MLSTM
+
+    if isinstance(mod, Mamba) or isinstance(mod, MLSTM):
+        ch = spec_axes(specs[pre + "conv_b"][0])
+        leaves = ("conv_w", "D", "dt_bias", "A_log") if isinstance(mod, Mamba) else (
+            "conv_w", "skip")
+        for leaf in leaves:
+            dim = 1 if leaf == "conv_w" else 0
+            if spec_axes(specs[pre + leaf][dim]) != ch:
+                raise AssertionError(f"{pre}{leaf}: channels over "
+                                     f"{specs[pre + leaf][dim]}, conv_b over {ch}")
+    if isinstance(mod, Mamba):
+        return MixerShard(mesh, ch=ch, states={"conv": (2, ch), "ssm": (1, ch)})
+    if isinstance(mod, MLSTM):
+        h = cfg.xlstm.mlstm_heads
+        heads = spec_axes(resolve_spec((h,), ("heads",), mesh, rules)[0])
+        return MixerShard(mesh, ch=ch, heads=heads, wi=spec_axes(specs[pre + "wi"][-1]),
+                          states={"conv": (2, ch), "C": (1, heads), "n": (1, heads),
+                                  "m": (1, heads)})
+    return MixerShard(mesh, rec=spec_axes(specs[pre + "r"][-1]),
+                      states={name: (1, ()) for name in ("h", "c", "n", "m")})
+
+
 def shard_model(model, mesh, rules: dict | None = None, *, kv_axes=None):
     """A copy of ``model`` holding this rank's slice of every tensor under
-    the rules (default :data:`SERVING_QUANT_RULES`), its sites, attention
-    layers and embedding annotated with their layouts; the model is left
-    as it is. ``kv_axes``: the pools' kv-head axes (default: as the rules resolve
+    the rules (default :data:`SERVING_QUANT_RULES`), its sites (expert
+    stacks too), attention layers, recurrent mixers and embedding annotated
+    with their layouts; the model is left as it is. ``kv_axes``: the pools' kv-head axes (default: as the rules resolve
     ``kv_heads`` on the head count)."""
     from repro_torch.models.layers import Attention, Embedding, Linear, PackedLinear
+    from repro_torch.models.ssm import Mamba
+    from repro_torch.models.xlstm import MLSTM, SLSTM
 
     rules = SERVING_QUANT_RULES if rules is None else rules
     cfg = model.cfg
@@ -478,12 +571,20 @@ def shard_model(model, mesh, rules: dict | None = None, *, kv_axes=None):
         kv_axes = spec_axes(resolve_spec((cfg.n_kv_heads,), ("kv_heads",), mesh, rules)[0])
     for mod_name, mod in placed.named_modules():
         pre = f"{mod_name}." if mod_name else ""
-        if isinstance(mod, PackedLinear) and not mod.stacked:
+        if isinstance(mod, PackedLinear):
             ps = specs[pre + "packed"]
             mod._shard = SiteShard(
-                mesh, spec_axes(ps[0]), spec_axes(ps[1]), spec_axes(specs[pre + "scale"][-1]),
+                mesh, spec_axes(ps[-2]), spec_axes(ps[-1]), spec_axes(specs[pre + "scale"][-1]),
                 () if mod.bias is None else spec_axes(specs[pre + "bias"][-1]),
-                () if mod.col_sums is None else spec_axes(specs[pre + "col_sums"][-1]))
+                () if mod.col_sums is None else spec_axes(specs[pre + "col_sums"][-1]),
+                spec_axes(ps[0]) if mod.stacked else ())
+        elif isinstance(mod, Linear) and mod.w.dim() == 3:
+            ws = specs[pre + "w"]
+            mod._shard = SiteShard(mesh, spec_axes(ws[1]), spec_axes(ws[2]), (),
+                                   () if mod.bias is None else spec_axes(specs[pre + "bias"][-1]),
+                                   (), spec_axes(ws[0]))
+        elif isinstance(mod, (Mamba, MLSTM, SLSTM)):
+            mod._shard = _mixer_shard(mod, pre, specs, cfg, mesh, rules)
         elif isinstance(mod, Linear) and mod.w.dim() == 2:
             ws = specs[pre + "w"]
             mod._shard = SiteShard(mesh, spec_axes(ws[0]), spec_axes(ws[1]), (),
@@ -499,7 +600,8 @@ def shard_model(model, mesh, rules: dict | None = None, *, kv_axes=None):
     return placed
 
 
-__all__ = ["DEFAULT_RULES", "SERVING_QUANT_RULES", "AttnShard", "EmbedShard", "SiteShard",
+__all__ = ["DEFAULT_RULES", "SERVING_QUANT_RULES", "AttnShard", "EmbedShard", "MixerShard",
+           "SiteShard",
            "axis_rules", "batch_shardings", "cache_shardings", "host_read", "host_to_global",
            "local_slice", "logical_constraint", "paged_engine_shardings", "param_paths",
            "param_shardings", "prefer_expert_sharding", "replicated", "resolve_spec",

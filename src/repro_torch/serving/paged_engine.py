@@ -101,16 +101,38 @@ are placed by ``rows_sharding`` and gathered. Under NCCL the decode step is
 captured with its collectives inside; under gloo (CPU ranks, or ranks
 sharing one card) it steps eagerly (``step_mode``). As in the reference a
 mesh refuses the paged attention kernels (``attn_impl`` resolving to
-them), ``observe=True`` and ``arrivals=`` with more than one process;
-MoE and recurrent patterns are not ported under a mesh.
+them), ``observe=True`` and ``arrivals=`` with more than one process.
+
+MoE patterns serve with their expert stacks placed as the specs say:
+expert-parallel where the ``expert`` axis shards E (a rank runs its
+experts and gathers their outputs before the combine), tensor-parallel
+inside the experts otherwise (:func:`~repro_torch.models.moe.moe`).
+Recurrent patterns (Mamba, mLSTM, sLSTM) hold their dense slot lanes as
+``cache_shardings`` specifies: the slot axis over ``batch`` = (``pod``,
+``data``) where the slot count divides it, the channels or heads over
+the rest. The slot axis stays whole in the computation: every rank's
+mixers step every slot (the matmul sites take all of a step's rows, and
+their weights are sharded over the same axes as the slots), on the
+channels or heads of the rank's parameters. A decode step moves each
+state from its lanes into that compute layout and back, in place
+(:meth:`~repro_torch.runtime.sharding.MixerShard.lanes_in` /
+``lanes_out``: views where the layouts agree, as on a (1, tp) mesh,
+gathers over ``data`` where the slots are sharded: each step then moves
+every slot's whole state, and the slot sharding saves storage between
+steps but not the step's peak), and an admit writes
+a prompt's end state, relaid to the lanes' channels, into the slot's lane
+on the ranks that hold it (:meth:`PagedEngine._install_states`).
+``state_bytes`` is the recurrent state a rank holds, beside
+``state_bytes_one_device``.
 """
 
 from __future__ import annotations
 
+import math
 import time
 from collections import deque
 from contextlib import contextmanager, nullcontext
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -133,6 +155,7 @@ from repro_torch.models.transformer import (
     init_paged_cache,
     is_kv_pool,
     prefill,
+    recurrent_state_shapes,
 )
 from repro_torch.quant.observe.saturation import SaturationCounters, observed_labels
 from repro_torch.quant.serve_packed import upgrade_packed_params
@@ -235,7 +258,7 @@ class PagedEngine:
         check_servable(model)
         self.device = resolve_device(device)
         if mesh is not None:
-            _check_mesh(model.cfg, paged, self.device, observe)
+            _check_mesh(paged, self.device, observe)
         resolve_paged_attn_impl(paged.attn_impl, self.device)
         self.model = upgrade_packed_params(model.to(self.device))
         self.cfg = cfg = self.model.cfg
@@ -331,6 +354,10 @@ class PagedEngine:
             self._kv_scales_seq = tuple(
                 {side: t[:, lo * n:(lo + 1) * n].contiguous() for side, t in sec.items()}
                 for sec in self._kv_scales_seq)
+        for block, specs in zip(self.model.layers, self.shardings[1]["pools"]):
+            sh = getattr(block.mixer, "_shard", None)
+            if isinstance(sh, shardlib.MixerShard):  # where the slot lanes are held
+                block.mixer._shard = replace(sh, store=specs)
         if self.device.type == "cuda" and not mesh.captures_collectives:
             self.step_mode = "eager (gloo)"
         # the first collective sets the communicator up, before any capture
@@ -447,12 +474,37 @@ class PagedEngine:
     def _install_states(self, slot: int, dense) -> None:
         """Copy a B=1 prefill's recurrent end states into ``slot``'s lane of
         each recurrent layer, in place (the reference splices them into the
-        (R, num_slots, ...) batch); attention layers are skipped."""
-        for pool, d in zip(self.cache["pools"], dense):
+        (R, num_slots, ...) batch); attention layers are skipped. Under a
+        mesh the state, in its compute layout, is relaid to the lanes'
+        channels (every rank: the relayout may gather) and written by the
+        ranks that hold the slot's lane."""
+        for block, pool, d in zip(self.model.layers, self.cache["pools"], dense):
             if is_kv_pool(pool):
                 continue
+            sh = getattr(block.mixer, "_shard", None)
             for name, lane in pool.items():
-                lane[slot].copy_(d[name][0])
+                if sh is None:
+                    lane[slot].copy_(d[name][0])
+                    continue
+                state = sh.to_store(name, d[name])
+                lo, hi = sh.slots(name, self.paged.max_concurrency)
+                if lo <= slot < hi:
+                    lane[slot - lo].copy_(state[0])
+
+    @property
+    def state_bytes(self) -> int:
+        """The bytes of the recurrent slot lanes this engine (under a mesh,
+        this rank) holds."""
+        return sum(t.numel() * t.element_size() for pool in self.cache["pools"]
+                   if not is_kv_pool(pool) for t in pool.values())
+
+    @property
+    def state_bytes_one_device(self) -> int:
+        """The bytes of the same lanes on one device."""
+        return sum(math.prod(shape) * dt.itemsize
+                   for i in range(self.cfg.n_layers)
+                   for shape, dt in recurrent_state_shapes(
+                       self.cfg.layer_spec(i), self.cfg, self.paged.max_concurrency).values())
 
     def _first_token(self, logits, uid: int) -> torch.Tensor:
         return sample_rows(logits[:, -1], self.sampler.temperature, self.sampler.seed,
@@ -947,11 +999,12 @@ def _processes() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
-def _check_mesh(cfg, paged: PagedConfig, device, observe: bool) -> None:
-    """What a mesh refuses: the paged attention kernels (as the reference
-    refuses its Pallas kernel: only the reference attention runs on local
-    heads), observation with more than one process, and the patterns this
-    slice does not shard."""
+def _check_mesh(paged: PagedConfig, device, observe: bool) -> None:
+    """What a mesh refuses, as the reference does: the paged attention
+    kernels (only the reference attention runs on local heads) and
+    observation with more than one process. MoE and recurrent patterns
+    serve (the throughput policies and the prefix cache refuse them on any
+    engine: :func:`_check_policy`)."""
     impl = paged.attn_impl
     if impl == "kernel" or (impl == "auto" and device.type == "cuda"):
         raise ValueError(f"mesh-native serving requires the reference attention impl "
@@ -961,13 +1014,6 @@ def _check_mesh(cfg, paged: PagedConfig, device, observe: bool) -> None:
         raise ValueError("observe=True is single-controller: the saturation counters would "
                          "count per process on partial shards — run observation on a "
                          "one-process mesh")
-    if any(s.ffn == "moe" for s in cfg.pattern):
-        raise NotImplementedError(f"{cfg.name}: MoE under a mesh (expert parallelism) is not "
-                                  f"ported yet (ROADMAP Queue A item 4)")
-    recurrent = sorted({s.mixer for s in cfg.pattern if s.mixer not in ("attn", "none")})
-    if recurrent:
-        raise NotImplementedError(f"{cfg.name}: recurrent states ({recurrent}) under a mesh "
-                                  f"are not ported yet (ROADMAP Queue A item 4)")
 
 
 class _Run:

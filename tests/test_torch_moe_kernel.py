@@ -54,6 +54,10 @@ from test_torch_w4a8_kernel import (
 
 #: (K, N) of granite-moe-3b-a800m's expert sites: wg/wu (1536, 512), wd (512, 1536)
 GRANITE_EXPERT_SITES = [(1536, 512), (512, 1536)]
+#: (E, K, N) a rank runs of granite's expert sites on a mesh: 20 experts a
+#: rank expert-parallel on (2, 1); on (1, 2) all 40, wg/wu N-sharded and
+#: wd K-sharded (the accumulator-only form)
+GRANITE_SHARD_SITES = [(20, 1536, 512), (20, 512, 1536), (40, 1536, 256), (40, 256, 1536)]
 
 
 @pytest.fixture
@@ -87,6 +91,13 @@ def _operands(rng, e, m, k, n, signed, device="cpu", zero_expert=None):
         "act_zp": t((np.zeros(e) if signed else rng.integers(0, 256, size=e)).astype(
             np.float32)),
     }
+
+
+def _accumulator_args(o, col):
+    """The arguments under which B1e/B4e return each expert's integer
+    accumulator alone: w_scale ones, act_scale ones(E), act_zp zeros(E)."""
+    return (torch.ones_like(o["scale"]), col, torch.ones_like(o["act_scale"]),
+            torch.zeros_like(o["act_zp"]))
 
 
 def _calls(o, out_dtype, **kw):
@@ -196,9 +207,9 @@ def _smem_attribute():
 
 
 @pytest.mark.parametrize("n_sm", [W.H100_SMS, 1])
-@pytest.mark.parametrize("e", [1, 5, 40])
-@pytest.mark.parametrize("k,n", [(1536, 512), (512, 1536), (192, 60), (4096, 20), (2560, 64),
-                                 (96, 32), (4, 4)])
+@pytest.mark.parametrize("k,n,e", [(k, n, e) for k, n in [
+    (1536, 512), (512, 1536), (192, 60), (4096, 20), (2560, 64), (96, 32), (4, 4)]
+    for e in (1, 5, 40)] + [(k, n, e) for e, k, n in GRANITE_SHARD_SITES])
 def test_decode_plan_covers_every_column_and_k_row_once(k, n, e, n_sm):
     """Block (x, e, z) owns columns 128x .. 128x+127 of expert e and K rows
     [z ck, (z + 1) ck), cut at K: every column and K row of every expert
@@ -501,6 +512,52 @@ def test_plain_versions_launch_nothing():
             W.w4a8_matmul.launches, W.w4a8_sparse_matmul.launches) == before
 
 
+@pytest.mark.parametrize("e,m,k,n", [(2, 5, 128, 64), (3, 4, 256, 48), (20, 1, 512, 16)])
+def test_accumulate_form_sums_to_the_unsharded_site(e, m, k, n):
+    """B1e/B4e in the accumulator-only form (a K-sharded stacked site's
+    shard: ones and zeros an expert, f32 out): each expert's exact integer
+    product; the two K halves' sums, with the per-expert epilogue applied
+    after, are the unsharded call bit for bit, dense and 2:4."""
+    rng = np.random.default_rng(e * 10 + m)
+    o = _operands(rng, e, m, k, n, False, zero_expert=0)
+    want_dense, want_sparse, _ = _calls(o, torch.bfloat16)
+    q = W.unpack_int4(o["dense"])
+    qs = W.unpack_sparse24(o["packed"], o["meta"])
+    acc = W.w4a8_expert_matmul(o["x"], o["dense"], *_accumulator_args(o, o["col"]))
+    exact = torch.stack([W.exact_int_matmul(o["x"][i], q[i]) for i in range(e)])
+    assert acc.dtype == torch.float32 and torch.equal(acc, exact.to(torch.float32))
+    h = k // 2
+    for weights, codes, col, want, fn in (
+            ((o["dense"],), q, o["col"], want_dense, W.w4a8_expert_matmul),
+            ((o["packed"], o["meta"]), qs, o["scol"], want_sparse,
+             W.w4a8_sparse_expert_matmul)):
+        rows = 2 if len(weights) == 1 else 4  # K rows a stored row
+        parts = [fn(o["x"][:, :, a:a + h].contiguous(),
+                    *(w[:, a // rows:(a + h) // rows].contiguous() for w in weights),
+                    *_accumulator_args(o, col)) for a in (0, h)]
+        sw, corr = W._expert_epilogue(o["scale"], col, o["act_scale"], o["act_zp"], e, n)
+        got = ((parts[0] + parts[1] - corr[:, None]) * sw[:, None]).to(torch.bfloat16)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("e,k,n", GRANITE_SHARD_SITES)
+@pytest.mark.parametrize("m", [1, 4, 16, 64, 80, 256])
+def test_expert_plan_takes_granite_shards(e, k, n, m):
+    """Every (E_local, M, K, N) of granite's sites on a (2, 1) or (1, 2)
+    mesh gets a plan the launcher takes: a tier, 16-byte loads, whole
+    stages in the decode tier, a cluster of at most 8, shared memory within
+    the H100's 227 KB."""
+    plan = W.w4a8_expert_plan(m, n, k, e)
+    assert plan.tier == W.expert_tier(m, n, e) and plan.vec == 16
+    if plan.tier == "decode":
+        gx, gy, gz = plan.grid
+        assert gx * W.DECODE_COLS >= n and gy == e and gz * plan.ck >= k
+        assert plan.ck % W.DECODE_STAGE_K == 0 and gz <= W.MAX_CHUNKS
+        assert W.decode_smem_bytes(m, plan.ring, gz) <= W.SMEM_LIMIT
+    else:
+        assert plan.grid[2] <= W.MAX_CHUNKS
+
+
 def test_per_expert_quantizer_is_the_per_tensor_one_on_each_slice():
     """Each expert quantizes its own (M, K) slice, capacity rows of zeros
     included; an expert that got no token has scale 1e-8 and zero point 0,
@@ -549,6 +606,28 @@ def test_cuda_expert_kernels_bit_equal_to_plain(e, m, k, n, signed, cuda_device)
     o = _operands(rng, e, m, k, n, signed, cuda_device, zero_expert=e // 2)
     for out in (torch.float32, torch.bfloat16):
         _check_on_card(o, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("e,k,n", GRANITE_SHARD_SITES)
+@pytest.mark.parametrize("m", [1, 4, 64])
+def test_cuda_expert_kernels_on_granite_shards(e, k, n, m, cuda_device):
+    """B1e and B4e at granite's expert shards, and their accumulator-only
+    form (one launch each), bit-equal to the plain versions."""
+    o = _operands(np.random.default_rng(e + m + n), e, m, k, n, False, cuda_device,
+                  zero_expert=1)
+    _check_on_card(o, torch.bfloat16)
+    before = (W.w4a8_expert_matmul.launches, W.w4a8_sparse_expert_matmul.launches)
+    dense, sparse = _accumulator_args(o, o["col"]), _accumulator_args(o, o["scol"])
+    acc = (W.w4a8_expert_matmul(o["x"], o["dense"], *dense),
+           W.w4a8_sparse_expert_matmul(o["x"], o["packed"], o["meta"], *sparse))
+    plain = (W.w4a8_expert_matmul(o["x"], o["dense"], *dense, reference=True),
+             W.w4a8_sparse_expert_matmul(o["x"], o["packed"], o["meta"], *sparse,
+                                         reference=True))
+    torch.cuda.synchronize()
+    assert (W.w4a8_expert_matmul.launches, W.w4a8_sparse_expert_matmul.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(acc[0], plain[0]) and torch.equal(acc[1], plain[1])
 
 
 @pytest.mark.cuda
