@@ -378,7 +378,26 @@ result unless every phase passed):
    8192 of its 16384 channels, a 4 x 64 prefill and 16 decode steps within
    MAMBA_STEP_TOL (relative L2) of its one-device run. The kernels line
    gains ``family_launches`` on B1 and B1e, ``family_sites`` on B1 and
-   ``family_shards`` on B1e and B4e.
+   ``family_shards`` on B1e and B4e;
+18. training on the mesh. Two gloo ranks sharing the card (this script
+   with ``--train-rank``) start first and run beside the rest: (b)
+   smollm-360m f32 at full width cut to MESH_TRAIN_LAYERS layers through
+   ``launch/train.py`` on the host mesh (data,) = (2,), 6 steps with
+   checkpoints every 3 under ``build/phase18`` (removed after), and (c)
+   the same model on (pod, data, model) = (2, 1, 1) under int8-pod. Here:
+   (a) smollm-360m f32 uncut at NCCL world size 1 on (1, 1, 1), 4 steps
+   of 8 x 128: the train state bit-equal to the one-device trainer's, and
+   under int8-pod m and v bit-equal to the plain int8 formula on the
+   one-device gradient; the one-device, mesh and int8-pod steps in turns;
+   then the one-device references of (b) and (c). (b)'s losses within rel
+   1e-5 of the one-device trainer's, its final state (the ranks'
+   checkpoint, whole leaves) with m and v within 1e-5 and the parameters
+   tie-limited (MESH_TRAIN_PARAM_SHARE), and a one-device run resumed from
+   the ranks' step-3 checkpoint likewise; (c)'s m and v bit-equal to the
+   plain formula on the two pods' one-device gradients. No port kernel
+   launches in any mesh train step. It prints the step time a rank, the
+   collectives and bytes a step, the state MiB a rank against one device
+   and the peak memory; the kernels line gains ``mesh_training_launches``.
 
 Each phase prints its wall (``[wall] phase N``) and the script its total.
 
@@ -5748,6 +5767,525 @@ def phase_family_mesh(torch, smi: str) -> dict:
             "wall_s": wall_s, "walls": walls, "b1e": b1e, "b1": b1}
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: training on the mesh
+# ---------------------------------------------------------------------------
+#: (a): steps of the world-size-1 runs, each of TRAIN_BATCH x TRAIN_SEQ
+MESH_TRAIN_A_STEPS = 4
+#: (b): layers of smollm-360m the two ranks train (full width), steps, the
+#: checkpoint every MESH_TRAIN_EVERY steps; (c): steps under int8-pod
+MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS, MESH_TRAIN_EVERY, MESH_TRAIN_C_STEPS = 8, 6, 3, 3
+#: (b)'s tolerances against the one-device trainer: those of the CPU tests
+#: (tests/test_torch_mesh_training.py): losses rel 1e-5, m and v atol
+#: 1e-5. The parameters are tie-limited: AdamW's step is about lr x the
+#: sign of a gradient element, so an element whose gradient cancels to
+#: near 0 takes either sign under another summation order (two ranks'
+#: sum against one device's); all but MESH_TRAIN_PARAM_SHARE of the
+#: parameters within 1e-5, and every one within twice the sum of the
+#: steps' learning rates (each step's flip at most 2 lr).
+MESH_TRAIN_LOSS_REL, MESH_TRAIN_STATE_ATOL, MESH_TRAIN_PARAM_SHARE = 1e-5, 1e-5, 1e-4
+#: seconds the two phase-18 ranks may take together
+MESH_TRAIN_RANK_TIMEOUT = 300
+
+
+def _train_cfg(layers: int | None = None):
+    """smollm-360m's f32 copy (the form ``--float32`` trains), full width,
+    cut to ``layers`` when given."""
+    from dataclasses import replace
+
+    from repro_torch.launch.search import f32_config
+
+    cfg = f32_config(_config(TRAIN_ARCH))
+    return cfg if layers is None else replace(cfg, n_layers=layers)
+
+
+def _train_data(cfg):
+    from repro_torch.data import DataConfig, TokenBatcher
+
+    return TokenBatcher(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH))
+
+
+def _cuda_batch(torch, rows):
+    import numpy as np
+
+    return {"tokens": torch.from_numpy(np.asarray(rows)).to("cuda:0")}
+
+
+def _state_bytes(state) -> int:
+    """Bytes of a train state's parameters and both moments on this rank."""
+    model, opt = state["params"], state["opt"]
+    return sum(t.numel() * t.element_size() for t in list(model.parameters())
+               + list(opt["m"].values()) + list(opt["v"].values()))
+
+
+def _same_state(torch, a, b, moments_only: bool = False) -> bool:
+    """Whether two train states hold the same bits (the moments alone, or
+    the parameters too)."""
+    pa, pb = dict(a["params"].named_parameters()), dict(b["params"].named_parameters())
+    same = all(torch.equal(a["opt"][k][n], b["opt"][k][n]) for k in ("m", "v")
+               for n in a["opt"]["m"])
+    return same and (moments_only or all(torch.equal(pa[n], pb[n]) for n in pa))
+
+
+def int8_plain(torch, grads: list, n: int) -> dict:
+    """The reference's int8-pod formula, written plainly, on the pods'
+    gradients ``grads`` (dicts by parameter name): the absmax over the
+    pods, codes rounded half to even in [-127, 127], summed in int32,
+    dequantized, cast, divided by the pod count."""
+    out = {}
+    for name in grads[0]:
+        gs = [g[name] for g in grads]
+        absmax = torch.max(torch.abs(gs[0].to(torch.float32)))
+        for g in gs[1:]:
+            absmax = torch.maximum(absmax, torch.max(torch.abs(g.to(torch.float32))))
+        scale = torch.clamp(absmax, min=1e-30) / 127.0
+        total = sum(torch.clamp(torch.round(g.to(torch.float32) / scale), -127, 127).to(
+            torch.int8).to(torch.int32) for g in gs)
+        out[name] = (total.to(torch.float32) * scale).to(gs[0].dtype) / n
+    return out
+
+
+def plain_grads(torch, state, rows) -> dict:
+    """The one-device gradient of the loss on ``rows`` (no update)."""
+    from repro_torch.models.transformer import loss_fn
+    from repro_torch.optim import trainable_parameters
+
+    params = trainable_parameters(state["params"])
+    total, _ = loss_fn(state["params"], _cuda_batch(torch, rows))
+    grads = torch.autograd.grad(total, list(params.values()))
+    return dict(zip(params, grads))
+
+
+def plain_int8_steps(torch, cfg, run, pods: int, steps: int):
+    """A one-device train state through ``steps`` updates whose gradient is
+    :func:`int8_plain` on the ``pods`` pods' one-device gradients (each on
+    its rows of the global batch)."""
+    from repro_torch.optim import adamw_update, trainable_parameters
+    from repro_torch.runtime import init_train_state
+
+    state, data = init_train_state(cfg, run, 0, device="cuda"), _train_data(cfg)
+    per = TRAIN_BATCH // pods
+    for i in range(steps):
+        rows = data.batch(i)["tokens"]
+        grads = int8_plain(torch, [plain_grads(torch, state, rows[p * per:(p + 1) * per])
+                                   for p in range(pods)], pods)
+        adamw_update(trainable_parameters(state["params"]), grads, state["opt"], run.optimizer)
+    return state
+
+
+def mesh_train_world_one(torch, smi: str, root: str) -> dict:
+    """(a) NCCL at world size 1, mesh (pod, data, model) = (1, 1, 1),
+    smollm-360m f32 at full width and depth, MESH_TRAIN_A_STEPS steps of
+    TRAIN_BATCH x TRAIN_SEQ: the mesh step without compression against the
+    one-device trainer (the whole train state bit-equal), then under
+    int8-pod against the plain formula on the one-device gradient (m and v
+    bit-equal); no port kernel launched in either mesh run; then the three
+    steps timed in turns."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import _deterministic
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.runtime import (
+        TrainRunConfig,
+        init_train_state,
+        make_train_step,
+        place_train_state,
+    )
+    from repro_torch.runtime import collectives
+
+    mesh = make_mesh((1, 1, 1), device="cuda:0", init_method=f"file://{root}/rdv_a", rank=0,
+                     world_size=1)
+    check(mesh.backend == "nccl", f"phase 18 (a): backend {mesh.backend}")
+    cfg, out, kept = _train_cfg(), {}, {}
+    opt = OptimizerConfig(lr=TRAIN_LR, total_steps=MESH_TRAIN_A_STEPS)
+    data = _train_data(cfg)
+    try:
+        with _deterministic(torch.device("cuda")):
+            one = init_train_state(cfg, TrainRunConfig(optimizer=opt), 0, device="cuda")
+            step = make_train_step(cfg, TrainRunConfig(optimizer=opt))
+            one_ms = []
+            for i in range(MESH_TRAIN_A_STEPS):
+                t0 = time.perf_counter()
+                one, m = step(one, _cuda_batch(torch, data.batch(i)["tokens"]))
+                float(m["loss"])
+                one_ms.append(1e3 * (time.perf_counter() - t0))
+            one_bytes = _state_bytes(one)
+            for comp in ("none", "int8-pod"):
+                run = TrainRunConfig(optimizer=opt, grad_compression=comp)
+                state = place_train_state(init_train_state(cfg, run, 0, device="cuda"), mesh)
+                step = make_train_step(cfg, run, mesh)
+                reset_peak(torch)
+                reset_counts()
+                collectives.reset_counts()
+                times, losses = [], []
+                for i in range(MESH_TRAIN_A_STEPS):
+                    t0 = time.perf_counter()
+                    state, m = step(state, _cuda_batch(torch, data.batch(i)["tokens"]))
+                    losses.append(float(m["loss"]))
+                    times.append(1e3 * (time.perf_counter() - t0))
+                counts = read_counts()
+                calls, nbytes = collectives.calls, collectives.nbytes
+                peak = torch.cuda.max_memory_allocated()
+                check(not any(counts.values()), f"(a) {comp}: port kernels launched: {counts}")
+                if comp == "none":
+                    equal = _same_state(torch, state, one)
+                    check(equal, "(a): the world-size-1 mesh step's train state differs from the "
+                                 "one-device trainer's")
+                    what = "the whole train state bit-equal to the one-device trainer's"
+                else:
+                    plain = plain_int8_steps(torch, cfg, run, 1, MESH_TRAIN_A_STEPS)
+                    equal = _same_state(torch, state, plain, moments_only=True)
+                    check(equal, "(a) int8-pod: m and v differ from the plain int8 formula on "
+                                 "the one-device gradient")
+                    what = ("m and v bit-equal to the plain int8 formula on the one-device "
+                            "gradient" + (", params too" if _same_state(torch, state, plain)
+                                          else ""))
+                    del plain
+                st = spread_ms(times[1:])
+                out[comp] = {"step": st, "first_ms": times[0], "losses": losses,
+                             "collectives": calls / MESH_TRAIN_A_STEPS,
+                             "bytes": nbytes / MESH_TRAIN_A_STEPS, "peak_mib": peak / 2**20,
+                             "state_mib": _state_bytes(state) / 2**20, "counts": counts}
+                print(f"[mesh-train] (a) {TRAIN_ARCH} f32 full width and depth, NCCL world size 1, "
+                      f"mesh (pod, data, model) = (1, 1, 1), grad_compression={comp}, "
+                      f"{MESH_TRAIN_A_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}: {what}; step "
+                      f"{fmt_spread(st)} (steps 2-{MESH_TRAIN_A_STEPS}, each ending in its loss "
+                      f"read; first {times[0]:.1f} ms) against the one-device trainer's "
+                      f"{fmt_spread(spread_ms(one_ms[1:]))}; {calls / MESH_TRAIN_A_STEPS:.1f} "
+                      f"collectives of {nbytes / MESH_TRAIN_A_STEPS / 2**20:.3f} MiB a step; "
+                      f"state {_state_bytes(state) / 2**20:.1f} MiB a rank against "
+                      f"{one_bytes / 2**20:.1f} MiB on one device; peak {peak / 2**20:.1f} MiB; "
+                      f"port kernels launched: 0; {smi}")
+                kept[comp] = (state, step)
+            # the three steps in turns, each ending in its loss read
+            batch = _cuda_batch(torch, data.batch(MESH_TRAIN_A_STEPS)["tokens"])
+
+            def turn(st, fn):
+                def go():
+                    float(fn(st, batch)[1]["loss"])
+                return go
+
+            one_step = make_train_step(cfg, TrainRunConfig(optimizer=opt))
+            turns = in_turns(torch, {"one device": turn(one, one_step),
+                                     **{f"mesh {c}": turn(*kept[c]) for c in kept}}, 4)
+            out["turns"] = turns
+            print(f"[mesh-train] (a) in turns (4 runs each, a step ending in its loss read; the "
+                  f"card shared with the ranks of (b) and (c)): "
+                  + "; ".join(f"{n} {fmt_spread(t)}" for n, t in turns.items()) + f"; {smi}")
+            out["one_step"] = spread_ms(one_ms[1:])
+            del one, kept, one_step
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _layers_patch(layers: int):
+    """``launch/train.py``'s config lookup cut to ``layers`` (full width)."""
+    from dataclasses import replace
+
+    from repro_torch.launch import train as TR
+
+    get = TR.get_config
+    TR.get_config = lambda arch: replace(get(arch), n_layers=layers)
+    return lambda: setattr(TR, "get_config", get)
+
+
+def train_launch_args(ckpt: str) -> list:
+    return ["--arch", TRAIN_ARCH, "--float32", "--steps", str(MESH_TRAIN_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--lr", str(TRAIN_LR), "--ckpt-dir", ckpt,
+            "--ckpt-every", str(MESH_TRAIN_EVERY), "--log-every", "1", "--device", "cuda"]
+
+
+def train_rank_main(argv) -> int:
+    """One rank of phase 18 (b) and (c): ``--train-rank R --mesh-root DIR``.
+    (b) launch/train.py on the host mesh (data,) = (2,); (c) the int8-pod
+    step on (pod, data, model) = (2, 1, 1), rank 0 then saving its state
+    for the parent to hold to the plain formula."""
+    import torch
+
+    rank = int(argv[argv.index("--train-rank") + 1])
+    root = argv[argv.index("--mesh-root") + 1]
+    sys.path.insert(0, SRC)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    import torch.distributed as dist
+    from repro_torch.launch import train as TR
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.runtime import (
+        TrainRunConfig,
+        init_train_state,
+        make_train_step,
+        place_train_state,
+    )
+    from repro_torch.runtime import collectives
+
+    init = dict(device="cuda:0", backend="gloo", init_method=f"file://{root}/rdv_b", rank=rank,
+                world_size=2, timeout=MESH_TRAIN_RANK_TIMEOUT)
+    init_distributed(**init)
+    out = {}
+    # (b) the launcher, 2 ranks on the host mesh
+    restore = _layers_patch(MESH_TRAIN_LAYERS)
+    mon = TR.StragglerMonitor(rank=rank)
+    reset_counts()
+    collectives.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (state, losses), lines = quiet(lambda: TR.main(train_launch_args(f"{root}/ckpt_b"),
+                                                   monitor=mon))
+    wall = time.perf_counter() - t0
+    restore()
+    counts = read_counts()
+    check(not any(counts.values()), f"(b) rank {rank}: port kernels launched: {counts}")
+    out["b"] = {"losses": losses, "step": spread_ms([1e3 * t for t in mon.times[1:]]),
+                "first_ms": 1e3 * mon.times[0], "wall_s": wall, "lines": lines,
+                "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+                "state_mib": _state_bytes(state) / 2**20, "counts": counts}
+    # the collectives of one step alone (the launcher's run adds the
+    # checkpoints' gathers and the stop flag's)
+    model = state["params"]
+    opt = OptimizerConfig(lr=TRAIN_LR, total_steps=MESH_TRAIN_STEPS)
+    step = make_train_step(model.cfg, TrainRunConfig(optimizer=opt), model._mesh)
+    per = TRAIN_BATCH // 2
+    rows = _train_data(model.cfg).batch(MESH_TRAIN_STEPS)["tokens"][rank * per:][:per]
+    collectives.reset_counts()
+    with TR._deterministic(torch.device("cuda")):
+        state, m = step(state, _cuda_batch(torch, rows))
+        float(m["loss"])
+    out["b"].update(collectives=collectives.calls, bytes=collectives.nbytes)
+    del state, model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c) int8-pod across two one-rank pods
+    cfg = _train_cfg(MESH_TRAIN_LAYERS)
+    run = TrainRunConfig(optimizer=OptimizerConfig(lr=TRAIN_LR, total_steps=MESH_TRAIN_C_STEPS),
+                         grad_compression="int8-pod")
+    mesh = make_mesh((2, 1, 1), **init)
+    data = _train_data(cfg)
+    per = TRAIN_BATCH // 2
+    reset_counts()
+    collectives.reset_counts()
+    with TR._deterministic(torch.device("cuda")):
+        state = place_train_state(init_train_state(cfg, run, 0, device="cuda"), mesh)
+        step = make_train_step(cfg, run, mesh)
+        times = []
+        for i in range(MESH_TRAIN_C_STEPS):
+            rows = data.batch(i)["tokens"][mesh.coords["pod"] * per:][:per]
+            t0 = time.perf_counter()
+            state, m = step(state, _cuda_batch(torch, rows))
+            float(m["loss"])
+            times.append(1e3 * (time.perf_counter() - t0))
+        counts = read_counts()
+        check(not any(counts.values()), f"(c) rank {rank}: port kernels launched: {counts}")
+        out["c"] = {"step": spread_ms(times[1:]), "collectives": collectives.calls,
+                    "bytes": collectives.nbytes, "counts": counts}
+        if rank == 0:  # for the parent to hold to the plain formula
+            torch.save({"params": {n: t.detach() for n, t in state["params"].named_parameters()},
+                        "m": state["opt"]["m"], "v": state["opt"]["v"]},
+                       os.path.join(root, "c_rank0.pt"))
+    with open(os.path.join(root, f"train{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def start_train_ranks(root: str) -> list:
+    """The two gloo ranks of (b) and (c) (this script with
+    ``--train-rank``), started."""
+    return [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--train-rank", str(r),
+                              "--mesh-root", root], stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True) for r in range(2)]
+
+
+def one_device_references(torch, root: str) -> dict:
+    """What (b) and (c) are held to, computed while the ranks run: the
+    one-device trainer through launch/train.py on (b)'s config and batches
+    (its losses and final train state), and (c)'s plain int8 formula."""
+    from repro_torch.interop import train_state_tree
+    from repro_torch.launch import train as TR
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.runtime import TrainRunConfig
+
+    restore = _layers_patch(MESH_TRAIN_LAYERS)
+    try:
+        (one, losses), _ = quiet(lambda: TR.main(train_launch_args(f"{root}/ckpt_one")))
+    finally:
+        restore()
+    out = {"losses": losses, "spec": train_state_tree(one, spec=True),
+           "state": train_state_tree(one), "bytes": _state_bytes(one)}
+    del one
+    run = TrainRunConfig(optimizer=OptimizerConfig(lr=TRAIN_LR, total_steps=MESH_TRAIN_C_STEPS),
+                         grad_compression="int8-pod")
+    with TR._deterministic(torch.device("cuda")):
+        plain = plain_int8_steps(torch, _train_cfg(MESH_TRAIN_LAYERS), run, 2,
+                                 MESH_TRAIN_C_STEPS)
+    out["plain_c"] = {"params": {n: p.detach().cpu() for n, p in
+                                 plain["params"].named_parameters()},
+                      "m": {n: t.cpu() for n, t in plain["opt"]["m"].items()},
+                      "v": {n: t.cpu() for n, t in plain["opt"]["v"].items()}}
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_train_two_ranks(torch, smi: str, root: str, procs: list, ref: dict) -> dict:
+    """(b) and (c), the ranks' side read: their losses and final state (the
+    step-6 checkpoint, whole leaves) against the one-device trainer's, a
+    one-device run resuming from their step-3 checkpoint against it, and
+    rank 0's (c) state against the plain formula."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.interop import train_state_tree
+    from repro_torch.launch import train as TR
+
+    logs = []
+    try:
+        for p in procs:
+            try:
+                logs.append(p.communicate(timeout=MESH_TRAIN_RANK_TIMEOUT)[0])
+            except subprocess.TimeoutExpired:
+                p.kill()
+                logs.append(p.communicate()[0] + "\n(timed out)")
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"phase 18: rank {r} failed (rc {p.returncode}):\n{log[-4000:]}")
+    ranks = [json.load(open(os.path.join(root, f"train{r}.json"))) for r in range(2)]
+    b0 = ranks[0]["b"]
+    check(ranks[1]["b"]["losses"] == b0["losses"], "(b): the ranks' losses differ")
+    check(sum("[train] step" in ln for ln in ranks[1]["b"]["lines"]) == 0 and
+          sum("[train] step" in ln for ln in b0["lines"]) == MESH_TRAIN_STEPS,
+          "(b): rank 0 alone prints the loss lines")
+    losses_one, spec, want = ref["losses"], ref["spec"], ref["state"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(b0["losses"], losses_one))
+    check(rel <= MESH_TRAIN_LOSS_REL, f"(b): losses rel {rel:.3g} from the one-device "
+                                      f"trainer's: {b0['losses']} vs {losses_one}")
+    restore = _layers_patch(MESH_TRAIN_LAYERS)
+    try:
+        two = CheckpointManager(f"{root}/ckpt_b")
+        check(two.latest_step() == MESH_TRAIN_STEPS, f"(b): checkpoints {os.listdir(root)}")
+        diff = train_state_held(torch, two.restore(MESH_TRAIN_STEPS, spec)[0], want,
+                                "(b) the ranks' final state")
+        shutil.rmtree(two.directory(MESH_TRAIN_STEPS))
+        (resumed, losses_r), lines = quiet(lambda: TR.main(train_launch_args(f"{root}/ckpt_b")))
+        check(f"[train] resumed from step {MESH_TRAIN_EVERY}" in lines,
+              f"(b): the resume: {lines[:3]}")
+        rdiff = train_state_held(torch, train_state_tree(resumed), want,
+                                 f"(b) the one-device resume from the ranks' step-"
+                                 f"{MESH_TRAIN_EVERY} checkpoint")
+        rrel = abs(losses_r[-1] - losses_one[-1]) / abs(losses_one[-1])
+        check(rrel <= MESH_TRAIN_LOSS_REL, f"(b): the resumed run's last loss rel {rrel:.3g}")
+    finally:
+        restore()
+    one_bytes = ref["bytes"]
+    del resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+    c0, got, plain = ranks[0]["c"], torch.load(os.path.join(root, "c_rank0.pt")), ref["plain_c"]
+    same = {k: all(torch.equal(got[k][n].cpu(), plain[k][n]) for n in plain[k])
+            for k in ("params", "m", "v")}
+    check(same["m"] and same["v"], "(c): rank 0's m and v differ from the plain int8 formula on "
+                                   "the two pods' one-device gradients")
+    c0["params_equal"] = same["params"]
+    st = b0["step"]
+    print(f"[mesh-train] (b) {TRAIN_ARCH} f32 full width cut to {MESH_TRAIN_LAYERS} layers, "
+          f"launch/train.py on 2 gloo ranks sharing the card, host mesh (data,) = (2,), "
+          f"{MESH_TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}, checkpoints every "
+          f"{MESH_TRAIN_EVERY}: losses within rel {rel:.3g} of the one-device trainer's "
+          f"(limit {MESH_TRAIN_LOSS_REL:g}); final state (the ranks' checkpoint, whole leaves): "
+          f"{fmt_held(diff)}; a one-device run resumed from the ranks' step-"
+          f"{MESH_TRAIN_EVERY} checkpoint: {fmt_held(rdiff)}, last loss rel {rrel:.3g}; step a rank "
+          f"{fmt_spread(st)} (steps 2-{MESH_TRAIN_STEPS}, gloo stages every collective through "
+          f"the host: not an NCCL figure; the card shared with (a); first "
+          f"{b0['first_ms']:.1f} ms); "
+          f"{b0['collectives']} collectives of {b0['bytes'] / 2**20:.1f} MiB a step; state {b0['state_mib']:.1f} MiB a rank against {one_bytes / 2**20:.1f} "
+          f"MiB on one device; peak {b0['peak_mib']:.1f} MiB rank 0, "
+          f"{ranks[1]['b']['peak_mib']:.1f} MiB rank 1; launcher wall {b0['wall_s']:.3f} s; "
+          f"port kernels launched: 0; {smi}")
+    print(f"[mesh-train] (c) the same model on 2 gloo ranks, (pod, data, model) = (2, 1, 1), "
+          f"int8-pod, {MESH_TRAIN_C_STEPS} steps: m and v bit-equal to the plain formula on "
+          f"the two pods' one-device gradients"
+          + (", params too" if c0["params_equal"] else "")
+          + f"; step a rank {fmt_spread(c0['step'])}; "
+          f"{c0['collectives'] / MESH_TRAIN_C_STEPS:.1f} collectives of "
+          f"{c0['bytes'] / MESH_TRAIN_C_STEPS / 2**20:.1f} MiB a step; port kernels launched: "
+          f"0; {smi}")
+    return {"ranks": ranks, "rel": rel, "diff": diff, "resume_diff": rdiff,
+            "one_mib": one_bytes / 2**20}
+
+
+def tree_diffs(torch, a, b, atol: float) -> tuple[float, int, int]:
+    """(largest |a - b|, elements beyond ``atol``, elements) over two trees
+    of the same structure (nested dicts, tuples, tensors or arrays)."""
+    if isinstance(a, (dict, tuple, list)):
+        keys = a if isinstance(a, dict) else range(len(a))
+        parts = [tree_diffs(torch, a[k], b[k], atol) for k in keys]
+        return (max((p[0] for p in parts), default=0.0), sum(p[1] for p in parts),
+                sum(p[2] for p in parts))
+    x, y = (torch.as_tensor(t).detach().cpu().to(torch.float64) for t in (a, b))
+    check(x.shape == y.shape, f"shapes {tuple(x.shape)} and {tuple(y.shape)}")
+    d = (x - y).abs()
+    return (float(d.max()) if d.numel() else 0.0), int((d > atol).sum()), d.numel()
+
+
+def train_state_held(torch, got, want, what: str) -> dict:
+    """A train state (reference layout) against the one-device trainer's:
+    m and v within MESH_TRAIN_STATE_ATOL, the parameters tie-limited (see
+    MESH_TRAIN_PARAM_SHARE)."""
+    lr_sum = sum(TRAIN_LR * min(k / 100, 1.0) for k in range(1, MESH_TRAIN_STEPS + 1))
+    out = {k: tree_diffs(torch, got["opt"][k], want["opt"][k], MESH_TRAIN_STATE_ATOL)
+           for k in ("m", "v")}
+    out["params"] = tree_diffs(torch, got["params"], want["params"], MESH_TRAIN_STATE_ATOL)
+    for k in ("m", "v"):
+        check(out[k][0] <= MESH_TRAIN_STATE_ATOL, f"{what}: {k} differs by {out[k][0]:.3g}")
+    top, over, n = out["params"]
+    check(top <= 2 * lr_sum and over <= MESH_TRAIN_PARAM_SHARE * n,
+          f"{what}: params differ by up to {top:.3g} (limit {2 * lr_sum:.3g}), {over} of {n} "
+          f"beyond {MESH_TRAIN_STATE_ATOL:g}")
+    return out
+
+
+def fmt_held(h: dict) -> str:
+    return (f"m within {h['m'][0]:.3g}, v within {h['v'][0]:.3g}, params within "
+            f"{h['params'][0]:.3g} ({h['params'][1]} of {h['params'][2]} beyond "
+            f"{MESH_TRAIN_STATE_ATOL:g})")
+
+
+def phase_mesh_training(torch, smi: str) -> dict:
+    """Phase 18: training on the mesh. (a) NCCL at world size 1; (b), (c)
+    two gloo ranks sharing the card, started first: (a) and the one-device
+    runs (b) and (c) are held to run here meanwhile (the ranks mostly wait
+    on gloo's host-staged collectives, so (a)'s times are taken on a card
+    it shares with them)."""
+    t0 = time.perf_counter()
+    root = os.path.join(ROOT, "build", "phase18")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    procs = start_train_ranks(root)  # (b) and (c) run beside (a) and the references
+    try:
+        a = mesh_train_world_one(torch, smi, root)
+        t_a = time.perf_counter() - t0
+        ref = one_device_references(torch, root)
+        t_ref = time.perf_counter() - t0
+        bc = mesh_train_two_ranks(torch, smi, root, procs, ref)
+    finally:
+        for p in procs:
+            p.kill()
+        shutil.rmtree(root, ignore_errors=True)
+    wall_s = time.perf_counter() - t0
+    print(f"[mesh-train] phase 18 wall {wall_s:.3f} s ((a) {t_a:.3f} s, then the one-device "
+          f"references to {t_ref:.3f} s, both beside the ranks; the ranks' launcher "
+          f"{bc['ranks'][0]['b']['wall_s']:.3f} s)")
+    counts = [a["none"]["counts"], a["int8-pod"]["counts"]] + [
+        r[k]["counts"] for r in bc["ranks"] for k in ("b", "c")]
+    launches = {n: sum(c[n] for c in counts) for n in counts[0]}
+    return {"a": a, "bc": bc, "wall_s": wall_s, "launches": launches}
+
+
 def expert_record(name, rows, err, launches, ms_key, plain_key, replaces, pallas):
     """One record for B1e or B4e: times summed over the 3 expert sites of
     one granite MoE layer at decode (M = 4, E = 40); the same at M = 64 (a
@@ -5983,6 +6521,7 @@ def main() -> int:
     training = phase(15, phase_training_slice, torch, smi)
     mesh = phase(16, phase_mesh_slice, torch, smi)
     family = phase(17, phase_family_mesh, torch, smi)
+    mesh_training = phase(18, phase_mesh_training, torch, smi)
     print(f"[wall] total {time.perf_counter() - t_start:.1f} s: "
           + ", ".join(f"{n}: {w:.1f}" for n, w in walls.items()), flush=True)
     records = [
@@ -6046,6 +6585,13 @@ def main() -> int:
     records[7]["family_shards"] = [{k: r[k] for k in (
         "E", "M", "K", "N", "b4e_ms", "bound_ms", "bound_by", "library_ms")}
         for r in family["expert_rows"]]
+    # phase 18's launches: none on the mesh train steps ((a) both runs, (b)
+    # and (c) on each rank)
+    for rec, key in zip(records, ("w4a8_matmul", "paged_decode_attention",
+                                  "paged_decode_attention_int8", "w4a8_sparse_matmul",
+                                  "gpfq_solve", "quant_rmsnorm", "w4a8_expert_matmul",
+                                  "w4a8_sparse_expert_matmul")):
+        rec["mesh_training_launches"] = mesh_training["launches"][key]
     print(json.dumps({"kernels": records}))
     # one card: every phase runs on cuda:0
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -6059,4 +6605,6 @@ if __name__ == "__main__":
         sys.exit(mesh_rank_main(sys.argv))
     if "--family-rank" in sys.argv:
         sys.exit(family_rank_main(sys.argv))
+    if "--train-rank" in sys.argv:
+        sys.exit(train_rank_main(sys.argv))
     sys.exit(main())

@@ -247,12 +247,37 @@ def params_to_numpy(model: Transformer) -> dict:
     return _numpy_tree(reference_tree(model))
 
 
+def _placed(model) -> bool:
+    return getattr(model, "_mesh", None) is not None
+
+
+def _full_meta(model, named: dict) -> dict:
+    """Meta tensors of the full shapes of a placed model's blocks."""
+    from repro_torch.runtime.steps import full_shape
+
+    return {n: torch.empty(full_shape(t, model._train_specs[n], model._mesh), dtype=t.dtype,
+                           device="meta") for n, t in named.items()}
+
+
 def train_state_tree(state: dict, *, spec: bool = False) -> dict:
     """A train state (:func:`~repro_torch.runtime.steps.init_train_state`)
     in the reference's layout: ``params``, ``opt.m`` and ``opt.v`` as
     reference trees, ``opt.step`` a 0-d int32 tensor (host copies, or meta
-    tensors under ``spec``)."""
+    tensors under ``spec``). A state placed on a mesh
+    (:func:`~repro_torch.runtime.steps.place_train_state`) gives its whole
+    leaves: gathered, a collective every rank calls (or, under ``spec``,
+    their full shapes)."""
     model, opt = state["params"], state["opt"]
+    if _placed(model) and spec:
+        named = _full_meta(model, dict(model.named_parameters()))
+        return {"params": reference_tree(model, named, spec=True),
+                "opt": {"m": reference_tree(model, _full_meta(model, opt["m"]), spec=True),
+                        "v": reference_tree(model, _full_meta(model, opt["v"]), spec=True),
+                        "step": torch.empty((), dtype=opt["step"].dtype, device="meta")}}
+    if _placed(model):
+        from repro_torch.runtime.steps import gather_train_state
+
+        return train_state_tree(gather_train_state(state))
     step = opt["step"]
     return {"params": reference_tree(model, spec=spec),
             "opt": {"m": reference_tree(model, opt["m"], spec=spec),
@@ -271,11 +296,24 @@ def train_state_to_numpy(state: dict) -> dict:
 
 def load_train_state_(state: dict, tree: dict) -> None:
     """Copy a reference train state (numpy arrays or tensors) into the
-    port's ``state`` in place: parameters, both moments and the step."""
+    port's ``state`` in place: parameters, both moments and the step. A
+    state placed on a mesh takes this rank's slice of each whole leaf, on
+    any mesh (the reference's resharding restore)."""
+    from repro_torch.runtime.sharding import local_slice
+
     model, opt = state["params"], state["opt"]
-    load_reference_tree_(model, tree["params"])
-    load_reference_tree_(model, tree["opt"]["m"], opt["m"])
-    load_reference_tree_(model, tree["opt"]["v"], opt["v"])
+    parts = ((dict(model.named_parameters()), tree["params"]), (opt["m"], tree["opt"]["m"]),
+             (opt["v"], tree["opt"]["v"]))
+    for named, sub in parts:
+        if not _placed(model):
+            load_reference_tree_(model, sub, named)
+            continue
+        full = {n: torch.empty(t.shape, dtype=t.dtype)
+                for n, t in _full_meta(model, named).items()}
+        load_reference_tree_(model, sub, full)
+        with torch.no_grad():
+            for n, t in named.items():
+                t.copy_(local_slice(full[n], model._train_specs[n], model._mesh))
     step = tree["opt"]["step"]
     opt["step"].copy_(step if isinstance(step, torch.Tensor) else torch.as_tensor(np.asarray(step)))
 

@@ -77,17 +77,21 @@ class Mesh(AbstractMesh):
     @property
     def coords(self) -> dict[str, int]:
         """This rank's coordinate on each axis (row-major rank order)."""
-        out, r = {}, self.rank
+        return self.coords_of(self.rank)
+
+    def coords_of(self, rank: int) -> dict[str, int]:
+        """The coordinate of ``rank`` on each axis."""
+        out, r = {}, rank
         for name, size in reversed(list(zip(self.axis_names, self.axis_sizes))):
             out[name] = r % size
             r //= size
         return {n: out[n] for n in self.axis_names}
 
-    def index(self, axes) -> int:
-        """This rank's shard along a dimension sharded over ``axes``, the
-        first axis major (a ``PartitionSpec`` entry ``("model", "data")``
-        puts shard ``m * dp + d`` on rank (d, m))."""
-        idx, c = 0, self.coords
+    def index(self, axes, rank: int | None = None) -> int:
+        """This rank's (or ``rank``'s) shard along a dimension sharded over
+        ``axes``, the first axis major (a ``PartitionSpec`` entry
+        ``("model", "data")`` puts shard ``m * dp + d`` on rank (d, m))."""
+        idx, c = 0, self.coords_of(self.rank if rank is None else rank)
         for a in axes:
             idx = idx * self.shape[a] + c[a]
         return idx

@@ -3,19 +3,33 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch tiny-lm-xs \
         --steps 80 --batch 8 --seq 64 --ckpt-dir /tmp/run1 --device cpu
 
-One device. As in the reference:
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch tiny-lm-xs --steps 80 --batch 8 --seq 64 --ckpt-dir /tmp/run1 --device cpu
+
+Under a distributed environment (``torchrun``: ``WORLD_SIZE`` > 1, or a
+default process group of more than one rank already made) the ranks train
+on ``make_host_mesh()``, every rank on the data axis, as the reference's
+launcher trains on its host mesh: the train state is placed by
+``train_state_shardings`` (each rank holding its slice of the parameters
+and moments), each rank draws its rows of the global batch
+(``TokenBatcher(host_index, host_count)``), and the loss is the global
+batch's. Rank 0 alone prints the loss lines; a straggler line names its
+rank. Without one it is the one-device loop. As in the reference:
   * periodic async checkpoints (``--ckpt-every``) and an emergency
-    checkpoint on SIGTERM/SIGINT;
+    checkpoint on SIGTERM/SIGINT (on a mesh the ranks agree on the stop
+    each step, a MAX all-reduce of the flag, so they stop at one step);
   * resume from the latest checkpoint under ``--ckpt-dir`` (the data
     pipeline's batch ``i`` is a pure function of ``i``, so a resumed run
-    continues the interrupted one);
+    continues the interrupted one), on any mesh;
   * a straggler watermark: a step slower than ``factor`` x the running
     median is logged.
 
 Checkpoints hold the reference's train-state tree (``params``, ``opt.m``,
-``opt.v``, ``opt.step``) under its leaf names, so either package's
-trainer resumes from the other's and ``--ckpt-dir`` of either package's
-``quantize``, ``search`` and ``serve`` restores the trained ``params``.
+``opt.v``, ``opt.step``) under its leaf names, whole leaves on a mesh too
+(gathered; rank 0 writes, then the ranks meet at a barrier), so either
+package's trainer resumes from the other's on any number of ranks and
+``--ckpt-dir`` of either package's ``quantize``, ``search`` and
+``serve`` restores the trained ``params``.
 ``--float32`` trains an f32 copy of a bfloat16 configuration (the form
 calibration takes). On CUDA the loop runs with deterministic algorithms,
 so a resumed run repeats the uninterrupted one bit for bit (the
@@ -40,15 +54,21 @@ from repro_torch.configs import get_config, get_smoke
 from repro_torch.data import DataConfig, TokenBatcher
 from repro_torch.interop import load_train_state_, train_state_tree
 from repro_torch.optim import OptimizerConfig
-from repro_torch.runtime import TrainRunConfig, init_train_state, make_train_step
+from repro_torch.runtime import (
+    TrainRunConfig,
+    init_train_state,
+    make_train_step,
+    place_train_state,
+)
 
 
 class StragglerMonitor:
-    def __init__(self, factor: float = 2.0, window: int = 50):
+    def __init__(self, factor: float = 2.0, window: int = 50, rank: int = 0):
         self.factor = factor
         self.times: list[float] = []
         self.window = window
         self.flagged = 0
+        self.rank = rank
 
     def record(self, dt: float, step: int) -> bool:
         self.times.append(dt)
@@ -58,7 +78,7 @@ class StragglerMonitor:
             if dt > self.factor * med:
                 self.flagged += 1
                 print(f"[straggler] step {step}: {dt*1e3:.0f}ms vs median "
-                      f"{med*1e3:.0f}ms (proc 0)")
+                      f"{med*1e3:.0f}ms (proc {self.rank})")
                 return True
         return False
 
@@ -82,9 +102,19 @@ class _deterministic:
         return False
 
 
+def _distributed() -> bool:
+    """Whether this process is one of several ranks."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size() > 1
+    return int(os.environ.get("WORLD_SIZE", "1")) > 1
+
+
 def main(argv=None, *, monitor: StragglerMonitor | None = None):
     """Train; returns (state, losses). ``monitor`` (default: a new one)
-    records each step's host-clock time."""
+    records each step's host-clock time. On a mesh the state is this
+    rank's placed one."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true", help="use reduced config")
@@ -113,12 +143,25 @@ def main(argv=None, *, monitor: StragglerMonitor | None = None):
         optimizer=OptimizerConfig(lr=args.lr, total_steps=args.steps),
         num_microbatches=args.microbatches,
     )
-    print(f"[train] arch={cfg.name} device={device} batch={args.batch}x{args.seq}")
+    mesh = None
+    if _distributed():
+        from repro_torch.launch.mesh import make_host_mesh
+
+        # a bare "cuda" leaves each rank its own card (cuda:LOCAL_RANK)
+        mesh = make_host_mesh(device=None if device == torch.device("cuda") else device)
+        device = mesh.device
+    rank, world = (mesh.rank, mesh.size) if mesh else (0, 1)
+    say = print if rank == 0 else (lambda *a, **k: None)
+    say(f"[train] arch={cfg.name} device={device} batch={args.batch}x{args.seq}"
+        + (f" mesh={mesh.shape} ({mesh.backend})" if mesh else ""))
 
     data = TokenBatcher(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
-                                   global_batch=args.batch, seed=args.seed))
+                                   global_batch=args.batch, seed=args.seed),
+                        host_index=rank, host_count=world)
     state = init_train_state(cfg, run, args.seed, device=device)
-    step_fn = make_train_step(cfg, run)
+    if mesh:
+        state = place_train_state(state, mesh)
+    step_fn = make_train_step(cfg, run, mesh)
 
     start_step = 0
     ckpt = None
@@ -128,7 +171,16 @@ def main(argv=None, *, monitor: StragglerMonitor | None = None):
         if restored is not None:
             start_step, tree, _ = restored
             load_train_state_(state, tree)
-            print(f"[train] resumed from step {start_step}")
+            say(f"[train] resumed from step {start_step}")
+
+    def save(step: int, loss, blocking: bool = False) -> None:
+        tree = train_state_tree(state)  # on a mesh a gather every rank joins
+        if rank == 0:
+            ckpt.save(step, tree, {"loss": loss}, blocking=blocking)
+        if mesh:
+            import torch.distributed as dist
+
+            dist.barrier()
 
     # preemption safety: emergency checkpoint on SIGTERM/SIGINT
     stop = {"now": False}
@@ -139,7 +191,17 @@ def main(argv=None, *, monitor: StragglerMonitor | None = None):
     old_term = signal.signal(signal.SIGTERM, _sig)
     old_int = signal.signal(signal.SIGINT, _sig)
 
-    monitor = monitor if monitor is not None else StragglerMonitor()
+    def stopping() -> bool:
+        """The stop flag, on a mesh agreed by every rank."""
+        if not mesh:
+            return stop["now"]
+        from repro_torch.runtime.collectives import all_reduce_max
+
+        flag = torch.tensor([int(stop["now"])], dtype=torch.int32, device=device)
+        stop["now"] = bool(all_reduce_max(flag, mesh, mesh.axis_names).item())
+        return stop["now"]
+
+    monitor = monitor if monitor is not None else StragglerMonitor(rank=rank)
     losses = []
     try:
         with _deterministic(device):
@@ -153,30 +215,28 @@ def main(argv=None, *, monitor: StragglerMonitor | None = None):
                 monitor.record(dt, step)
                 losses.append(loss)
                 if step % args.log_every == 0:
-                    print(f"[train] step {step} loss {loss:.4f} "
-                          f"ppl {float(metrics['ppl']):.2f} "
-                          f"lr {float(metrics['lr']):.2e} {dt*1e3:.0f}ms")
+                    say(f"[train] step {step} loss {loss:.4f} "
+                        f"ppl {float(metrics['ppl']):.2f} "
+                        f"lr {float(metrics['lr']):.2e} {dt*1e3:.0f}ms")
                 if ckpt and (step + 1) % args.ckpt_every == 0:
-                    ckpt.save(step + 1, train_state_tree(state), {"loss": loss})
-                if stop["now"]:
-                    print(f"[train] signal received: emergency checkpoint @ {step+1}")
+                    save(step + 1, loss)
+                if stopping():
+                    say(f"[train] signal received: emergency checkpoint @ {step+1}")
                     if ckpt:
-                        ckpt.save(step + 1, train_state_tree(state), {"loss": loss},
-                                  blocking=True)
+                        save(step + 1, loss, blocking=True)
                     break
     finally:
         signal.signal(signal.SIGTERM, old_term)
         signal.signal(signal.SIGINT, old_int)
         if ckpt:
             if not stop["now"]:
-                ckpt.save(args.steps, train_state_tree(state),
-                          {"loss": losses[-1] if losses else None}, blocking=True)
+                save(args.steps, losses[-1] if losses else None, blocking=True)
             ckpt.wait()
 
     if losses:
         k = max(len(losses) // 10, 1)
-        print(f"[train] first-{k} mean loss {np.mean(losses[:k]):.4f} -> "
-              f"last-{k} mean {np.mean(losses[-k:]):.4f}")
+        say(f"[train] first-{k} mean loss {np.mean(losses[:k]):.4f} -> "
+            f"last-{k} mean {np.mean(losses[-k:]):.4f}")
     return state, losses
 
 

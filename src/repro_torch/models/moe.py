@@ -32,6 +32,8 @@ follows the reference where torch differs from JAX:
 from __future__ import annotations
 
 import math
+import threading
+from contextlib import contextmanager
 
 import torch
 import torch.nn.functional as F
@@ -91,6 +93,28 @@ def top_k(gates: torch.Tensor, k: int):
     return values[..., :k], indices[..., :k]
 
 
+_split = threading.local()
+
+
+@contextmanager
+def split_routing(rows: int, row0: int):
+    """Route a rank's rows ``[row0, row0 + B)`` of a batch of ``rows`` rows
+    as the whole batch routes them: the group size and capacity come from
+    the whole batch's token count, and a rank whose rows would cut a group
+    raises. Inside, :func:`moe` gives a zero loss and appends each block's
+    (top-1 expert counts (E,), summed router probabilities (E,)) over this
+    rank's tokens to the list yielded, from which the caller forms the
+    whole batch's load-balance loss
+    (:func:`~repro_torch.models.transformer.loss_fn` with ``split``)."""
+    stats: list = []
+    prev = getattr(_split, "active", None)
+    _split.active = (rows, row0, stats)
+    try:
+        yield stats
+    finally:
+        _split.active = prev
+
+
 def route(router_w, x, cfg: ModelConfig):
     """Group tokens and build the routing tensors (shared by the model and
     the PTQ adapter, which must route identically).
@@ -99,9 +123,15 @@ def route(router_w, x, cfg: ModelConfig):
     mo = cfg.moe
     B, S, d = x.shape
     n_tok = B * S
-    g = min(mo.group_size, n_tok)
-    if n_tok % g:
-        g = math.gcd(n_tok, g)
+    active = getattr(_split, "active", None)
+    total, first = (n_tok, 0) if active is None else (active[0] * S, active[1] * S)
+    g = min(mo.group_size, total)
+    if total % g:
+        g = math.gcd(total, g)
+    if first % g or n_tok % g:
+        raise ValueError(f"this rank's tokens [{first}, {first + n_tok}) of the batch's {total} "
+                         f"cut a routing group of {g} tokens: the rows a rank holds must be "
+                         f"whole groups")
     G = n_tok // g
     c = expert_capacity(cfg, g)
     xf = x.reshape(G, g, d)
@@ -156,11 +186,16 @@ def moe(p: MoE, x, cfg: ModelConfig, *, aux: bool = True):
     dt = torch.promote_types(combine.dtype, ye.dtype)
     y = torch.einsum("gsec,egcd->gsd", combine.to(dt), ye.to(dt))
     loss = None
-    if aux:
+    active = getattr(_split, "active", None)
+    if aux and active is not None:  # the caller forms the whole batch's loss
+        top1 = _one_hot(topi[..., 0], mo.n_experts, torch.float32)
+        active[2].append((torch.sum(top1, dim=(0, 1)), torch.sum(gates, dim=(0, 1))))
+        loss = torch.zeros((), dtype=torch.float32, device=x.device)
+    elif aux:
         density = torch.mean(_one_hot(topi[..., 0], mo.n_experts, torch.float32), dim=(0, 1))
         router_prob = torch.mean(gates, dim=(0, 1))
         loss = mo.n_experts * torch.sum(density * router_prob)
     return y.reshape(B, S, d).to(x.dtype), loss
 
 
-__all__ = ["MoE", "expert_capacity", "expert_matmul", "moe", "route", "top_k"]
+__all__ = ["MoE", "expert_capacity", "expert_matmul", "moe", "route", "split_routing", "top_k"]

@@ -29,7 +29,7 @@ from torch import nn
 from repro_torch import resolve_device
 
 from .config import LayerSpec, ModelConfig
-from .moe import MoE, moe
+from .moe import MoE, moe, split_routing
 from .ssm import init_mamba, mamba, mamba_decode, mamba_state_shapes
 from .xlstm import (
     init_mlstm,
@@ -276,11 +276,41 @@ def forward(model: Transformer, batch: dict):
     return lm_logits(model.embedding, x, cfg), aux
 
 
-def loss_fn(model: Transformer, batch: dict):
+class BatchSplit(NamedTuple):
+    """A batch whose rows lie on several ranks: ``rows`` rows in all, this
+    rank's from ``row0``; ``reduce(v)`` sums the 1-D tensor ``v`` in place
+    over the ranks that hold the other rows and returns it."""
+
+    rows: int
+    row0: int
+    reduce: Callable
+
+
+def split_stats_size(cfg: ModelConfig) -> int:
+    """The length of the vector :func:`loss_fn` with a split reduces: the
+    loss's token count and each MoE block's top-1 expert counts."""
+    n_moe = sum(cfg.layer_spec(i).ffn == "moe" for i in range(cfg.n_layers))
+    return 1 + n_moe * (cfg.moe.n_experts if n_moe else 0)
+
+
+def loss_fn(model: Transformer, batch: dict, split: BatchSplit | None = None):
     """Next-token cross entropy over the text positions (the vision stub's
     prefix masked, as in the reference). Returns (total, {"ce", "aux",
-    "ppl"})."""
-    logits, aux = forward(model, batch)
+    "ppl"}).
+
+    With ``split`` the batch holds this rank's rows of a larger one, and
+    the terms are this rank's shares of the whole batch's loss (their sum
+    over the ranks is that loss, and so is the sum of their gradients): the
+    cross entropy's token count and the MoE load-balance loss's factors
+    (each a mean over the whole batch's tokens) are summed over the ranks
+    first, in one ``split.reduce`` (:func:`split_stats_size`); ``ppl`` is
+    left to the caller."""
+    if split is None:
+        logits, aux = forward(model, batch)
+        stats = ()
+    else:
+        with split_routing(split.rows, split.row0) as stats:
+            logits, aux = forward(model, batch)
     pred = logits[:, frontend_prefix(model.cfg):][:, :-1].to(torch.float32)
     labels = batch["tokens"][:, 1:].long()
     logz = torch.logsumexp(pred, dim=-1)
@@ -290,9 +320,17 @@ def loss_fn(model: Transformer, batch: dict):
     if mask is not None:
         m = mask[:, 1:].to(torch.float32)
         nll = nll * m
-        denom = torch.clamp(torch.sum(m), min=1.0)
+        count = torch.sum(m)
     else:
-        denom = torch.tensor(float(nll.numel()), device=nll.device)
+        count = torch.tensor(float(nll.numel()), device=nll.device)
+    if split is not None:
+        vec = split.reduce(torch.cat([count.reshape(1)] + [c for c, _ in stats]))
+        count, n_tok = vec[0], split.rows * logits.shape[1]
+        e = model.cfg.moe.n_experts if stats else 0
+        for i, (_, prob) in enumerate(stats):
+            density = vec[1 + i * e:1 + (i + 1) * e] / n_tok
+            aux = aux + e * torch.sum(density * (prob / n_tok))
+    denom = torch.clamp(count, min=1.0) if mask is not None else count
     ce = torch.sum(nll) / denom
     total = ce + AUX_LOSS_WEIGHT * aux
     return total, {"ce": ce, "aux": aux, "ppl": torch.exp(ce)}

@@ -65,24 +65,46 @@ def init_opt_state(params: dict[str, torch.Tensor], cfg: OptimizerConfig) -> dic
     }
 
 
-def global_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32))) for x in tree.values()))
+def global_norm(tree: dict[str, torch.Tensor], shards=None) -> torch.Tensor:
+    """The L2 norm of every leaf of ``tree`` together. ``shards`` = (mesh,
+    {name: spec}): each leaf is this rank's block under its spec, and its
+    sum of squares is summed over the axes it is sharded on (one all-reduce
+    for the leaves sharded alike), so a replicated leaf counts once and
+    every rank gets the norm of the whole tree."""
+    sq = {n: torch.sum(torch.square(x.to(torch.float32))) for n, x in tree.items()}
+    if shards is not None:
+        from repro_torch.runtime.collectives import all_reduce_sum
+        from repro_torch.runtime.sharding import spec_axes
+
+        mesh, specs = shards
+        alike: dict[tuple, list[str]] = {}
+        for n in tree:
+            axes = tuple(a for e in specs[n] for a in spec_axes(e) if mesh.shape[a] > 1)
+            alike.setdefault(axes, []).append(n)
+        for axes, names in alike.items():
+            if axes:
+                total = all_reduce_sum(torch.stack([sq[n] for n in names]), mesh, axes)
+                sq.update(zip(names, total))
+    return torch.sqrt(sum(sq[n] for n in tree))
 
 
-def clip_by_global_norm(grads: dict[str, torch.Tensor], max_norm: float):
+def clip_by_global_norm(grads: dict[str, torch.Tensor], max_norm: float, shards=None):
     """Gradients scaled (in f32) so their global norm is at most
-    ``max_norm``; returns (clipped, norm)."""
-    norm = global_norm(grads)
+    ``max_norm``; returns (clipped, norm). ``shards``: see
+    :func:`global_norm`."""
+    norm = global_norm(grads, shards)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     return {n: (g.to(torch.float32) * scale).to(g.dtype) for n, g in grads.items()}, norm
 
 
 @torch.no_grad()
 def adamw_update(params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor],
-                 state: dict, cfg: OptimizerConfig):
+                 state: dict, cfg: OptimizerConfig, shards=None):
     """One AdamW step, in place on ``params`` and ``state``. Returns
-    (params, state, {"lr", "grad_norm"})."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    (params, state, {"lr", "grad_norm"}). ``shards`` = (mesh, specs): the
+    leaves are this rank's blocks (the clip takes the whole tree's norm,
+    :func:`global_norm`; the rest is elementwise)."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, shards)
     step = state["step"] + 1
     lr = lr_at_step(cfg, step)
     b1, b2 = cfg.b1, cfg.b2

@@ -1,9 +1,12 @@
-"""Runtime (port of ``repro/runtime``): the train step (``steps``, one
-device), the sharding rules and placement (``sharding``) and the mesh
-collectives (``collectives``). The train step's names load on first use,
-so the model code can import ``collectives`` without the training stack."""
+"""Runtime (port of ``repro/runtime``): the train step and the placement
+of a train state (``steps``, one device or a mesh), gradient compression
+across pods (``compression``), the sharding rules and placement
+(``sharding``) and the mesh collectives (``collectives``). The train
+step's names load on first use, so the model code can import
+``collectives`` without the training stack."""
 
-_STEPS = ("TrainRunConfig", "init_train_state", "make_train_step")
+_STEPS = ("TrainRunConfig", "gather_train_state", "init_train_state", "make_train_step",
+          "place_train_state", "train_state_shardings")
 
 
 def __getattr__(name):

@@ -2,13 +2,14 @@
 between shardings (no reference counterpart: the reference's GSPMD
 partitioner inserts these itself).
 
-Every collective is written on ``all_reduce``, which gloo runs on CUDA
+Every reduction is written on ``all_reduce``, which gloo runs on CUDA
 tensors too (staging through the host) and NCCL runs inside a captured
-CUDA graph. A gather fills a zeroed full buffer with the local slice and
-sums over the group; it sums the *bits* (the buffer viewed as int32, or
-bytes), at most one rank contributing a nonzero to each element, so the
-gathered value is exact in any dtype. This moves the group size times the
-bytes of NCCL's ``all_gather_into_tensor``.
+CUDA graph. Under NCCL a gather is ``all_gather_into_tensor``; under gloo
+it fills a zeroed full buffer with the local slice and sums over the
+group, summing the *bits* (the buffer viewed as int32, or bytes), at most
+one rank contributing a nonzero to each element, so the gathered value is
+exact in any dtype (this moves the group size times the bytes of a
+gather).
 
 A layout is the tuple of mesh axes a dimension is sharded over, the first
 major; ``()`` is replicated. ``calls`` and ``bytes`` count the collectives
@@ -79,17 +80,37 @@ def shard_range(length: int, mesh, axes) -> tuple[int, int]:
 
 def gather_dim(x: torch.Tensor, dim: int, mesh, axes) -> torch.Tensor:
     """The full tensor of a dimension sharded over ``axes`` (``x`` this
-    rank's block): a zeroed buffer holding the local block, summed bitwise
-    over the group."""
+    rank's block): under NCCL an ``all_gather_into_tensor``, the blocks put
+    in shard order; under gloo a zeroed buffer holding the local block,
+    summed bitwise over the group."""
     if not axes:
         return x
     dim = dim % x.dim()
+    if mesh.backend == "nccl":
+        return _all_gather(x, dim, mesh, axes)
     n = x.shape[dim]
     shape = list(x.shape)
     shape[dim] = n * mesh.axes_size(axes)
     full = torch.zeros(shape, dtype=x.dtype, device=x.device)
     full.narrow(dim, mesh.index(axes) * n, n).copy_(x)
     return all_reduce_sum(full, mesh, axes, exact=True)
+
+
+def _all_gather(x: torch.Tensor, dim: int, mesh, axes) -> torch.Tensor:
+    import torch.distributed as dist
+
+    group = mesh.group(axes)
+    members = (dist.get_process_group_ranks(group) if group is not None
+               else range(dist.get_world_size()))
+    # the group's ranks in group order, and the shard each holds
+    shard = [mesh.index(axes, r) for r in members]
+    out = torch.empty((len(shard) * x.shape[0], *x.shape[1:]), dtype=x.dtype, device=x.device)
+    _count(out)
+    dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+    if dim == 0 and shard == sorted(shard):
+        return out
+    blocks = out.chunk(len(shard))
+    return torch.cat([blocks[shard.index(i)] for i in range(len(shard))], dim=dim)
 
 
 def relayout(x: torch.Tensor, dim: int, have, want, mesh) -> torch.Tensor:

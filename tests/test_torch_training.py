@@ -203,9 +203,25 @@ def test_train_steps_match_reference(microbatches):
 
 
 def test_train_step_refusals():
+    """``int8-pod`` compresses across pods only, as in the reference: with
+    no mesh the step is the plain step bit for bit, and on a mesh with no
+    ``pod`` axis the reducer is left as it is; a batch the microbatches do
+    not divide is refused."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.compression import compressed_grad_fn
+
     jcfg, cfg = _smoke_pair()
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        make_train_step(cfg, TrainRunConfig(grad_compression="int8-pod"))
+    states = [init_train_state(cfg, TrainRunConfig(), device="cpu") for _ in range(2)]
+    steps = [make_train_step(cfg, TrainRunConfig(grad_compression=c)) for c in ("int8-pod", "none")]
+    for i in range(2):
+        got, want = (step(st, _torch_batch(_data().batch(i)))[1]
+                     for step, st in zip(steps, states))
+        assert all(torch.equal(got[k], want[k]) for k in want)
+    for (_, a), (_, b) in zip(*(st["params"].named_parameters() for st in states)):
+        assert torch.equal(a, b)
+    fn = object()
+    assert compressed_grad_fn(fn, make_mesh((2, 2), abstract=True)) is fn
+    assert compressed_grad_fn(fn, None) is fn
     state = init_train_state(cfg, TrainRunConfig(num_microbatches=3), device="cpu")
     step = make_train_step(cfg, TrainRunConfig(num_microbatches=3))
     with pytest.raises(ValueError, match="not divisible"):
