@@ -6,7 +6,13 @@ serves.
     python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero; nothing is printed as a
-result unless every phase passed):
+result unless every phase passed). The kernels build in a thread while
+the training that launches none of them runs first: phase 15 (a)'s remat
+turns, then phase 18 (a) and its one-device references; phase 1 then
+reads the build, and phases 2-15 follow in order. Then phase 18's gloo
+ranks start and run beside phases 16 and 17, and are read while phase
+17's own ranks run (every profiled phase runs before phases 16 and 17:
+after their NCCL serving the profiler lost a trace's records):
 
 1. the card (``nvidia-smi`` name and power limit) and the build of every
    CUDA kernel from ``src/repro_torch/kernels/csrc`` with ``nvcc``;
@@ -315,7 +321,11 @@ result unless every phase passed):
    ``launch/quantize.py --ckpt-dir`` calibrates the checkpoint (224 B5
    solves, every site certified, float and quantized perplexity);
    ``launch/serve.py --ckpt-dir --artifact --paged`` serves it, and the
-   trained artifact serves phase 7's trace through ``PagedEngine``. (b)
+   trained artifact serves phase 7's trace through ``PagedEngine``; then
+   the same model from one init trains at its config's ``remat="block"``
+   and at ``"none"``, a step of each in turns (REMAT_STEPS): each one's
+   step time and peak memory, the losses equal and the states bit-equal
+   after. (b)
    tiny-lm-l trained with the paper-table recipe (400 steps, batch 8 x 96,
    lr 1e-3, warmup 20, data seed 7), calibrated with AXE-GPFQ at P_I = 16
    (28 B5 solves, every site certified): quantized against float
@@ -380,11 +390,15 @@ result unless every phase passed):
    gains ``family_launches`` on B1 and B1e, ``family_sites`` on B1 and
    ``family_shards`` on B1e and B4e;
 18. training on the mesh. Two gloo ranks sharing the card (this script
-   with ``--train-rank``) start first and run beside the rest: (b)
+   with ``--train-rank``) run beside phases 16 and 17: (b)
    smollm-360m f32 at full width cut to MESH_TRAIN_LAYERS layers through
-   ``launch/train.py`` on the host mesh (data,) = (2,), 6 steps with
-   checkpoints every 3 under ``build/phase18`` (removed after), and (c)
-   the same model on (pod, data, model) = (2, 1, 1) under int8-pod. Here:
+   ``launch/train.py`` on the host mesh (data,) = (2,), 4 steps with
+   checkpoints every 2 under ``build/phase18`` (removed after), (c)
+   the same model on (pod, data, model) = (2, 1, 1) under int8-pod, and
+   (d) the whole model (32 layers) through ``launch/train.py`` on the host
+   mesh under ``remat="block"``, 3 steps: its first loss within rel 1e-5
+   of phase 15 (a)'s, its loop's peak a rank below phase 15 (a)'s
+   one-device ``"block"`` peak, printed beside ``mesh_train_bytes``. Here:
    (a) smollm-360m f32 uncut at NCCL world size 1 on (1, 1, 1), 4 steps
    of 8 x 128: the train state bit-equal to the one-device trainer's, and
    under int8-pod m and v bit-equal to the plain int8 formula on the
@@ -393,7 +407,7 @@ result unless every phase passed):
    1e-5 of the one-device trainer's, its final state (the ranks'
    checkpoint, whole leaves) with m and v within 1e-5 and the parameters
    tie-limited (MESH_TRAIN_PARAM_SHARE), and a one-device run resumed from
-   the ranks' step-3 checkpoint likewise; (c)'s m and v bit-equal to the
+   the ranks' step-2 checkpoint likewise; (c)'s m and v bit-equal to the
    plain formula on the two pods' one-device gradients. No port kernel
    launches in any mesh train step. It prints the step time a rank, the
    collectives and bytes a step, the state MiB a rank against one device
@@ -422,6 +436,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
@@ -595,6 +610,11 @@ def read_counts() -> dict:
             "paged_decode_attention": paged_decode_attention.launches,
             "paged_decode_attention_int8": paged_decode_attention.int8_launches,
             "quant_rmsnorm": quant_rmsnorm.launches}
+
+
+#: processes this script started that run on beside later phases; main
+#: kills any still running when it ends
+CHILDREN: list = []
 
 
 def check(cond: bool, msg: str) -> None:
@@ -807,19 +827,25 @@ def decode_step_ms(torch, model, prompts, out) -> float:
         return wall_ms(torch, lambda: T.decode_step(model, step_tok, caches, PROMPT), reps=10)
 
 
-def phase_card(torch):
+def build_kernels() -> tuple[dict, float]:
+    """Every kernel source built (one nvcc each, all started together):
+    (the compiler logs, seconds)."""
     from repro_torch.kernels import _build
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip()
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    return logs, time.perf_counter() - t0
+
+
+def phase_card(torch, build=None):
+    """The card's name and power limit, and the kernels' build: ``build``
+    (a future of :func:`build_kernels` started earlier) or one now."""
+    smi = _smi()
     print(f"[card] nvidia-smi: {smi}")
     print(f"[card] torch.cuda.get_device_name(): {torch.cuda.get_device_name(0)}; "
           f"torch {torch.__version__} cuda {torch.version.cuda}")
-    t0 = time.perf_counter()
-    logs = _build.build_all()
-    print(f"[build] {len(logs)} kernel source(s) built in "
-          f"{time.perf_counter() - t0:.3f} s: {sorted(logs)}")
+    logs, build_s = build.result() if build is not None else build_kernels()
+    print(f"[build] {len(logs)} kernel source(s) built in {build_s:.3f} s: {sorted(logs)}")
     for name, log in logs.items():
         usage = sorted({line.split(":", 1)[1].strip() for line in log.splitlines()
                         if "Used" in line and "registers" in line})
@@ -4651,6 +4677,9 @@ def train_and_resume(torch, smi: str, root: str) -> dict:
     k = TRAIN_STEPS // 4
     check(losses[-1] < losses[0] and sum(losses[-k:]) < sum(losses[:k]),
           f"the loss does not fall: {losses}")
+    check(losses[0] == PHASE15["first_loss"],
+          f"the launcher's first loss {losses[0]} is not the remat turns' "
+          f"{PHASE15['first_loss']} (the same init and batch)")
     mgr = CheckpointManager(ckpt)
     check(mgr.latest_step() == TRAIN_STEPS and os.path.isdir(mgr.directory(TRAIN_EVERY)),
           f"checkpoints {sorted(os.listdir(ckpt))}")
@@ -4710,6 +4739,75 @@ def train_and_resume(torch, smi: str, root: str) -> dict:
             "peak_mib": peak / 2**20, "write_s": write_s, "restore_s": restore_s,
             "ckpt_gib": ck_bytes / 2**30, "resume_rel": rel, "resume_diff": diff,
             "resume_equal": equal, "ckpt": ckpt}
+
+
+#: what phase 18 (d) holds itself to: the one-device trainer's first loss
+#: and its peak memory a step under remat="block", from phase 15 (a)'s
+#: remat turns (:func:`remat_turns`, run first)
+PHASE15: dict = {}
+#: (a), the recomputation: steps each trainer takes in turns (the first
+#: builds and warms up)
+REMAT_STEPS = 6
+
+
+def remat_turns(torch, smi: str) -> dict:
+    """(a), the recomputation: smollm-360m f32 uncut from the same init,
+    trained with its config's ``remat="block"`` and with a
+    ``remat="none"`` copy, a step of each in turns on launch/train.py's
+    batches, under deterministic algorithms. Each step's peak memory
+    (``max_memory_allocated`` after ``reset_peak_memory_stats``, less the
+    other trainer's resident state: the trainer's own peak) and time
+    (ending in its loss read; median and spread of steps 2 on); the losses
+    equal and the two train states bit-equal after the steps; no port
+    kernel launched."""
+    from repro_torch.launch.train import _deterministic
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.runtime import TrainRunConfig, init_train_state, make_train_step
+
+    cfg = _train_cfg()
+    check(cfg.remat == "block", f"{TRAIN_ARCH}'s config has remat={cfg.remat!r}")
+    run = TrainRunConfig(optimizer=OptimizerConfig(lr=TRAIN_LR, total_steps=REMAT_STEPS))
+    data = _train_data(cfg)
+    names = ("block", "none")
+    times, peaks, losses = ({k: [] for k in names} for _ in range(3))
+    with _deterministic(torch.device("cuda")):
+        trainers = {k: [init_train_state(cfg.scaled(remat=k), run, 0, device="cuda"),
+                        make_train_step(cfg.scaled(remat=k), run)] for k in names}
+        resident = {k: _state_bytes(trainers[k][0]) for k in names}
+        reset_counts()
+        for i in range(REMAT_STEPS):
+            batch = _cuda_batch(torch, data.batch(i)["tokens"])
+            for k in (names if i % 2 == 0 else names[::-1]):
+                other = names[1 - names.index(k)]
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                trainers[k][0], m = trainers[k][1](trainers[k][0], batch)
+                losses[k].append(float(m["loss"]))
+                times[k].append(1e3 * (time.perf_counter() - t0))
+                peaks[k].append(torch.cuda.max_memory_allocated() - resident[other])
+        counts = read_counts()
+    check(not any(counts.values()), f"(a) remat: port kernels launched: {counts}")
+    check(losses["block"] == losses["none"], f"(a) remat: losses {losses}")
+    equal = _same_state(torch, trainers["block"][0], trainers["none"][0])
+    check(equal, "(a) remat: the train states at block and none differ")
+    step = {k: spread_ms(times[k][1:]) for k in names}
+    peak = {k: max(peaks[k]) / 2**20 for k in names}
+    PHASE15.update(first_loss=losses["block"][0], block_peak_mib=peak["block"])
+    ratio = step["block"]["median"] / step["none"]["median"]
+    print(f"[train] (a) remat, {TRAIN_ARCH} f32 uncut ({resident['block'] / 2**20:.1f} MiB of "
+          f"params, m and v), {REMAT_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} each, in turns "
+          f"from the same init, deterministic algorithms: remat=\"block\" (a checkpoint a "
+          f"layer) step {fmt_spread(step['block'])}, peak {peak['block']:.1f} MiB; "
+          f"remat=\"none\" step {fmt_spread(step['none'])}, peak {peak['none']:.1f} MiB (steps "
+          f"2-{REMAT_STEPS}, each ending in its loss read; a peak less the other trainer's "
+          f"resident state); block / none {ratio:.3f}x the time, "
+          f"{peak['none'] - peak['block']:.1f} MiB less at its peak; losses equal, the two "
+          f"train states bit-equal after {REMAT_STEPS} steps; no port kernel launched; {smi}")
+    del trainers
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"step": step, "peak_mib": peak, "ratio": ratio, "losses": losses["block"]}
 
 
 def calibrate_and_serve_trained(torch, smi: str, root: str, ckpt: str) -> dict:
@@ -4951,10 +5049,12 @@ def registry_model(torch, arch: str, smi: str) -> dict:
             "packed_bytes": nbytes["packed_bytes"], "paged": paged}
 
 
-def phase_training_slice(torch, smi: str) -> dict:
+def phase_training_slice(torch, smi: str, remat: dict) -> dict:
     """Phase 15: (a) train smollm-360m, checkpoint, resume, calibrate and
-    serve the checkpoint; (b) the paper-table recipe's trained rung and its
-    quantized perplexity; (c) the registry's models that fit the card."""
+    serve the checkpoint (``remat``: its training at remat "block" and
+    "none" in turns, :func:`remat_turns`, run beside the build); (b) the
+    paper-table recipe's trained rung and its quantized perplexity; (c) the
+    registry's models that fit the card."""
     t_phase = time.perf_counter()
     root = os.path.join(ROOT, "build", "phase15")
     shutil.rmtree(root, ignore_errors=True)
@@ -4974,8 +5074,8 @@ def phase_training_slice(torch, smi: str) -> dict:
         b1[r["arch"]] = {"fixed": r["fixed_counts"]["w4a8_matmul"],
                          "paged": [r["paged"][k]["counts"]["w4a8_matmul"]
                                    for k in ("act", "int8")]}
-    return {"trained": trained, "served": served, "rung": rung, "registry": registry,
-            "wall_s": wall_s, "b1": b1,
+    return {"trained": trained, "served": served, "remat": remat, "rung": rung,
+            "registry": registry, "wall_s": wall_s, "b1": b1,
             "b2": {"trained_paged": served["paged"]["counts"]["paged_decode_attention"],
                    "trained_serve_launcher": served["serve_counts"]["paged_decode_attention"],
                    **{r["arch"]: r["paged"]["act"]["counts"]["paged_decode_attention"]
@@ -5701,13 +5801,14 @@ def family_rank_main(argv) -> int:
     return 0
 
 
-def phase_family_mesh(torch, smi: str) -> dict:
-    """Phase 17: MoE and recurrent patterns under the mesh. (a) granite at
-    NCCL world size 1; B1e/B4e at granite's expert shards, B1 at
-    xlstm-350m's and the Mamba block's (1, 2) shards (here, before the ranks
-    start: the kernels are built in this process); then two gloo ranks
-    sharing the card: (b) granite expert-parallel on (2, 1), (c)
-    xlstm-350m on (1, 2), (d) the Jamba-width Mamba block on (1, 2)."""
+def family_mesh_start(torch, smi: str) -> dict:
+    """Phase 17, its first part: MoE and recurrent patterns under the mesh.
+    (a) granite at NCCL world size 1; B1e/B4e at granite's expert shards, B1
+    at xlstm-350m's and the Mamba block's (1, 2) shards (here, before the
+    ranks start: the kernels are built in this process); then two gloo
+    ranks sharing the card are started: (b) granite expert-parallel on (2,
+    1), (c) xlstm-350m on (1, 2), (d) the Jamba-width Mamba block on (1,
+    2), read by :func:`family_mesh_finish`."""
     from dataclasses import replace
 
     from repro_torch.models.config import LayerSpec
@@ -5728,10 +5829,19 @@ def phase_family_mesh(torch, smi: str) -> dict:
     walls["kernels"] = time.perf_counter() - t1
     gc.collect()
     torch.cuda.empty_cache()
-    t1 = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--family-rank",
                                str(r), "--mesh-root", root], stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    CHILDREN.extend(procs)
+    return {"t0": t0, "root": root, "a": a, "walls": walls, "expert_rows": expert_rows,
+            "b1_rows": b1_rows, "procs": procs, "t_started": time.perf_counter()}
+
+
+def family_mesh_finish(torch, smi: str, started: dict) -> dict:
+    """Phase 17, its second part: the ranks of (b), (c) and (d) read (what
+    ran here since :func:`family_mesh_start` ran beside them)."""
+    t0, root, a, walls, procs = (started[k] for k in ("t0", "root", "a", "walls", "procs"))
+    expert_rows, b1_rows, t1 = started["expert_rows"], started["b1_rows"], started["t_started"]
     logs = []
     try:
         for p in procs:
@@ -5756,7 +5866,8 @@ def phase_family_mesh(torch, smi: str) -> dict:
     walls["ranks"] = time.perf_counter() - t1
     wall_s = time.perf_counter() - t0
     print(f"[family] phase 17 wall {wall_s:.3f} s ((a) {walls['a']:.3f} s, kernel checks "
-          f"{walls['kernels']:.3f} s, ranks {walls['ranks']:.3f} s: "
+          f"{walls['kernels']:.3f} s, ranks {walls['ranks']:.3f} s with phase 18's read of "
+          f"its own ranks here meanwhile; the ranks' parts "
           + ", ".join(f"({k}) {v:.3f} s" for k, v in ranks[0]["walls"].items()) + ")")
     b1e = {"a": a["counts"]["w4a8_expert_matmul"],
            "b": [r["b"]["counts"]["w4a8_expert_matmul"] for r in ranks]}
@@ -5774,7 +5885,7 @@ def phase_family_mesh(torch, smi: str) -> dict:
 MESH_TRAIN_A_STEPS = 4
 #: (b): layers of smollm-360m the two ranks train (full width), steps, the
 #: checkpoint every MESH_TRAIN_EVERY steps; (c): steps under int8-pod
-MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS, MESH_TRAIN_EVERY, MESH_TRAIN_C_STEPS = 8, 6, 3, 3
+MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS, MESH_TRAIN_EVERY, MESH_TRAIN_C_STEPS = 8, 4, 2, 3
 #: (b)'s tolerances against the one-device trainer: those of the CPU tests
 #: (tests/test_torch_mesh_training.py): losses rel 1e-5, m and v atol
 #: 1e-5. The parameters are tie-limited: AdamW's step is about lr x the
@@ -5784,8 +5895,10 @@ MESH_TRAIN_LAYERS, MESH_TRAIN_STEPS, MESH_TRAIN_EVERY, MESH_TRAIN_C_STEPS = 8, 6
 #: parameters within 1e-5, and every one within twice the sum of the
 #: steps' learning rates (each step's flip at most 2 lr).
 MESH_TRAIN_LOSS_REL, MESH_TRAIN_STATE_ATOL, MESH_TRAIN_PARAM_SHARE = 1e-5, 1e-5, 1e-4
+#: (d): steps of the full-depth model on the two ranks
+MESH_TRAIN_D_STEPS = 3
 #: seconds the two phase-18 ranks may take together
-MESH_TRAIN_RANK_TIMEOUT = 300
+MESH_TRAIN_RANK_TIMEOUT = 420
 
 
 def _train_cfg(layers: int | None = None):
@@ -5970,7 +6083,7 @@ def mesh_train_world_one(torch, smi: str, root: str) -> dict:
                                      **{f"mesh {c}": turn(*kept[c]) for c in kept}}, 4)
             out["turns"] = turns
             print(f"[mesh-train] (a) in turns (4 runs each, a step ending in its loss read; the "
-                  f"card shared with the ranks of (b) and (c)): "
+                  f"card shared with the build): "
                   + "; ".join(f"{n} {fmt_spread(t)}" for n, t in turns.items()) + f"; {smi}")
             out["one_step"] = spread_ms(one_ms[1:])
             del one, kept, one_step
@@ -5992,17 +6105,21 @@ def _layers_patch(layers: int):
     return lambda: setattr(TR, "get_config", get)
 
 
-def train_launch_args(ckpt: str) -> list:
-    return ["--arch", TRAIN_ARCH, "--float32", "--steps", str(MESH_TRAIN_STEPS), "--batch",
-            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--lr", str(TRAIN_LR), "--ckpt-dir", ckpt,
-            "--ckpt-every", str(MESH_TRAIN_EVERY), "--log-every", "1", "--device", "cuda"]
+def train_launch_args(ckpt: str | None, n_steps: int = MESH_TRAIN_STEPS) -> list:
+    """launch/train.py's arguments for phase 18: checkpoints under ``ckpt``
+    every MESH_TRAIN_EVERY steps (none without it)."""
+    args = ["--arch", TRAIN_ARCH, "--float32", "--steps", str(n_steps), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--lr", str(TRAIN_LR), "--log-every", "1",
+            "--device", "cuda"]
+    return args + (["--ckpt-dir", ckpt, "--ckpt-every", str(MESH_TRAIN_EVERY)] if ckpt else [])
 
 
 def train_rank_main(argv) -> int:
-    """One rank of phase 18 (b) and (c): ``--train-rank R --mesh-root DIR``.
-    (b) launch/train.py on the host mesh (data,) = (2,); (c) the int8-pod
-    step on (pod, data, model) = (2, 1, 1), rank 0 then saving its state
-    for the parent to hold to the plain formula."""
+    """One rank of phase 18 (b), (c) and (d): ``--train-rank R --mesh-root
+    DIR``. (b) launch/train.py on the host mesh (data,) = (2,); (c) the
+    int8-pod step on (pod, data, model) = (2, 1, 1), rank 0 then saving its
+    state for the parent to hold to the plain formula; (d) launch/train.py
+    on the host mesh at full depth, remat="block", no checkpoint."""
     import torch
 
     rank = int(argv[argv.index("--train-rank") + 1])
@@ -6021,7 +6138,7 @@ def train_rank_main(argv) -> int:
         make_train_step,
         place_train_state,
     )
-    from repro_torch.runtime import collectives
+    from repro_torch.runtime import collectives, steps
 
     init = dict(device="cuda:0", backend="gloo", init_method=f"file://{root}/rdv_b", rank=rank,
                 world_size=2, timeout=MESH_TRAIN_RANK_TIMEOUT)
@@ -6032,6 +6149,7 @@ def train_rank_main(argv) -> int:
     mon = TR.StragglerMonitor(rank=rank)
     reset_counts()
     collectives.reset_counts()
+    steps.reset_gathered()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     (state, losses), lines = quiet(lambda: TR.main(train_launch_args(f"{root}/ckpt_b"),
@@ -6043,7 +6161,8 @@ def train_rank_main(argv) -> int:
     out["b"] = {"losses": losses, "step": spread_ms([1e3 * t for t in mon.times[1:]]),
                 "first_ms": 1e3 * mon.times[0], "wall_s": wall, "lines": lines,
                 "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
-                "state_mib": _state_bytes(state) / 2**20, "counts": counts}
+                "state_mib": _state_bytes(state) / 2**20, "counts": counts,
+                "gathered_mib": steps.gathered_peak / 2**20}
     # the collectives of one step alone (the launcher's run adds the
     # checkpoints' gathers and the stop flag's)
     model = state["params"]
@@ -6052,10 +6171,12 @@ def train_rank_main(argv) -> int:
     per = TRAIN_BATCH // 2
     rows = _train_data(model.cfg).batch(MESH_TRAIN_STEPS)["tokens"][rank * per:][:per]
     collectives.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
     with TR._deterministic(torch.device("cuda")):
         state, m = step(state, _cuda_batch(torch, rows))
         float(m["loss"])
-    out["b"].update(collectives=collectives.calls, bytes=collectives.nbytes)
+    out["b"].update(collectives=collectives.calls, bytes=collectives.nbytes,
+                    step_peak_mib=torch.cuda.max_memory_allocated() / 2**20)
     del state, model, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -6086,6 +6207,30 @@ def train_rank_main(argv) -> int:
             torch.save({"params": {n: t.detach() for n, t in state["params"].named_parameters()},
                         "m": state["opt"]["m"], "v": state["opt"]["v"]},
                        os.path.join(root, "c_rank0.pt"))
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (d) the whole model (32 layers) through the launcher on the host mesh
+    mon = TR.StragglerMonitor(rank=rank)
+    reset_counts()
+    collectives.reset_counts()
+    steps.reset_gathered()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (state, losses), lines = quiet(lambda: TR.main(train_launch_args(
+        None, MESH_TRAIN_D_STEPS), monitor=mon))
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    check(not any(counts.values()), f"(d) rank {rank}: port kernels launched: {counts}")
+    check(state["params"].cfg.remat == "block", "(d): the config's remat is not block")
+    out["d"] = {"losses": losses, "step": spread_ms([1e3 * t for t in mon.times[1:]]),
+                "first_ms": 1e3 * mon.times[0], "wall_s": wall, "lines": lines,
+                "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+                "state_mib": _state_bytes(state) / 2**20, "counts": counts,
+                "collectives": collectives.calls / MESH_TRAIN_D_STEPS,
+                "bytes": collectives.nbytes / MESH_TRAIN_D_STEPS,
+                "gathered_mib": steps.gathered_peak / 2**20}
+    del state
     with open(os.path.join(root, f"train{rank}.json"), "w") as f:
         json.dump(out, f)
     dist.destroy_process_group()
@@ -6101,7 +6246,7 @@ def start_train_ranks(root: str) -> list:
 
 
 def one_device_references(torch, root: str) -> dict:
-    """What (b) and (c) are held to, computed while the ranks run: the
+    """What (b) and (c) are held to, computed before the ranks start: the
     one-device trainer through launch/train.py on (b)'s config and batches
     (its losses and final train state), and (c)'s plain int8 formula."""
     from repro_torch.interop import train_state_tree
@@ -6134,8 +6279,8 @@ def one_device_references(torch, root: str) -> dict:
 
 def mesh_train_two_ranks(torch, smi: str, root: str, procs: list, ref: dict) -> dict:
     """(b) and (c), the ranks' side read: their losses and final state (the
-    step-6 checkpoint, whole leaves) against the one-device trainer's, a
-    one-device run resuming from their step-3 checkpoint against it, and
+    final checkpoint, whole leaves) against the one-device trainer's, a
+    one-device run resuming from their step-2 checkpoint against it, and
     rank 0's (c) state against the plain formula."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.interop import train_state_tree
@@ -6191,6 +6336,7 @@ def mesh_train_two_ranks(torch, smi: str, root: str, procs: list, ref: dict) -> 
     check(same["m"] and same["v"], "(c): rank 0's m and v differ from the plain int8 formula on "
                                    "the two pods' one-device gradients")
     c0["params_equal"] = same["params"]
+    bound_b, bound_d = (train_bytes_a_rank(layers) for layers in (MESH_TRAIN_LAYERS, None))
     st = b0["step"]
     print(f"[mesh-train] (b) {TRAIN_ARCH} f32 full width cut to {MESH_TRAIN_LAYERS} layers, "
           f"launch/train.py on 2 gloo ranks sharing the card, host mesh (data,) = (2,), "
@@ -6200,12 +6346,16 @@ def mesh_train_two_ranks(torch, smi: str, root: str, procs: list, ref: dict) -> 
           f"{fmt_held(diff)}; a one-device run resumed from the ranks' step-"
           f"{MESH_TRAIN_EVERY} checkpoint: {fmt_held(rdiff)}, last loss rel {rrel:.3g}; step a rank "
           f"{fmt_spread(st)} (steps 2-{MESH_TRAIN_STEPS}, gloo stages every collective through "
-          f"the host: not an NCCL figure; the card shared with (a); first "
-          f"{b0['first_ms']:.1f} ms); "
+          f"the host: not an NCCL figure; the card and host shared with phases 16 and 17; "
+          f"first {b0['first_ms']:.1f} ms); "
           f"{b0['collectives']} collectives of {b0['bytes'] / 2**20:.1f} MiB a step; state {b0['state_mib']:.1f} MiB a rank against {one_bytes / 2**20:.1f} "
-          f"MiB on one device; peak {b0['peak_mib']:.1f} MiB rank 0, "
-          f"{ranks[1]['b']['peak_mib']:.1f} MiB rank 1; launcher wall {b0['wall_s']:.3f} s; "
-          f"port kernels launched: 0; {smi}")
+          f"MiB on one device; peak in the launcher's loop {b0['peak_mib']:.1f} MiB rank 0, "
+          f"{ranks[1]['b']['peak_mib']:.1f} MiB rank 1 (its checkpoints gather the whole "
+          f"state); a step alone {b0['step_peak_mib']:.1f} / "
+          f"{ranks[1]['b']['step_peak_mib']:.1f} MiB, against the specs' "
+          f"{fmt_train_bytes(bound_b)} (mesh_train_bytes; activations not counted); gathered "
+          f"parameters alive at once at most {b0['gathered_mib']:.1f} MiB; launcher wall "
+          f"{b0['wall_s']:.3f} s; port kernels launched: 0; {smi}")
     print(f"[mesh-train] (c) the same model on 2 gloo ranks, (pod, data, model) = (2, 1, 1), "
           f"int8-pod, {MESH_TRAIN_C_STEPS} steps: m and v bit-equal to the plain formula on "
           f"the two pods' one-device gradients"
@@ -6214,8 +6364,53 @@ def mesh_train_two_ranks(torch, smi: str, root: str, procs: list, ref: dict) -> 
           f"{c0['collectives'] / MESH_TRAIN_C_STEPS:.1f} collectives of "
           f"{c0['bytes'] / MESH_TRAIN_C_STEPS / 2**20:.1f} MiB a step; port kernels launched: "
           f"0; {smi}")
+    d = [r["d"] for r in ranks]
+    check(d[1]["losses"] == d[0]["losses"], "(d): the ranks' losses differ")
+    check(sum("[train] step" in ln for ln in d[0]["lines"]) == MESH_TRAIN_D_STEPS and
+          sum("[train] step" in ln for ln in d[1]["lines"]) == 0,
+          "(d): rank 0 alone prints the loss lines")
+    check("first_loss" in PHASE15 and "block_peak_mib" in PHASE15,
+          "(d) is held to phase 15 (a): run phase 15 first")
+    drel = abs(d[0]["losses"][0] - PHASE15["first_loss"]) / abs(PHASE15["first_loss"])
+    check(drel <= MESH_TRAIN_LOSS_REL, f"(d): the first loss {d[0]['losses'][0]} against the "
+                                       f"one-device trainer's {PHASE15['first_loss']}")
+    d_peak = max(x["peak_mib"] for x in d)
+    check(d_peak < PHASE15["block_peak_mib"],
+          f"(d): peak {d_peak:.1f} MiB a rank, not below one device's "
+          f"{PHASE15['block_peak_mib']:.1f} MiB at remat block")
+    print(f"[mesh-train] (d) {TRAIN_ARCH} f32 at full depth (32 layers), remat=\"block\", "
+          f"launch/train.py on 2 gloo ranks sharing the card, host mesh (data,) = (2,), "
+          f"{MESH_TRAIN_D_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}, no checkpoint: first loss "
+          f"{d[0]['losses'][0]:.6f} within rel {drel:.3g} of phase 15 (a)'s one-device trainer "
+          f"(limit {MESH_TRAIN_LOSS_REL:g}), losses {[round(x, 4) for x in d[0]['losses']]}; "
+          f"peak in the launcher's loop {d[0]['peak_mib']:.1f} MiB rank 0, "
+          f"{d[1]['peak_mib']:.1f} MiB rank 1, against "
+          f"phase 15 (a)'s one-device peak at remat block {PHASE15['block_peak_mib']:.1f} MiB "
+          f"and the specs' {fmt_train_bytes(bound_d)}; state {d[0]['state_mib']:.1f} MiB a "
+          f"rank; gathered parameters alive at once at most {d[0]['gathered_mib']:.1f} MiB; "
+          f"step a rank {fmt_spread(d[0]['step'])} (steps 2-{MESH_TRAIN_D_STEPS}, gloo: not "
+          f"an NCCL figure; first {d[0]['first_ms']:.1f} ms); {d[0]['collectives']:.1f} "
+          f"collectives of {d[0]['bytes'] / 2**20:.1f} MiB a step (the launcher's stop flag "
+          f"included); launcher wall {d[0]['wall_s']:.3f} s; port kernels launched: 0; {smi}")
     return {"ranks": ranks, "rel": rel, "diff": diff, "resume_diff": rdiff,
-            "one_mib": one_bytes / 2**20}
+            "one_mib": one_bytes / 2**20, "bytes_b": bound_b, "bytes_d": bound_d,
+            "d_rel": drel}
+
+
+def train_bytes_a_rank(layers: int | None) -> dict:
+    """``mesh_train_bytes`` of phase 18's model (cut to ``layers``) on the
+    host mesh (data,) = (2,), at its config's remat."""
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.optim import OptimizerConfig
+    from repro_torch.runtime import TrainRunConfig, mesh_train_bytes
+
+    run = TrainRunConfig(optimizer=OptimizerConfig(lr=TRAIN_LR))
+    return mesh_train_bytes(_train_cfg(layers), run, AbstractMesh(("data",), (2,)))
+
+
+def fmt_train_bytes(b: dict) -> str:
+    return (f"{b['total'] / 2**20:.1f} MiB (state {b['state'] / 2**20:.1f}, gradient slices "
+            f"{b['grads'] / 2**20:.1f}, gathered units {b['gathered'] / 2**20:.1f})")
 
 
 def tree_diffs(torch, a, b, atol: float) -> tuple[float, int, int]:
@@ -6255,33 +6450,50 @@ def fmt_held(h: dict) -> str:
             f"{MESH_TRAIN_STATE_ATOL:g})")
 
 
-def phase_mesh_training(torch, smi: str) -> dict:
-    """Phase 18: training on the mesh. (a) NCCL at world size 1; (b), (c)
-    two gloo ranks sharing the card, started first: (a) and the one-device
-    runs (b) and (c) are held to run here meanwhile (the ranks mostly wait
-    on gloo's host-staged collectives, so (a)'s times are taken on a card
-    it shares with them)."""
+def mesh_training_start(torch, smi: str) -> dict:
+    """Phase 18, its first part, beside the build: (a) and the one-device
+    references of (b) and (c) (host copies), before the ranks start
+    (:func:`mesh_training_ranks`)."""
     t0 = time.perf_counter()
     root = os.path.join(ROOT, "build", "phase18")
     shutil.rmtree(root, ignore_errors=True)
     os.makedirs(root)
-    procs = start_train_ranks(root)  # (b) and (c) run beside (a) and the references
+    a = mesh_train_world_one(torch, smi, root)
+    t_a = time.perf_counter() - t0
+    ref = one_device_references(torch, root)
+    return {"root": root, "a": a, "ref": ref, "t_a": t_a, "t_ref": time.perf_counter() - t0}
+
+
+def mesh_training_ranks(torch, smi: str, started: dict) -> dict:
+    """Phase 18, its second part: the two gloo ranks of (b), (c) and (d)
+    started; they run beside phases 16 and 17 until
+    :func:`mesh_training_finish` reads them."""
+    procs = start_train_ranks(started["root"])
+    CHILDREN.extend(procs)
+    return {**started, "procs": procs, "t_started": time.perf_counter()}
+
+
+def mesh_training_finish(torch, smi: str, started: dict) -> dict:
+    """Phase 18, its second part: the ranks of (b), (c) and (d) read and
+    held (:func:`mesh_train_two_ranks`); the kernels line's launches of
+    every mesh train step."""
+    t0 = time.perf_counter()
+    root, procs, a = started["root"], started["procs"], started["a"]
     try:
-        a = mesh_train_world_one(torch, smi, root)
-        t_a = time.perf_counter() - t0
-        ref = one_device_references(torch, root)
-        t_ref = time.perf_counter() - t0
-        bc = mesh_train_two_ranks(torch, smi, root, procs, ref)
+        bc = mesh_train_two_ranks(torch, smi, root, procs, started["ref"])
     finally:
         for p in procs:
             p.kill()
         shutil.rmtree(root, ignore_errors=True)
-    wall_s = time.perf_counter() - t0
-    print(f"[mesh-train] phase 18 wall {wall_s:.3f} s ((a) {t_a:.3f} s, then the one-device "
-          f"references to {t_ref:.3f} s, both beside the ranks; the ranks' launcher "
-          f"{bc['ranks'][0]['b']['wall_s']:.3f} s)")
+    t_read = time.perf_counter() - t0
+    wall_s = started["t_ref"] + t_read
+    print(f"[mesh-train] phase 18 wall {wall_s:.3f} s here ((a) {started['t_a']:.3f} s, then "
+          f"the one-device references to {started['t_ref']:.3f} s, beside the build; the "
+          f"ranks ran {t0 - started['t_started']:.3f} s beside phases 16 and 17 before their "
+          f"read here, which took {t_read:.3f} s; the ranks' launcher (b) "
+          f"{bc['ranks'][0]['b']['wall_s']:.3f} s, (d) {bc['ranks'][0]['d']['wall_s']:.3f} s)")
     counts = [a["none"]["counts"], a["int8-pod"]["counts"]] + [
-        r[k]["counts"] for r in bc["ranks"] for k in ("b", "c")]
+        r[k]["counts"] for r in bc["ranks"] for k in ("b", "c", "d")]
     launches = {n: sum(c[n] for c in counts) for n in counts[0]}
     return {"a": a, "bc": bc, "wall_s": wall_s, "launches": launches}
 
@@ -6501,27 +6713,43 @@ def main() -> int:
         print(f"[wall] phase {n} ({fn.__name__}): {time.perf_counter() - t0:.1f} s", flush=True)
         return out
 
-    smi = phase(1, phase_card, torch)
-    rows, max_err, host = phase(2, phase_kernel, torch)
-    b6_host = phase(2, rmsnorm_host_us, torch, torch.Generator(device="cuda").manual_seed(0))
-    launches = phase(3, phase_slice, torch)
-    gpfq_rows, gpfq_err = phase(4, phase_gpfq, torch)
-    calib = phase(5, phase_calibration, torch)
-    paged_rows, paged_err = phase(6, phase_paged_kernels, torch)
-    paged = phase(7, phase_paged_slice, torch)
-    sparse_k = phase(8, phase_sparse_kernels, torch, gpfq_rows)
-    b6 = phase(8, phase_rmsnorm, torch)
-    sparse = phase(9, phase_sparse_slice, torch, calib, paged)
-    throughput = phase(10, phase_throughput_slice, torch, paged)
-    expert_rows, expert_err = phase(11, phase_expert_kernels, torch)
-    moe = phase(11, phase_moe_slice, torch)
-    search = phase(12, phase_search_slice, torch, smi)
-    observe = phase(13, phase_observe_slice, torch, smi, search, paged)
-    recurrent = phase(14, phase_recurrent_slice, torch, smi)
-    training = phase(15, phase_training_slice, torch, smi)
-    mesh = phase(16, phase_mesh_slice, torch, smi)
-    family = phase(17, phase_family_mesh, torch, smi)
-    mesh_training = phase(18, phase_mesh_training, torch, smi)
+    smi = _smi()
+    try:
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            # the kernels build while the training that launches none of
+            # them runs: phase 15 (a)'s remat turns and phase 18 (a) with
+            # its references
+            build = pool.submit(build_kernels)
+            remat = phase(15, remat_turns, torch, smi)
+            mesh_training = phase(18, mesh_training_start, torch, smi)
+            smi = phase(1, phase_card, torch, build)
+        rows, max_err, host = phase(2, phase_kernel, torch)
+        b6_host = phase(2, rmsnorm_host_us, torch, torch.Generator(device="cuda").manual_seed(0))
+        launches = phase(3, phase_slice, torch)
+        gpfq_rows, gpfq_err = phase(4, phase_gpfq, torch)
+        calib = phase(5, phase_calibration, torch)
+        paged_rows, paged_err = phase(6, phase_paged_kernels, torch)
+        paged = phase(7, phase_paged_slice, torch)
+        sparse_k = phase(8, phase_sparse_kernels, torch, gpfq_rows)
+        b6 = phase(8, phase_rmsnorm, torch)
+        sparse = phase(9, phase_sparse_slice, torch, calib, paged)
+        throughput = phase(10, phase_throughput_slice, torch, paged)
+        expert_rows, expert_err = phase(11, phase_expert_kernels, torch)
+        moe = phase(11, phase_moe_slice, torch)
+        search = phase(12, phase_search_slice, torch, smi)
+        observe = phase(13, phase_observe_slice, torch, smi, search, paged)
+        recurrent = phase(14, phase_recurrent_slice, torch, smi)
+        training = phase(15, phase_training_slice, torch, smi, remat)
+        # phase 18's gloo ranks run while phases 16 and 17 do, and are read
+        # while phase 17's own ranks run
+        mesh_training = phase(18, mesh_training_ranks, torch, smi, mesh_training)
+        mesh = phase(16, phase_mesh_slice, torch, smi)
+        family = phase(17, family_mesh_start, torch, smi)
+        mesh_training = phase(18, mesh_training_finish, torch, smi, mesh_training)
+        family = phase(17, family_mesh_finish, torch, smi, family)
+    finally:
+        for p in CHILDREN:
+            p.kill()
     print(f"[wall] total {time.perf_counter() - t_start:.1f} s: "
           + ", ".join(f"{n}: {w:.1f}" for n, w in walls.items()), flush=True)
     records = [
@@ -6585,8 +6813,8 @@ def main() -> int:
     records[7]["family_shards"] = [{k: r[k] for k in (
         "E", "M", "K", "N", "b4e_ms", "bound_ms", "bound_by", "library_ms")}
         for r in family["expert_rows"]]
-    # phase 18's launches: none on the mesh train steps ((a) both runs, (b)
-    # and (c) on each rank)
+    # phase 18's launches: none on the mesh train steps ((a) both runs, (b),
+    # (c) and (d) on each rank)
     for rec, key in zip(records, ("w4a8_matmul", "paged_decode_attention",
                                   "paged_decode_attention_int8", "w4a8_sparse_matmul",
                                   "gpfq_solve", "quant_rmsnorm", "w4a8_expert_matmul",

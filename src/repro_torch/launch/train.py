@@ -23,6 +23,11 @@ rank. Without one it is the one-device loop. As in the reference:
     continues the interrupted one), on any mesh;
   * a straggler watermark: a step slower than ``factor`` x the running
     median is logged.
+The summary line ends, on CUDA, with rank 0's peak device memory
+(``torch.cuda.max_memory_allocated``) in the training loop, and while the
+state was built, placed and restored before it. The
+config decides ``remat``, as in the reference: smollm-360m's ``"block"``
+recomputes each layer in the backward.
 
 Checkpoints hold the reference's train-state tree (``params``, ``opt.m``,
 ``opt.v``, ``opt.step``) under its leaf names, whole leaves on a mesh too
@@ -152,6 +157,8 @@ def main(argv=None, *, monitor: StragglerMonitor | None = None):
         device = mesh.device
     rank, world = (mesh.rank, mesh.size) if mesh else (0, 1)
     say = print if rank == 0 else (lambda *a, **k: None)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     say(f"[train] arch={cfg.name} device={device} batch={args.batch}x{args.seq}"
         + (f" mesh={mesh.shape} ({mesh.backend})" if mesh else ""))
 
@@ -203,6 +210,9 @@ def main(argv=None, *, monitor: StragglerMonitor | None = None):
 
     monitor = monitor if monitor is not None else StragglerMonitor(rank=rank)
     losses = []
+    if device.type == "cuda":  # the loop's peak from here; the state's build before
+        built_peak = torch.cuda.max_memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
     try:
         with _deterministic(device):
             for step in range(start_step, args.steps):
@@ -235,8 +245,11 @@ def main(argv=None, *, monitor: StragglerMonitor | None = None):
 
     if losses:
         k = max(len(losses) // 10, 1)
+        peak = (f"; peak device memory {torch.cuda.max_memory_allocated(device) / 2**20:.1f} "
+                f"MiB on rank {rank} in the loop ({built_peak / 2**20:.1f} MiB building and "
+                f"placing the state)" if device.type == "cuda" else "")
         say(f"[train] first-{k} mean loss {np.mean(losses[:k]):.4f} -> "
-            f"last-{k} mean {np.mean(losses[-k:]):.4f}")
+            f"last-{k} mean {np.mean(losses[-k:]):.4f}{peak}")
     return state, losses
 
 

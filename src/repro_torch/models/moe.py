@@ -115,6 +115,26 @@ def split_routing(rows: int, row0: int):
         _split.active = prev
 
 
+def current_split():
+    """This thread's split routing (:func:`split_routing`), or None."""
+    return getattr(_split, "active", None)
+
+
+@contextmanager
+def replay_split(active):
+    """Route as the split ``active`` (:func:`current_split`'s, or None)
+    routes, for a rerun of a computation that ran under it (a checkpoint's
+    recompute, on whatever thread autograd runs it): the same group size
+    and capacity, the statistics discarded, since the first run appended
+    them."""
+    prev = getattr(_split, "active", None)
+    _split.active = None if active is None else (active[0], active[1], [])
+    try:
+        yield
+    finally:
+        _split.active = prev
+
+
 def route(router_w, x, cfg: ModelConfig):
     """Group tokens and build the routing tensors (shared by the model and
     the PTQ adapter, which must route identically).
@@ -198,4 +218,5 @@ def moe(p: MoE, x, cfg: ModelConfig, *, aux: bool = True):
     return y.reshape(B, S, d).to(x.dtype), loss
 
 
-__all__ = ["MoE", "expert_capacity", "expert_matmul", "moe", "route", "split_routing", "top_k"]
+__all__ = ["MoE", "current_split", "expert_capacity", "expert_matmul", "moe", "replay_split",
+           "route", "split_routing", "top_k"]

@@ -4,10 +4,12 @@ MoE FFNs (port of ``repro/models/transformer.py``).
 The reference stacks each pattern slot's parameters over repeats and scans
 over them; the port keeps one :class:`Block` per layer in an
 ``nn.ModuleList`` and loops (layer ``r * period + s`` is repeat ``r`` of
-slot ``s``). Decode caches are per-layer dicts, written in place: an
-attention layer's ``{"k", "v"}``, a recurrent layer's dense state (Mamba
-``{"conv", "ssm"}``, mLSTM ``{"conv", "C", "n", "m"}``, sLSTM ``{"h",
-"c", "n", "m"}``). The modality frontends are stubs, as in the reference:
+slot ``s``), one period at a time in :func:`forward`, the reference's scan
+body, under a checkpoint when ``cfg.remat == "block"``. Decode caches are
+per-layer dicts, written in place: an attention layer's ``{"k", "v"}``, a
+recurrent layer's dense state (Mamba ``{"conv", "ssm"}``, mLSTM ``{"conv",
+"C", "n", "m"}``, sLSTM ``{"h", "c", "n", "m"}``). The modality frontends
+are stubs, as in the reference:
 ``vision_stub`` takes precomputed ``pixel_embeds`` (B, P, d) in front of
 the tokens (:func:`forward`, :func:`prefill`; :func:`loss_fn` masks the
 prefix), ``audio_stub`` takes codec tokens as plain tokens.
@@ -21,15 +23,17 @@ buffers, which never take gradients.
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager, nullcontext
 from typing import Callable, NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 
 from .config import LayerSpec, ModelConfig
-from .moe import MoE, moe, split_routing
+from .moe import MoE, current_split, moe, replay_split, split_routing
 from .ssm import init_mamba, mamba, mamba_decode, mamba_state_shapes
 from .xlstm import (
     init_mlstm,
@@ -55,9 +59,11 @@ from .layers import (
     mlp,
     norm,
     normal_weight,
+    packed_backend,
     paged_attention_decode,
     site_scope,
     torch_dtype,
+    use_packed_backend,
 )
 
 AUX_LOSS_WEIGHT = 0.01
@@ -243,37 +249,145 @@ def _embed_inputs(model: Transformer, batch: dict, pos_offset: int = 0):
     return x, positions
 
 
-def _ffn(block: Block, cfg: ModelConfig, x, aux=None):
-    """The block's FFN residual on ``x``; an MoE FFN adds its load-balance
-    loss to the 0-d ``aux`` in place when one is given."""
+def _ffn(block: Block, cfg: ModelConfig, x):
+    """The block's FFN residual on ``x`` (an MoE FFN's load-balance loss
+    skipped: prefill and decode)."""
     h = norm(block.norm2, x, cfg.norm)
     if block.spec.ffn == "moe":
-        y, loss = moe(block.ffn, h, cfg, aux=aux is not None)
-        if aux is not None:
-            aux += loss
-        return x + y
+        return x + moe(block.ffn, h, cfg, aux=False)[0]
     return x + mlp(block.ffn, h, cfg)
 
 
-def forward(model: Transformer, batch: dict):
+def _train_block(block: Block, cfg: ModelConfig, x, positions, aux):
+    """One block of :func:`forward`: (x, ``aux`` plus an MoE FFN's
+    load-balance loss), as the reference's ``_apply_block`` carries them."""
+    if block.mixer is not None:
+        h = norm(block.norm1, x, cfg.norm)
+        if block.spec.mixer == "attn":
+            y, _ = attention(block.mixer, h, cfg, positions)
+        else:
+            y = RECURRENT[block.spec.mixer].forward(block.mixer, h, cfg)
+        x = x + y
+    if block.ffn is not None:
+        h = norm(block.norm2, x, cfg.norm)
+        if block.spec.ffn == "moe":
+            y, loss = moe(block.ffn, h, cfg)
+            x, aux = x + y, aux + loss
+        else:
+            x = x + mlp(block.ffn, h, cfg)
+    return x, aux
+
+
+class Unit(NamedTuple):
+    """A span of the model that runs as one and takes its parameters as one
+    (:func:`forward`'s ``params``): ``"embed"``, the token embedding;
+    ``"period"`` ``index``, layers ``index * P`` to ``(index + 1) * P - 1``
+    with P = ``len(cfg.pattern)``, the reference's scan body; ``"head"``,
+    the final norm and the LM head (the embedding again when tied).
+    ``names``: the state names of the parameters it computes with."""
+
+    kind: str
+    index: int
+    names: tuple[str, ...]
+
+
+def model_units(model: Transformer) -> list[Unit]:
+    """The units of ``model`` in the order :func:`forward` runs them."""
+    names = [n for n, _ in model.named_parameters()]
+
+    def under(prefix: str) -> tuple[str, ...]:
+        return tuple(n for n in names if n.startswith(prefix))
+
+    period = len(model.cfg.pattern)
+    layers = [Unit("period", r, sum((under(f"layers.{i}.") for i in
+                                     range(r * period, (r + 1) * period)), ()))
+              for r in range(model.cfg.n_layers // period)]
+    head = "embedding.head" if model.embedding.head is not None else "embedding.embed"
+    return [Unit("embed", 0, ("embedding.embed",)), *layers,
+            Unit("head", 0, under("final_norm.") + (head,))]
+
+
+class _Apply(nn.Module):
+    """Runs ``fn(*args)``: with :func:`torch.func.functional_call` on it,
+    ``fn`` reads the model's attributes swapped for the given tensors."""
+
+    def __init__(self, model: Transformer):
+        super().__init__()
+        self.model = model
+
+    def forward(self, fn, *args):
+        return fn(*args)
+
+
+def _in_unit(model: Transformer, params, unit: Unit, fn, *args):
+    """``fn(*args)`` computing with ``params(unit)`` in place of the unit's
+    parameters (with the model's own where ``params`` is None)."""
+    if params is None:
+        return fn(*args)
+    tensors = {f"model.{n}": t for n, t in params(unit).items()}
+    # no parameter is registered under two names (a tied head reads
+    # embedding.embed), so the search for ties over the whole model is skipped
+    return torch.func.functional_call(_Apply(model), tensors, (fn, *args), tie_weights=False)
+
+
+def _recompute_contexts():
+    """A period checkpoint's contexts (its ``context_fn``): the first run
+    as it is; the recompute, which autograd may run on its own device
+    thread, under the thread-local state the first run saw: the MoE split
+    (the statistics discarded, the first run appended them) and the packed
+    backend."""
+    return nullcontext(), _replay(current_split(), packed_backend())
+
+
+@contextmanager
+def _replay(split, backend: str):
+    with replay_split(split), use_packed_backend(backend):
+        yield
+
+
+def _head(model: Transformer, x):
+    x = norm(model.final_norm, x, model.cfg.norm)
+    return lm_logits(model.embedding, x, model.cfg)
+
+
+def forward(model: Transformer, batch: dict, params: Callable | None = None):
     """batch: {"tokens": (B, S) int[, "pixel_embeds": (B, P, d)]}. Returns
     (logits (B, P + S, V_padded) over the frontend prefix too, aux), ``aux``
-    the MoE blocks' summed load-balance loss (0 without them)."""
+    the MoE blocks' summed load-balance loss (0 without them).
+
+    The stack runs one period of ``cfg.pattern`` at a time, the
+    reference's scan body. With ``cfg.remat == "block"`` and grad enabled
+    each period runs under a non-reentrant checkpoint (the reference's
+    ``jax.checkpoint``): its activations are recomputed in the backward,
+    the same ops on the same inputs, so the gradients are those of
+    ``"none"`` bit for bit. ``params``, when given, hands each unit
+    (:func:`model_units`) the tensors it computes with: ``params(unit)``
+    returns {state name: tensor} for the unit's parameters, called as the
+    unit starts (and again in a period's recompute); without it every unit
+    computes with the model's own parameters."""
     cfg = model.cfg
-    x, positions = _embed_inputs(model, batch)
+    period = len(cfg.pattern)
+    repeats = cfg.n_layers // period
+    units = model_units(model) if params is not None else [None] * (repeats + 2)
+    x, positions = _in_unit(model, params, units[0], _embed_inputs, model, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for block in model.layers:
-        if block.mixer is not None:
-            h = norm(block.norm1, x, cfg.norm)
-            if block.spec.mixer == "attn":
-                y, _ = attention(block.mixer, h, cfg, positions)
-            else:
-                y = RECURRENT[block.spec.mixer].forward(block.mixer, h, cfg)
-            x = x + y
-        if block.ffn is not None:
-            x = _ffn(block, cfg, x, aux)
-    x = norm(model.final_norm, x, cfg.norm)
-    return lm_logits(model.embedding, x, cfg), aux
+    remat = cfg.remat == "block" and torch.is_grad_enabled()
+
+    def run(r, x, aux):
+        def body(x, aux):
+            for block in model.layers[r * period:(r + 1) * period]:
+                x, aux = _train_block(block, cfg, x, positions, aux)
+            return x, aux
+
+        return _in_unit(model, params, units[1 + r], body, x, aux)
+
+    for r in range(repeats):
+        if remat:
+            x, aux = checkpoint(run, r, x, aux, use_reentrant=False,
+                                context_fn=_recompute_contexts)
+        else:
+            x, aux = run(r, x, aux)
+    return _in_unit(model, params, units[-1], _head, model, x), aux
 
 
 class BatchSplit(NamedTuple):
@@ -293,10 +407,11 @@ def split_stats_size(cfg: ModelConfig) -> int:
     return 1 + n_moe * (cfg.moe.n_experts if n_moe else 0)
 
 
-def loss_fn(model: Transformer, batch: dict, split: BatchSplit | None = None):
+def loss_fn(model: Transformer, batch: dict, split: BatchSplit | None = None,
+            params: Callable | None = None):
     """Next-token cross entropy over the text positions (the vision stub's
     prefix masked, as in the reference). Returns (total, {"ce", "aux",
-    "ppl"}).
+    "ppl"}). ``params``: :func:`forward`'s.
 
     With ``split`` the batch holds this rank's rows of a larger one, and
     the terms are this rank's shares of the whole batch's loss (their sum
@@ -306,11 +421,11 @@ def loss_fn(model: Transformer, batch: dict, split: BatchSplit | None = None):
     first, in one ``split.reduce`` (:func:`split_stats_size`); ``ppl`` is
     left to the caller."""
     if split is None:
-        logits, aux = forward(model, batch)
+        logits, aux = forward(model, batch, params)
         stats = ()
     else:
         with split_routing(split.rows, split.row0) as stats:
-            logits, aux = forward(model, batch)
+            logits, aux = forward(model, batch, params)
     pred = logits[:, frontend_prefix(model.cfg):][:, :-1].to(torch.float32)
     labels = batch["tokens"][:, 1:].long()
     logz = torch.logsumexp(pred, dim=-1)

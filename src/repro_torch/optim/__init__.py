@@ -3,7 +3,6 @@
 from .adamw import (
     OptimizerConfig,
     adamw_update,
-    clip_by_global_norm,
     global_norm,
     init_opt_state,
     lr_at_step,
@@ -13,7 +12,6 @@ from .adamw import (
 __all__ = [
     "OptimizerConfig",
     "adamw_update",
-    "clip_by_global_norm",
     "global_norm",
     "init_opt_state",
     "lr_at_step",

@@ -88,23 +88,18 @@ def global_norm(tree: dict[str, torch.Tensor], shards=None) -> torch.Tensor:
     return torch.sqrt(sum(sq[n] for n in tree))
 
 
-def clip_by_global_norm(grads: dict[str, torch.Tensor], max_norm: float, shards=None):
-    """Gradients scaled (in f32) so their global norm is at most
-    ``max_norm``; returns (clipped, norm). ``shards``: see
-    :func:`global_norm`."""
-    norm = global_norm(grads, shards)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
-    return {n: (g.to(torch.float32) * scale).to(g.dtype) for n, g in grads.items()}, norm
-
-
 @torch.no_grad()
 def adamw_update(params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor],
                  state: dict, cfg: OptimizerConfig, shards=None):
     """One AdamW step, in place on ``params`` and ``state``. Returns
     (params, state, {"lr", "grad_norm"}). ``shards`` = (mesh, specs): the
     leaves are this rank's blocks (the clip takes the whole tree's norm,
-    :func:`global_norm`; the rest is elementwise)."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, shards)
+    :func:`global_norm`; the rest is elementwise). The clip and the update
+    run a parameter at a time, the moments updated in place, so the step
+    holds one parameter's temporaries beside the gradients (the arithmetic
+    of the reference's ``clip_by_global_norm`` and closed form, op for op)."""
+    gnorm = global_norm(grads, shards)
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
     step = state["step"] + 1
     lr = lr_at_step(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
@@ -112,15 +107,13 @@ def adamw_update(params: dict[str, torch.Tensor], grads: dict[str, torch.Tensor]
     bc1 = 1.0 - torch.pow(b1, stepf)
     bc2 = 1.0 - torch.pow(b2, stepf)
     for name, p in params.items():
-        m, v = state["m"][name], state["v"][name]
-        gf = grads[name].to(m.dtype)
-        m_new = b1 * m + (1 - b1) * gf
-        v_new = b2 * v + (1 - b2) * torch.square(gf)
-        m_hat = m_new / bc1
-        v_hat = v_new / bc2
-        delta = m_hat / (torch.sqrt(v_hat) + cfg.eps) + cfg.weight_decay * p.to(m.dtype)
+        m, v, g = state["m"][name], state["v"][name], grads[name]
+        gf = (g.to(torch.float32) * scale).to(g.dtype).to(m.dtype)
+        m.mul_(b1).add_((1 - b1) * gf)
+        v.mul_(b2).add_((1 - b2) * torch.square(gf))
+        del gf
+        delta = (m / bc1).div_(torch.sqrt(v / bc2).add_(cfg.eps))
+        delta.add_(cfg.weight_decay * p.to(m.dtype))
         p.copy_((p.to(torch.float32) - lr * delta.to(torch.float32)).to(p.dtype))
-        m.copy_(m_new)
-        v.copy_(v_new)
     state["step"].copy_(step)
     return params, state, {"lr": lr, "grad_norm": gnorm}

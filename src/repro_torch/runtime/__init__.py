@@ -5,8 +5,8 @@ across pods (``compression``), the sharding rules and placement
 step's names load on first use, so the model code can import
 ``collectives`` without the training stack."""
 
-_STEPS = ("TrainRunConfig", "gather_train_state", "init_train_state", "make_train_step",
-          "place_train_state", "train_state_shardings")
+_STEPS = ("TrainRunConfig", "abstract_train_state", "gather_train_state", "init_train_state",
+          "make_train_step", "mesh_train_bytes", "place_train_state", "train_state_shardings")
 
 
 def __getattr__(name):

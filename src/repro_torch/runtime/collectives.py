@@ -15,6 +15,12 @@ A layout is the tuple of mesh axes a dimension is sharded over, the first
 major; ``()`` is replicated. ``calls`` and ``bytes`` count the collectives
 issued on the host (a captured step counts at its capture) and the bytes
 of their buffers.
+
+:func:`reduce_to_blocks` is the mesh train step's gradient sum: full
+tensors summed over the loss's axes, each rank keeping its block. Under
+NCCL a tensor whose sharded dim lies on the reduced axes goes through
+``reduce_scatter_tensor``; gloo, which has none, all-reduces the same
+buffer and keeps the rank's row.
 """
 
 from __future__ import annotations
@@ -100,10 +106,7 @@ def _all_gather(x: torch.Tensor, dim: int, mesh, axes) -> torch.Tensor:
     import torch.distributed as dist
 
     group = mesh.group(axes)
-    members = (dist.get_process_group_ranks(group) if group is not None
-               else range(dist.get_world_size()))
-    # the group's ranks in group order, and the shard each holds
-    shard = [mesh.index(axes, r) for r in members]
+    shard, _ = _group_shards(mesh, axes)
     out = torch.empty((len(shard) * x.shape[0], *x.shape[1:]), dtype=x.dtype, device=x.device)
     _count(out)
     dist.all_gather_into_tensor(out, x.contiguous(), group=group)
@@ -111,6 +114,97 @@ def _all_gather(x: torch.Tensor, dim: int, mesh, axes) -> torch.Tensor:
         return out
     blocks = out.chunk(len(shard))
     return torch.cat([blocks[shard.index(i)] for i in range(len(shard))], dim=dim)
+
+
+def _live(layout, mesh) -> tuple:
+    return tuple(a for a in layout if mesh.shape[a] > 1)
+
+
+def reduce_to_blocks(xs: list, layouts: list, mesh, axes) -> list:
+    """Each full tensor of ``xs`` summed over the ranks that differ on
+    ``axes``, as this rank's block: ``layouts[i][d]`` is the layout of dim
+    ``d`` of ``xs[i]``. A tensor is first cut to its block on the dims
+    whose layouts hold none of ``axes`` (every rank summed with holds the
+    same block there). One with a single dim sharded over some of
+    ``axes`` alone is reduce-scattered over those axes (one collective per
+    dtype and those axes, the blocks in the group's rank order), then
+    summed over the rest of ``axes``; any other is all-reduced (one
+    collective per dtype) and then cut. Every rank of a group issues the
+    same collectives: the choice depends on the layouts alone."""
+    axes = _live(axes, mesh)
+    out: list = [None] * len(xs)
+    plain: dict = {}
+    scatter: dict = {}
+    for i, (x, layout) in enumerate(zip(xs, layouts)):
+        later = []
+        for d, lay in enumerate(layout):
+            lay = _live(lay, mesh)
+            if lay and not set(lay) & set(axes):
+                x = x.narrow(d, *_lo_size(x.shape[d], mesh, lay))
+            elif lay:
+                later.append((d, lay))
+        if not axes:
+            out[i] = x
+        elif len(later) == 1 and set(later[0][1]) <= set(axes):
+            d, lay = later[0]
+            scatter.setdefault((x.dtype, lay), []).append((i, d, x))
+        else:
+            plain.setdefault(x.dtype, []).append((i, later, x))
+    for items in plain.values():
+        flat = torch.cat([x.reshape(-1) for _, _, x in items])
+        all_reduce_sum(flat, mesh, axes)
+        lo = 0
+        for i, later, x in items:
+            y = flat[lo:lo + x.numel()].view(x.shape)
+            lo += x.numel()
+            for d, lay in later:
+                y = y.narrow(d, *_lo_size(y.shape[d], mesh, lay))
+            out[i] = y.clone() if later else y
+    for (_, lay), items in scatter.items():
+        n = mesh.axes_size(lay)
+        order, me = _group_shards(mesh, lay)
+        rows = torch.cat([x.movedim(d, 0).reshape(n, -1)[order] for _, d, x in items], dim=1)
+        mine = _reduce_scatter_rows(rows, mesh, lay, me)
+        rest = tuple(a for a in axes if a not in lay)
+        if rest:
+            all_reduce_sum(mine, mesh, rest)
+        lo = 0
+        for i, d, x in items:
+            size = x.numel() // n
+            shape = (x.shape[d] // n, *x.movedim(d, 0).shape[1:])
+            out[i] = mine[lo:lo + size].view(shape).movedim(0, d).contiguous()
+            lo += size
+    return out
+
+
+def _lo_size(length: int, mesh, axes) -> tuple[int, int]:
+    lo, hi = shard_range(length, mesh, axes)
+    return lo, hi - lo
+
+
+def _group_shards(mesh, axes) -> tuple[list, int]:
+    """The shard index of each rank of the group over ``axes``, in the
+    group's rank order, and this rank's position in it."""
+    import torch.distributed as dist
+
+    group = mesh.group(axes)
+    members = (dist.get_process_group_ranks(group) if group is not None
+               else range(dist.get_world_size()))
+    shard = [mesh.index(axes, r) for r in members]
+    return shard, shard.index(mesh.index(axes))
+
+
+def _reduce_scatter_rows(rows: torch.Tensor, mesh, axes, me: int) -> torch.Tensor:
+    """Row ``me`` of ``rows`` (one row a rank of the group over ``axes``,
+    in the group's rank order) summed over the group."""
+    import torch.distributed as dist
+
+    if mesh.backend != "nccl":
+        return all_reduce_sum(rows, mesh, axes)[me].clone()
+    out = torch.empty(rows.shape[1], dtype=rows.dtype, device=rows.device)
+    _count(rows)
+    dist.reduce_scatter_tensor(out, rows.reshape(-1), group=mesh.group(axes))
+    return out
 
 
 def relayout(x: torch.Tensor, dim: int, have, want, mesh) -> torch.Tensor:
@@ -136,5 +230,5 @@ def relayout(x: torch.Tensor, dim: int, have, want, mesh) -> torch.Tensor:
     return x.narrow(dim, w_lo - h_lo, w_hi - w_lo)
 
 
-__all__ = ["all_reduce_max", "all_reduce_sum", "gather_dim", "relayout", "reset_counts",
-           "shard_range"]
+__all__ = ["all_reduce_max", "all_reduce_sum", "gather_dim", "reduce_to_blocks", "relayout",
+           "reset_counts", "shard_range"]

@@ -11,7 +11,10 @@ partial-manual ``shard_map`` over ``pod`` (``shard_map_compat``); the port
 has no counterpart of that wrapper: a rank already holds its pod's rows and
 gradient, and the two all-reduces run over the mesh's ``pod`` group
 (:mod:`repro_torch.runtime.collectives`). All leaves share one MAX
-all-reduce and one int32 SUM all-reduce.
+all-reduce and one int32 SUM all-reduce. A rank may hold its slices of the
+leaves (the mesh train step's gradient): the MAX then runs over the leaves'
+sharded axes too, so every slice takes its whole leaf's absmax, and the
+codes are the whole leaf's.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.runtime.collectives import all_reduce_max, all_reduce_sum
+from repro_torch.runtime.sharding import spec_axes
 
 
 def int8_codes(g: torch.Tensor, absmax: torch.Tensor):
@@ -28,12 +32,17 @@ def int8_codes(g: torch.Tensor, absmax: torch.Tensor):
     return q, scale
 
 
-def int8_psum(tree: dict, mesh, axes) -> dict:
+def int8_psum(tree: dict, mesh, axes, specs: dict | None = None) -> dict:
     """The compressed sum of every leaf of ``tree`` (a dict of tensors)
-    over the ranks that differ on ``axes``; each leaf keeps its dtype."""
+    over the ranks that differ on ``axes``; each leaf keeps its dtype.
+    With ``specs`` (a spec by name) each leaf is this rank's slice under
+    its spec, and the absmax is taken over the whole leaf."""
     names = list(tree)
     absmax = torch.stack([torch.max(torch.abs(tree[n].to(torch.float32))) for n in names])
-    all_reduce_max(absmax, mesh, axes)
+    sharded = {a for n in names for e in (specs or {}).get(n, ()) for a in spec_axes(e)
+               if mesh.shape[a] > 1}
+    all_reduce_max(absmax, mesh, tuple(axes) + tuple(a for a in mesh.axis_names
+                                                     if a in sharded and a not in axes))
     codes, scales = zip(*(int8_codes(tree[n], absmax[i]) for i, n in enumerate(names)))
     total = torch.cat([q.reshape(-1).to(torch.int32) for q in codes])
     all_reduce_sum(total, mesh, axes)
@@ -45,11 +54,12 @@ def int8_psum(tree: dict, mesh, axes) -> dict:
     return out
 
 
-def compressed_grad_fn(grad_fn, mesh):
+def compressed_grad_fn(grad_fn, mesh, specs: dict | None = None):
     """Wrap ``grad_fn(*args) -> (metrics, grads)``, which gives each pod's
     metrics and gradient, so that the gradient is summed over ``pod``
     through :func:`int8_psum` and divided by the pod count, and the metrics
-    averaged over the pods. Without a ``pod`` axis (or without a mesh)
+    averaged over the pods. ``specs``: those of the slices ``grads`` holds
+    (:func:`int8_psum`'s). Without a ``pod`` axis (or without a mesh)
     ``grad_fn`` itself."""
     if mesh is None or "pod" not in mesh.shape:
         return grad_fn
@@ -57,7 +67,7 @@ def compressed_grad_fn(grad_fn, mesh):
 
     def wrapped(*args):
         metrics, grads = grad_fn(*args)
-        grads = {k: g / n for k, g in int8_psum(grads, mesh, ("pod",)).items()}
+        grads = {k: g / n for k, g in int8_psum(grads, mesh, ("pod",), specs).items()}
         keys = list(metrics)
         vec = all_reduce_sum(torch.stack([metrics[k] for k in keys]), mesh, ("pod",))
         return {k: vec[i] / n for i, k in enumerate(keys)}, grads

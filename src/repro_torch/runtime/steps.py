@@ -1,7 +1,8 @@
 """The train step (port of ``repro/runtime/steps.py``): ``TrainRunConfig``,
-``init_train_state``, ``train_state_shardings`` and ``make_train_step``, on
-one device or on a mesh, and the placement of a train state on a mesh
-(``place_train_state``, ``gather_train_state``).
+``init_train_state``, ``abstract_train_state``, ``train_state_shardings``
+and ``make_train_step``, on one device or on a mesh, the placement of a
+train state on a mesh (``place_train_state``, ``gather_train_state``) and
+a rank's training bytes there (``mesh_train_bytes``).
 
 Gradients come from autograd on the float model (the reference
 differentiates the same forward with ``jax.value_and_grad``; no kernel of
@@ -12,18 +13,28 @@ their metrics in f32, then take the mean, in the reference's order.
 On a mesh the step computes what the reference's jitted step computes
 under GSPMD: the one-device step on the global batch, the state placed by
 :func:`train_state_shardings`. A rank holds its slice of the parameters
-and both moments between steps. A step gathers the full parameters (no
-autograd through the gather), runs the one-device forward and backward on
-the rank's rows of the batch with the whole batch's loss
+and both moments between steps. The forward runs the rank's rows of the
+batch with the whole batch's loss
 (:class:`~repro_torch.models.transformer.BatchSplit`: the rank's share of
-it, so the shares' gradients sum to the whole batch's), sums the gradients
-over the batch axes, keeps its slice and runs AdamW on the slices, the
-clip taking the norm of the whole tree. Ranks that differ only on
-``model`` repeat the same rows. Under ``grad_compression="int8-pod"`` on a
-mesh with a ``pod`` axis each pod takes the loss of its own rows and the
-gradients cross the pods through
-:func:`~repro_torch.runtime.compression.int8_psum`, as in the reference;
-elsewhere the option changes nothing, as in the reference.
+it, so the shares' gradients sum to the whole batch's) one unit at a time
+(:func:`~repro_torch.models.transformer.model_units`: the embedding, each
+period of the pattern, the final norm with the head): a unit gathers its
+parameters into full tensors as it starts, and in the backward sums their
+gradients over the batch axes into the rank's slices
+(:class:`_GatherUnit`, one collective per unit and dtype). Under
+``remat="block"`` a period's recompute gathers it again, as the
+reference's remat does inside its layer scan, so a rank holds about one
+unit's full parameters and gradients at a time
+(:func:`mesh_train_bytes`); under ``"none"`` autograd keeps the gathered
+parameters and only the gradients are bounded. Microbatches accumulate
+into slice-shaped accumulators; AdamW runs on the slices, the clip taking
+the norm of the whole tree. Ranks that differ only on ``model`` repeat
+the same rows. Under ``grad_compression="int8-pod"`` on a mesh with a
+``pod`` axis each pod takes the loss of its own rows and the gradients'
+slices cross the pods through
+:func:`~repro_torch.runtime.compression.int8_psum`, which takes each
+leaf's absmax over the whole leaf, as in the reference; elsewhere the
+option changes nothing, as in the reference.
 
 The reference's ``lower_*`` functions lower for XLA and its serve-step
 builders wrap the model's ``prefill``/``decode_step``; they have no
@@ -33,7 +44,10 @@ counterpart here.
 from __future__ import annotations
 
 import copy
+import math
+import weakref
 from dataclasses import dataclass, field
+from typing import NamedTuple
 
 import torch
 
@@ -43,8 +57,11 @@ from repro_torch.models.layers import torch_dtype
 from repro_torch.models.transformer import (
     BatchSplit,
     Transformer,
+    Unit,
+    abstract_params,
     init_model,
     loss_fn,
+    model_units,
     split_stats_size,
 )
 from repro_torch.optim import (
@@ -53,7 +70,7 @@ from repro_torch.optim import (
     init_opt_state,
     trainable_parameters,
 )
-from repro_torch.runtime.collectives import all_reduce_sum, gather_dim
+from repro_torch.runtime.collectives import all_reduce_sum, gather_dim, reduce_to_blocks
 from repro_torch.runtime.compression import compressed_grad_fn
 from repro_torch.runtime.sharding import local_slice, param_shardings, spec_axes
 
@@ -176,18 +193,6 @@ def _grads(total, params: dict) -> dict:
     return {n: torch.zeros_like(p) if g is None else g for (n, p), g in zip(params.items(), grads)}
 
 
-class _Loss(torch.nn.Module):
-    """``loss_fn`` as a module's forward, so that ``functional_call`` runs it
-    on parameters other than the model's own."""
-
-    def __init__(self, model: Transformer):
-        super().__init__()
-        self.model = model
-
-    def forward(self, batch: dict, split: BatchSplit):
-        return loss_fn(self.model, batch, split)
-
-
 def make_train_step(cfg: ModelConfig, run: TrainRunConfig, mesh=None):
     """Returns ``train_step(state, batch) -> (state, metrics)``: the loss
     and its gradients (accumulated over ``run.num_microbatches``), then
@@ -235,19 +240,97 @@ def make_train_step(cfg: ModelConfig, run: TrainRunConfig, mesh=None):
     return train_step
 
 
-def _sum_flat(grads: dict, mesh, axes) -> dict:
-    """Every gradient summed over ``axes``: one all-reduce a dtype."""
-    if not axes:
-        return grads
-    out = dict(grads)
-    for dt in {g.dtype for g in grads.values()}:
-        names = [n for n, g in grads.items() if g.dtype == dt]
-        flat = all_reduce_sum(torch.cat([grads[n].reshape(-1) for n in names]), mesh, axes)
-        lo = 0
-        for n in names:
-            out[n] = flat[lo:lo + grads[n].numel()].view(grads[n].shape)
-            lo += grads[n].numel()
-    return out
+#: bytes of the full tensors that the mesh step's gathers hold alive, and
+#: the most alive at once since :func:`reset_gathered`
+gathered_live = 0
+gathered_peak = 0
+
+
+def reset_gathered() -> None:
+    """Start a new high-water mark of :data:`gathered_peak`."""
+    global gathered_peak
+    gathered_peak = gathered_live
+
+
+def _release(n: int) -> None:
+    global gathered_live
+    gathered_live -= n
+
+
+def _hold(t: torch.Tensor) -> torch.Tensor:
+    """Count ``t``'s bytes in :data:`gathered_live` until it is freed."""
+    global gathered_live, gathered_peak
+    n = t.numel() * t.element_size()
+    gathered_live += n
+    gathered_peak = max(gathered_peak, gathered_live)
+    weakref.finalize(t, _release, n)
+    return t
+
+
+class _UnitPlan(NamedTuple):
+    """How one unit's parameters cross the mesh: each leaf's spec and its
+    dims' layouts, and the axes its gradients are summed over."""
+
+    mesh: object
+    specs: tuple
+    layouts: tuple
+    axes: tuple
+
+
+def _unit_plan(unit: Unit, specs: dict, mesh, axes) -> _UnitPlan:
+    sp = tuple(specs[n] for n in unit.names)
+    return _UnitPlan(mesh, sp, tuple(tuple(spec_axes(e) for e in s) for s in sp), axes)
+
+
+def _gather_unit(plan: _UnitPlan, slices) -> tuple:
+    """The full tensors of this rank's slices (a leaf that no axis shards is
+    its slice)."""
+    fulls = []
+    for s, spec in zip(slices, plan.specs):
+        full = _gather(s, spec, plan.mesh)
+        fulls.append(s if full is s else _hold(full))
+    return tuple(fulls)
+
+
+class _GatherUnit(torch.autograd.Function):
+    """One unit's parameters on the mesh: the forward gathers this rank's
+    slices into full tensors; the backward sums the full gradients over the
+    loss's axes into this rank's slices
+    (:func:`~repro_torch.runtime.collectives.reduce_to_blocks`)."""
+
+    @staticmethod
+    def forward(ctx, plan: _UnitPlan, *slices):
+        ctx.plan = plan
+        return _gather_unit(plan, slices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        plan = ctx.plan
+        return (None, *reduce_to_blocks(list(grads), plan.layouts, plan.mesh, plan.axes))
+
+
+def _idle_microbatch(plans: dict, params: dict, reduce, width: int, remat: bool, dev) -> dict:
+    """What a rank that holds none of a microbatch's rows issues, in the
+    order the ranks that hold some issue it, and the slices of the
+    microbatch's gradient it receives. The forward gathers each unit; the
+    loss sums its split statistics; the backward runs the units in reverse,
+    a period gathered again under remat (its recompute), each unit's
+    gradient reduced (zeros from this rank)."""
+    with torch.no_grad():
+        for unit, plan in plans.items():
+            _gather_unit(plan, [params[n] for n in unit.names])
+        reduce(torch.zeros(width, device=dev))
+        grads: dict = {}
+        for unit, plan in reversed(plans.items()):
+            slices = [params[n] for n in unit.names]
+            if remat and unit.kind == "period":
+                _gather_unit(plan, slices)
+            zeros = [torch.zeros(full_shape(s, spec, plan.mesh), dtype=s.dtype, device=s.device)
+                     for s, spec in zip(slices, plan.specs)]
+            for n, g in zip(unit.names, reduce_to_blocks(zeros, plan.layouts, plan.mesh,
+                                                         plan.axes)):
+                grads[n] = grads[n] + g if n in grads else g
+    return grads
 
 
 def _mesh_train_step(cfg: ModelConfig, run: TrainRunConfig, mesh, acc_dt):
@@ -260,16 +343,25 @@ def _mesh_train_step(cfg: ModelConfig, run: TrainRunConfig, mesh, acc_dt):
     n_ranks, me = mesh.axes_size(loss_axes), mesh.index(loss_axes)
     width = split_stats_size(cfg)
     n_mb = max(run.num_microbatches, 1)
+    remat = cfg.remat == "block"
 
     def reduce(v):
         return all_reduce_sum(v, mesh, loss_axes)
 
-    def accumulate(model, full, batch):
+    def accumulate(model, batch):
         """This rank's shares of each microbatch's loss (the reference's
         microbatch ``i`` is rows ``[i * per, (i + 1) * per)`` of the loss's
-        rows, which may lie on other ranks only): their gradients summed
-        over the loss's ranks, and the metrics."""
-        loss = _Loss(model)
+        rows, which may lie on other ranks only), each microbatch's
+        gradient summed over the loss's ranks unit by unit into this rank's
+        slices and accumulated there, and the metrics."""
+        params = trainable_parameters(model)
+        plans = {u: _unit_plan(u, model._train_specs, mesh, loss_axes)
+                 for u in model_units(model)}
+
+        def unit_params(unit: Unit) -> dict:
+            return dict(zip(unit.names, _GatherUnit.apply(
+                plans[unit], *(params[n] for n in unit.names))))
+
         b = batch["tokens"].shape[0]
         rows = b * n_ranks
         if rows % n_mb:
@@ -277,26 +369,26 @@ def _mesh_train_step(cfg: ModelConfig, run: TrainRunConfig, mesh, acc_dt):
         per, first = rows // n_mb, me * b
         dev = batch["tokens"].device
         g_acc = None if n_mb == 1 else {
-            n: torch.zeros(t.shape, dtype=acc_dt, device=t.device) for n, t in full.items()}
+            n: torch.zeros(p.shape, dtype=acc_dt, device=p.device) for n, p in params.items()}
         terms = []
         for i in range(n_mb):
             lo, hi = max(i * per, first), min((i + 1) * per, first + b)
-            if hi <= lo:  # none of microbatch i's rows here: the same collective, zeros
-                reduce(torch.zeros(width, device=dev))
+            if hi <= lo:  # none of microbatch i's rows here: the same collectives, zeros
+                grads = _idle_microbatch(plans, params, reduce, width, remat, dev)
                 terms.append(torch.zeros(3, device=dev))
-                continue
-            mb = {k: v[lo - first:hi - first] for k, v in batch.items()}
-            total, metrics = torch.func.functional_call(loss, {
-                f"model.{n}": t for n, t in full.items()}, (mb, BatchSplit(per, lo - i * per,
-                                                                           reduce)))
-            grads = _grads(total, full)
-            terms.append(torch.stack([total.detach(), metrics["ce"].detach(),
-                                      metrics["aux"].detach()]))
+            else:
+                mb = {k: v[lo - first:hi - first] for k, v in batch.items()}
+                total, metrics = loss_fn(model, mb, BatchSplit(per, lo - i * per, reduce),
+                                         unit_params)
+                grads = _grads(total, params)
+                terms.append(torch.stack([total.detach(), metrics["ce"].detach(),
+                                          metrics["aux"].detach()]))
             g_acc = grads if n_mb == 1 else {n: a + grads[n].to(acc_dt)
                                              for n, a in g_acc.items()}
+            del grads
         inv = 1.0 / n_mb
         if n_mb > 1:
-            g_acc = {n: (g * inv).to(full[n].dtype) for n, g in g_acc.items()}
+            g_acc = {n: (g * inv).to(params[n].dtype) for n, g in g_acc.items()}
         per_mb = reduce(torch.stack(terms))  # (n_mb, 3): each microbatch's loss, ce, aux
         each = [{"loss": t[0], "ce": t[1], "aux": t[2], "ppl": torch.exp(t[1])} for t in per_mb]
         if n_mb == 1:
@@ -306,9 +398,7 @@ def _mesh_train_step(cfg: ModelConfig, run: TrainRunConfig, mesh, acc_dt):
             for m in each:
                 metrics = {k: a + m[k] for k, a in metrics.items()}
             metrics = {k: m * inv for k, m in metrics.items()}
-        return metrics, _sum_flat(g_acc, mesh, loss_axes)
-
-    reducer = compressed_grad_fn(accumulate, mesh) if compress else accumulate
+        return metrics, g_acc
 
     def train_step(state: dict, batch: dict):
         model = state["params"]
@@ -316,21 +406,63 @@ def _mesh_train_step(cfg: ModelConfig, run: TrainRunConfig, mesh, acc_dt):
             raise ValueError("the train state is not placed on this step's mesh: "
                              "place_train_state(state, mesh)")
         specs = model._train_specs
-        params = trainable_parameters(model)
-        with torch.no_grad():
-            full = {n: _gather(p.detach(), specs[n], mesh) for n, p in params.items()}
-        full = {n: t.detach().requires_grad_(True) for n, t in full.items()}
-        metrics, grads = reducer(model, full, batch)
-        del full
-        local = {n: local_slice(g, specs[n], mesh) for n, g in grads.items()}
-        del grads
-        _, _, opt_metrics = adamw_update(params, local, state["opt"], run.optimizer,
-                                         shards=(mesh, specs))
+        reducer = compressed_grad_fn(accumulate, mesh, specs) if compress else accumulate
+        metrics, grads = reducer(model, batch)
+        _, _, opt_metrics = adamw_update(trainable_parameters(model), grads, state["opt"],
+                                         run.optimizer, shards=(mesh, specs))
         metrics.update(opt_metrics)
         return state, metrics
 
     return train_step
 
 
-__all__ = ["TrainRunConfig", "full_shape", "gather_train_state", "init_train_state",
-           "make_train_step", "place_train_state", "train_state_shardings"]
+# ---------------------------------------------------------------------------
+# Abstract state and a rank's bytes
+# ---------------------------------------------------------------------------
+def abstract_train_state(cfg: ModelConfig, run: TrainRunConfig) -> dict:
+    """The train state's shapes and dtypes on the ``meta`` device, nothing
+    allocated (the reference's ``abstract_train_state``, its
+    ``eval_shape``)."""
+    return init_train_state(cfg, run, model=abstract_params(cfg))
+
+
+def _local_shape(shape, spec, mesh) -> tuple[int, ...]:
+    return tuple(n // mesh.axes_size(spec_axes(e)) for n, e in zip(shape, spec))
+
+
+def mesh_train_bytes(cfg: ModelConfig, run: TrainRunConfig, mesh) -> dict:
+    """A rank's training bytes on ``mesh`` (an abstract one serves), from
+    the specs of :func:`train_state_shardings` alone: ``state``, its slices
+    of the parameters and both moments, and the step; ``grads``, its
+    gradient slices (and with microbatches their accumulators in
+    ``accum_dtype``); ``gathered``, the full tensors of the units
+    (:func:`~repro_torch.models.transformer.model_units`) alive at once:
+    under ``remat="block"`` the largest unit's parameters and gradients,
+    under ``"none"`` every period's and the head's parameters (autograd
+    keeps them) and the largest unit's gradients; ``total``, their sum.
+    Activations are not counted."""
+    state = abstract_train_state(cfg, run)
+    model, opt = state["params"], state["opt"]
+    specs = train_state_shardings(state, mesh)["params"]
+    params = trainable_parameters(model)
+    local = {n: math.prod(_local_shape(p.shape, specs[n], mesh)) for n, p in params.items()}
+    state_b = opt["step"].element_size() + sum(
+        local[n] * (p.element_size() + opt["m"][n].element_size() + opt["v"][n].element_size())
+        for n, p in params.items())
+    grads_b = sum(local[n] * p.element_size() for n, p in params.items())
+    if run.num_microbatches > 1:
+        grads_b += sum(local.values()) * torch_dtype(run.accum_dtype).itemsize
+    units = {u: sum(params[n].numel() * params[n].element_size() for n in u.names)
+             for u in model_units(model)}
+    largest = max(units.values())
+    if cfg.remat == "block":
+        gathered = 2 * largest
+    else:
+        gathered = sum(b for u, b in units.items() if u.kind != "embed") + largest
+    return {"state": state_b, "grads": grads_b, "gathered": gathered,
+            "total": state_b + grads_b + gathered}
+
+
+__all__ = ["TrainRunConfig", "abstract_train_state", "full_shape", "gather_train_state",
+           "init_train_state", "make_train_step", "mesh_train_bytes", "place_train_state",
+           "reset_gathered", "train_state_shardings"]

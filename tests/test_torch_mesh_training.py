@@ -10,12 +10,20 @@ this file run as a script; three side by side, each a share of the
 cases), jitted as its launcher jits it, on the meshes
 (pod, data, model) of ``tests/torch_train_worker.py``'s ``CASES``:
 (1, 2, 1), (1, 1, 2), (2, 2, 1) and (1, 2, 1) with four microbatches,
-(2, 1, 2) under ``int8-pod``, tiny-moe and tiny-xlstm on (1, 2, 1). The
-port's gloo ranks (the worker, no JAX, a ``file://`` rendezvous) run the
-same cases from the same parameters, two worlds of 2 and 4 ranks started
-together with the reference's. Every step's loss and gradient norm
-at rel 1e-5 and the whole train state after steps 1 and 8 at atol 1e-5,
-the tolerances of ``test_train_steps_match_reference``. Also: the specs
+(2, 1, 2) under ``int8-pod``, tiny-moe and tiny-xlstm on (1, 2, 1), the
+smollm smoke at 4 layers under ``remat="block"`` on (1, 2, 2) with two
+microbatches, tiny-moe under ``remat="block"`` on (1, 2, 1); and
+``SLICE_CASES``' (2, 2, 1) under ``int8-pod`` (two data ranks in a pod:
+the compression sees slices). The port's gloo ranks (the worker, no JAX,
+a ``file://`` rendezvous) run the same cases from the same parameters,
+two worlds of 2 and 4 ranks started together with the reference's.
+Every step's loss and gradient norm at rel 1e-5 and the whole train
+state after steps 1 and 8 at atol 1e-5, the tolerances of
+``test_train_steps_match_reference``. Also: the gathered parameters a
+step holds alive at once under ``remat="block"`` (at most a unit and the
+embedding's and head's leaves, below the whole tree), ``mesh_train_bytes``
+against each rank's placed state, ``abstract_train_state`` leaf for leaf
+against the reference's, the specs
 of ``train_state_shardings`` leaf for leaf against the reference's at full
 width, ``int8_psum`` against the reference's on a size-1 pod bit for bit,
 a checkpoint written by 2 ranks restored on 1 and one written on 1
@@ -43,8 +51,8 @@ from repro_torch.configs import ARCH_IDS  # noqa: E402
 
 #: the ranks' worlds: size -> the cases its ranks run, in order
 WORLDS = {2: ["dense_1x2x1", "dense_1x1x2", "micro_1x2x1", "moe_1x2x1", "xlstm_1x2x1",
-              "ckpt_out", "ckpt_in"],
-          4: ["dense_2x2x1", "int8_2x1x2", "gather_order"]}
+              "moe_remat_1x2x1", "ckpt_out", "ckpt_in"],
+          4: ["dense_2x2x1", "int8_2x1x2", "remat_1x2x2", "int8_2x2x1", "gather_order"]}
 SPAWN_TIMEOUT = 240
 METRICS = ("loss", "ce", "ppl", "grad_norm", "lr")
 
@@ -55,18 +63,25 @@ def j_config(arch: str):
 
     from repro.configs import get_config, get_smoke
 
+    arch, _, variant = arch.partition("/")
     if arch == "smollm-360m":
-        return get_smoke(arch).scaled(n_layers=2, vocab=64, remat="none")
-    cfg = get_config(arch).scaled(vocab=64)
-    return cfg.scaled(moe=replace(cfg.moe, group_size=32)) if cfg.moe else cfg
+        cfg = get_smoke(arch).scaled(n_layers=2, vocab=64, remat="none")
+    else:
+        cfg = get_config(arch).scaled(vocab=64)
+        cfg = cfg.scaled(moe=replace(cfg.moe, group_size=32)) if cfg.moe else cfg
+    if variant:
+        *layers, remat = variant.split("-")
+        cfg = cfg.scaled(remat=remat, **({"n_layers": int(layers[0])} if layers else {}))
+    return cfg
 
 
 #: every case the reference runs: the ranks' cases and (2, 1, 1) under int8-pod
-REF_CASES = dict(W.CASES, int8_2x1x1=("smollm-360m", (2, 1, 1), "int8-pod", 1))
+REF_CASES = dict(W.CASES, int8_2x1x1=("smollm-360m", (2, 1, 1), "int8-pod", 1),
+                 **W.SLICE_CASES)
 #: the reference's cases split over processes that run side by side
-REF_SPLIT = (["dense_1x2x1", "moe_1x2x1", "int8_2x1x2"],
-             ["xlstm_1x2x1", "dense_1x1x2", "int8_2x1x1"],
-             ["dense_2x2x1", "micro_1x2x1"])
+REF_SPLIT = (["dense_1x2x1", "moe_1x2x1", "int8_2x1x2", "moe_remat_1x2x1"],
+             ["xlstm_1x2x1", "dense_1x1x2", "int8_2x1x1", "int8_2x2x1"],
+             ["dense_2x2x1", "micro_1x2x1", "remat_1x2x2"])
 
 
 def reference_main(params_path: str, out_path: str, names: list[str]) -> None:
@@ -273,6 +288,29 @@ def test_mesh_train_steps_match_reference(results, name):
         assert held["embedding.embed"][1] * shape[1] == W.config(W.CASES[name][0]).d_model
 
 
+def test_int8_pod_on_slices_matches_reference(results):
+    """``int8-pod`` on (2, 2, 1): two data ranks inside each pod, so each
+    rank's gradient reaches the compression as its slice of the leaf (the
+    FSDP rows), and the absmax must be the whole leaf's, over the pod and
+    the data axis, as the reference takes it. Held to the int8 cases' bar
+    of :func:`test_mesh_train_steps_match_reference`: the loss within rel
+    1e-5 of the reference's mesh step, the gradient norm within rel 1e-4,
+    the state after steps 1 and 8 tie-limited. (That test's other check,
+    that the reference's own (2, 1, 1) run lies more than 1e-5 away, does
+    not hold on this mesh: 7.7e-6.)"""
+    name = "int8_2x2x1"
+    ref, ranks = results["ref"][name], results[name]
+    for rec in ranks[1:]:
+        assert {k: rec[k] for k in METRICS} == {k: ranks[0][k] for k in METRICS}
+    for i in range(W.STEPS):
+        for k in METRICS:
+            rel = 1e-4 if k == "grad_norm" else 1e-5
+            assert ranks[0][k][i] == pytest.approx(ref[k][i], rel=rel), (i, k)
+    for s in W.HELD:
+        _tie_limited(ranks[0][f"state{s}"], ref[f"state{s}"], 1e-5, 1e-4, 0.01)
+    assert ranks[0]["held"]["embedding.embed"][1] * 2 == W.config("smollm-360m").d_model
+
+
 def test_int8_pod_differs_from_uncompressed(results):
     """(2, 1, 2) under ``int8-pod`` is not the uncompressed step: its
     per-pod loss and its rounded gradient move the state elsewhere than
@@ -285,6 +323,43 @@ def test_int8_pod_differs_from_uncompressed(results):
     ref_diff = max(np.abs(x - y).max() for x, y in zip(_keyed(ra["state8"]).values(),
                                                         _keyed(rb["state8"]).values()))
     assert diff > 1e-5 and ref_diff > 1e-5
+
+
+#: the cases whose config recomputes each period (``remat="block"``)
+REMAT_CASES = [n for n, c in W.CASES.items() if W.config(c[0]).remat == "block"]
+
+
+@pytest.mark.parametrize("name", REMAT_CASES)
+def test_gathered_parameters_stay_within_a_unit(results, name):
+    """Under ``remat="block"`` the full parameters a step gathers and holds
+    alive at once never exceed the largest unit's (a period, the
+    embedding, or the final norm with the head) plus the embedding's and
+    the head's whole leaves, and stay strictly below the whole tree's: no
+    rank holds the whole model."""
+    for r, rec in enumerate(results[name]):
+        peak, units = rec["gathered_peak"], rec["units"]
+        bound = max(units.values()) + sum(rec["leaves"].values())
+        assert 0 < peak <= bound, (r, peak, bound, units)
+        assert peak < rec["tree_bytes"], (r, peak, rec["tree_bytes"])
+
+
+@pytest.mark.parametrize("name", list(W.CASES | W.SLICE_CASES))
+def test_mesh_train_bytes_match_placed_state(results, name):
+    """``mesh_train_bytes`` from the specs alone against the placed state
+    on each rank: its parameter, moment and step tensors' bytes, the
+    gradient slices (with their accumulators under microbatches), and the
+    gathered units its formula names."""
+    arch, _, _, n_mb = (W.CASES | W.SLICE_CASES)[name]
+    remat = W.config(arch).remat == "block"
+    for r, rec in enumerate(results[name]):
+        got, units = rec["bytes"], rec["units"]
+        assert got["state"] == rec["state_bytes"], r
+        assert got["grads"] == rec["grad_bytes"] * (2 if n_mb > 1 else 1), r
+        largest = max(units.values())
+        want = 2 * largest if remat else sum(
+            b for u, b in units.items() if not u.startswith("embed")) + largest
+        assert got["gathered"] == want, r
+        assert got["total"] == got["state"] + got["grads"] + got["gathered"], r
 
 
 def test_all_gather_puts_blocks_in_shard_order(results):
@@ -445,6 +520,32 @@ def test_train_state_shardings_match_reference(arch):
                 assert tuple(_entry(e) for e in spec) == w, (shape, part, name)
                 seen.add(key)
             assert seen == set(ref), (shape, part)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_abstract_train_state_matches_reference(arch):
+    """``abstract_train_state`` at full width: the reference's
+    ``abstract_train_state`` leaf for leaf (params, m, v, step) in shape
+    and dtype, every tensor on the ``meta`` device (nothing allocated)."""
+    import jax
+
+    from repro.configs import get_config as j_get_config
+    from repro.runtime.steps import TrainRunConfig as JTrainRunConfig
+    from repro.runtime.steps import abstract_train_state as j_abstract_train_state
+    from repro_torch.configs import get_config
+    from repro_torch.interop import train_state_tree
+    from repro_torch.runtime import TrainRunConfig, abstract_train_state
+
+    state = abstract_train_state(get_config(arch), TrainRunConfig())
+    tensors = [*state["params"].parameters(), *state["params"].buffers(),
+               *state["opt"]["m"].values(), *state["opt"]["v"].values(), state["opt"]["step"]]
+    assert all(t.is_meta for t in tensors)
+    got = jax.tree_util.tree_flatten_with_path(train_state_tree(state, spec=True))[0]
+    want = jax.tree_util.tree_flatten_with_path(
+        j_abstract_train_state(j_get_config(arch), JTrainRunConfig()))[0]
+    assert [(jax.tree_util.keystr(k), tuple(v.shape), str(v.dtype).split(".")[-1])
+            for k, v in got] == [(jax.tree_util.keystr(k), tuple(v.shape), str(v.dtype))
+                                 for k, v in want]
 
 
 def test_int8_psum_matches_reference_on_a_one_rank_pod():

@@ -9,7 +9,9 @@ and runs the cases in order, each on its own mesh of the same ranks
 arch) carried into the port with ``interop.params_from_numpy``, the train
 state placed on the mesh, :data:`STEPS` steps on the rank's rows of each
 global batch; it records every step's metrics and the whole train state
-(gathered, in the reference's layout) after steps 1 and 8. The checkpoint
+(gathered, in the reference's layout) after steps 1 and 8, the most bytes
+of gathered parameters alive at once in a step beside each unit's whole
+bytes, and the placed state's bytes beside ``mesh_train_bytes``. The checkpoint
 cases write a placed state's checkpoint from the ranks (``ckpt_out``) and
 restore a one-device checkpoint onto the mesh (``ckpt_in``); ``gather_order``
 holds the NCCL form of a gather to the gloo form. No JAX.
@@ -18,6 +20,7 @@ holds the NCCL form of a gather to the gloo form. No JAX.
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import pickle
 import sys
@@ -36,12 +39,14 @@ from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.configs import get_config, get_smoke  # noqa: E402
 from repro_torch.data import DataConfig, TokenBatcher  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.models.transformer import model_units  # noqa: E402
 from repro_torch.runtime import (  # noqa: E402
     TrainRunConfig,
     gather_train_state,
     init_train_state,
     make_train_step,
     place_train_state,
+    steps,
 )
 
 STEPS = 8
@@ -49,7 +54,8 @@ STEPS = 8
 HELD = (1, 8)
 #: the checkpoint cases' step to write (or restore) and the step they reach
 CKPT_AT, CKPT_END = 3, 5
-#: name: (arch, (pod, data, model), grad_compression, microbatches)
+#: name: (arch, (pod, data, model), grad_compression, microbatches); an
+#: arch ``name/L-remat`` or ``name/remat`` is :func:`config`'s variant
 CASES = {
     "dense_1x2x1": ("smollm-360m", (1, 2, 1), "none", 1),
     "dense_1x1x2": ("smollm-360m", (1, 1, 2), "none", 1),
@@ -58,21 +64,33 @@ CASES = {
     "xlstm_1x2x1": ("tiny-xlstm", (1, 2, 1), "none", 1),
     "dense_2x2x1": ("smollm-360m", (2, 2, 1), "none", 1),
     "int8_2x1x2": ("smollm-360m", (2, 1, 2), "int8-pod", 1),
+    "remat_1x2x2": ("smollm-360m/4-block", (1, 2, 2), "none", 2),
+    "moe_remat_1x2x1": ("tiny-moe/block", (1, 2, 1), "none", 1),
 }
+#: int8-pod with data > 1 inside a pod: each rank's gradient reaches the
+#: compression as its slice of the leaf (held in a test of its own)
+SLICE_CASES = {"int8_2x2x1": ("smollm-360m", (2, 2, 1), "int8-pod", 1)}
 #: the checkpoint cases' mesh
 CKPT_MESH = (1, 2, 1)
-ARCHS = sorted({c[0] for c in CASES.values()})
+ARCHS = sorted({c[0] for c in (CASES | SLICE_CASES).values()})
 
 
 def config(arch: str):
     """The test's config of ``arch``: the 2-layer smollm smoke of
     ``tests/test_torch_training.py``, or a per-family rung; vocab 64, and
     tiny-moe's routing groups of 32 tokens, so that a rank's 64 tokens on
-    (1, 2, 1) are whole groups."""
+    (1, 2, 1) are whole groups. ``arch/L-remat`` scales it to L layers
+    and ``remat``, ``arch/remat`` to ``remat``."""
+    arch, _, variant = arch.partition("/")
     if arch == "smollm-360m":
-        return get_smoke(arch).scaled(n_layers=2, vocab=64, remat="none")
-    cfg = get_config(arch).scaled(vocab=64)
-    return cfg.scaled(moe=replace(cfg.moe, group_size=32)) if cfg.moe else cfg
+        cfg = get_smoke(arch).scaled(n_layers=2, vocab=64, remat="none")
+    else:
+        cfg = get_config(arch).scaled(vocab=64)
+        cfg = cfg.scaled(moe=replace(cfg.moe, group_size=32)) if cfg.moe else cfg
+    if variant:
+        *layers, remat = variant.split("-")
+        cfg = cfg.scaled(remat=remat, **({"n_layers": int(layers[0])} if layers else {}))
+    return cfg
 
 
 def data() -> TokenBatcher:
@@ -94,8 +112,10 @@ def rows(mesh, batch: np.ndarray) -> torch.Tensor:
 def _train(mesh, state, step, lo: int, hi: int, out: dict | None = None) -> dict:
     d = data()
     for i in range(lo, hi):
+        steps.reset_gathered()
         state, m = step(state, {"tokens": rows(mesh, d.batch(i)["tokens"])})
         if out is not None:
+            out["gathered_peak"] = max(out.get("gathered_peak", 0), steps.gathered_peak)
             for k in ("loss", "ce", "aux", "ppl", "grad_norm", "lr"):
                 out.setdefault(k, []).append(float(m[k]))
             if i + 1 in HELD:
@@ -104,14 +124,32 @@ def _train(mesh, state, step, lo: int, hi: int, out: dict | None = None) -> dict
 
 
 def run_case(ctx, name: str) -> dict:
-    arch, shape, comp, n_mb = CASES[name]
+    arch, shape, comp, n_mb = (CASES | SLICE_CASES)[name]
     mesh = make_mesh(shape, **ctx["init"])
     cfg, run = config(arch), run_config(comp, n_mb)
     model = interop.params_from_numpy(ctx["params"][arch], cfg, device="cpu")
     state = place_train_state(init_train_state(cfg, run, model=model), mesh)
-    out = {"held": {n: tuple(p.shape) for n, p in state["params"].named_parameters()}}
+    out = {"held": {n: tuple(p.shape) for n, p in state["params"].named_parameters()},
+           "state_bytes": sum(t.numel() * t.element_size() for t in [
+               *state["params"].parameters(), *state["opt"]["m"].values(),
+               *state["opt"]["v"].values(), state["opt"]["step"]]),
+           "grad_bytes": sum(p.numel() * p.element_size()
+                             for p in state["params"].parameters()),
+           "bytes": steps.mesh_train_bytes(cfg, run, mesh),
+           "units": {f"{u.kind}{u.index}": sum(_full_bytes(state, n) for n in u.names)
+                     for u in model_units(state["params"])},
+           "leaves": {n: _full_bytes(state, n) for n in ("embedding.embed", "embedding.head")
+                      if n in state["params"]._train_specs},
+           "tree_bytes": sum(_full_bytes(state, n) for n in state["params"]._train_specs)}
     _train(mesh, state, make_train_step(cfg, run, mesh), 0, STEPS, out)
     return out
+
+
+def _full_bytes(state, name: str) -> int:
+    """Bytes of the whole leaf ``name`` of a placed state."""
+    model = state["params"]
+    p = dict(model.named_parameters())[name]
+    return math.prod(steps.full_shape(p, model._train_specs[name], model._mesh)) * p.element_size()
 
 
 def ckpt_out(ctx) -> dict:
